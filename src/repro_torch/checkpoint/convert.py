@@ -1,0 +1,75 @@
+"""Carry network weights across between the two packages as flat arrays.
+
+The keys are those of the reference's whole-network checkpoint
+(``arrays.npz`` as ``repro/checkpoint/store.py:path_key`` writes it):
+
+    layers/<i>/marginals/{ci,cj,cij}   layers/<i>/{w,b,step}
+    layers/<i>/plast/hcu_mask          (hidden layers only)
+
+so a state trained by either package, or read from such a checkpoint,
+loads into the other.
+"""
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.compiled import NetworkState
+from repro_torch.core.layers import LayerState
+from repro_torch.core.learning import MarginalState
+from repro_torch.core.plasticity import PlasticityState
+
+
+def network_state_from_flat(
+    flat: Dict[str, np.ndarray], layers: Sequence, device="cpu"
+) -> NetworkState:
+    """A NetworkState for ``layers`` on ``device`` from flat arrays."""
+    if any(k.startswith("readout/") for k in flat):
+        raise ValueError("readout/*: the SGD readout head is not ported yet")
+
+    def get(key: str, shape) -> torch.Tensor:
+        if key not in flat:
+            raise KeyError(f"missing array {key!r}")
+        arr = np.array(flat[key], dtype=np.float32)  # a writable copy
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"{key}: shape {arr.shape} != expected {tuple(shape)}")
+        return torch.from_numpy(arr).to(device)
+
+    states = []
+    for i, layer in enumerate(layers):
+        spec, p = layer.spec, f"layers/{i}/"
+        step = int(np.asarray(flat[p + "step"]))
+        mask_key = p + "plast/hcu_mask"
+        states.append(LayerState(
+            marginals=MarginalState(
+                ci=get(p + "marginals/ci", (spec.n_pre,)),
+                cj=get(p + "marginals/cj", (spec.n_post,)),
+                cij=get(p + "marginals/cij", (spec.n_pre, spec.n_post)),
+            ),
+            w=get(p + "w", (spec.n_pre, spec.n_post)),
+            b=get(p + "b", (spec.n_post,)),
+            plast=(
+                PlasticityState(get(mask_key, (spec.pre.n_hcu, spec.post.n_hcu)))
+                if mask_key in flat else None
+            ),
+            step=torch.tensor(step, dtype=torch.int32, device=device),
+            host_step=step,
+        ))
+    return NetworkState(layers=tuple(states))
+
+
+def flat_from_network_state(state: NetworkState) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`network_state_from_flat`, as host numpy arrays."""
+    flat = {}
+    for i, s in enumerate(state.layers):
+        p = f"layers/{i}/"
+        for name, t in (
+            ("marginals/ci", s.marginals.ci), ("marginals/cj", s.marginals.cj),
+            ("marginals/cij", s.marginals.cij), ("w", s.w), ("b", s.b), ("step", s.step),
+        ):
+            flat[p + name] = t.detach().cpu().numpy()
+        if s.plast is not None:
+            flat[p + "plast/hcu_mask"] = s.plast.hcu_mask.detach().cpu().numpy()
+    return flat

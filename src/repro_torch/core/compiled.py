@@ -1,0 +1,260 @@
+"""The compile step: bind a declarative Network to a device and a plan.
+
+::
+
+    compiled = model.compile(ExecutionConfig(engine="scan"))  # device="cuda"
+    compiled.fit((x, y), epochs_hidden=5, epochs_readout=5)
+    compiled.evaluate((x_test, y_test))
+
+:class:`ExecutionConfig` holds everything about *how* the network runs.
+On a CUDA device every hot op is a hand-written Hopper kernel; on the CPU
+the same code runs the kernels' plain versions (the tests use this).
+Options of the reference that are not ported yet (``trainer``,
+``precision``, ``use_kernels``, ``fused_phase``, ``strict``, ``trace``,
+``profile_dir``) are absent, so passing one raises a ``TypeError`` that
+names it; so do ``save``/``load``/``streaming``/``serve``, which this
+class does not have yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.layers import DenseLayer, LayerState, StructuralPlasticityLayer
+from repro_torch.runtime.activations import store_for
+from repro_torch.runtime.epoch_engine import rows_to
+from repro_torch.runtime.plans import PLANS, ExecutionPlan, make_plan
+
+MIN_CAPABILITY = (9, 0)  # the kernels are built for sm_90a
+
+
+def build_head(layers) -> Callable:
+    """The readout head ``(states, hb) -> scores`` over level-H hidden codes:
+    the trailing DenseLayer's forward, or the codes themselves when the
+    network has no readout.  Shared by :func:`build_forward` and the
+    project-once predict, so the two cannot diverge."""
+    n_hidden = len(layers) - 1 if isinstance(layers[-1], DenseLayer) else len(layers)
+
+    def head(states, hb):
+        if n_hidden < len(layers):
+            return layers[-1].forward(states[-1], hb)
+        return hb
+
+    return head
+
+
+def build_forward(layers) -> Callable:
+    """The full-network forward ``(states, xb) -> scores``."""
+    n_hidden = len(layers) - 1 if isinstance(layers[-1], DenseLayer) else len(layers)
+    head = build_head(layers)
+
+    def fwd(states, xb):
+        h = xb
+        for layer, state in zip(layers[:n_hidden], states[:n_hidden]):
+            h = layer.forward(state, h)
+        return head(states, h)
+
+    return fwd
+
+
+class NetworkState(NamedTuple):
+    """The whole network's learnable state: one LayerState per layer."""
+
+    layers: Tuple[LayerState, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionConfig:
+    """Everything about *how* a network executes, none of *what* it is.
+
+    engine:      "scan" (device-resident epoch stacks, default) or "batch"
+                 (per-batch reference loop).
+    device:      "cuda" (default) runs the Hopper kernels and needs a device
+                 of compute capability 9.0 or above; "cpu" runs their plain
+                 versions.  ``compile()`` raises rather than fall back.
+    donate:      reuse one epoch's device stack buffer for the next epoch.
+    cache_activations:    project-once training (default): each phase
+                 boundary projects the dataset once through the frozen
+                 prefix; False recomputes the frozen stack per batch (the
+                 parity reference).
+    activation_budget_mb: device-memory budget for cached levels; beyond it
+                 levels spill to pinned host memory.
+    """
+
+    engine: str = "scan"
+    device: str = "cuda"
+    donate: bool = True
+    cache_activations: bool = True
+    activation_budget_mb: float = 512.0
+
+    def __post_init__(self):
+        if self.engine not in PLANS:
+            raise ValueError(f"Unknown engine {self.engine!r} (want one of {sorted(PLANS)})")
+        if self.activation_budget_mb <= 0:
+            raise ValueError("activation_budget_mb must be positive")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device with an explicit index; raises unless it
+    is the CPU or a CUDA device of capability 9.0 or above."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"device {str(dev)!r}: want 'cuda' or 'cpu'")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"ExecutionConfig(device={str(device)!r}) needs a CUDA device and none "
+            "is available; pass device='cpu' to run the kernels' plain versions"
+        )
+    dev = torch.device("cuda", dev.index if dev.index is not None else torch.cuda.current_device())
+    cap = torch.cuda.get_device_capability(dev)
+    if cap < MIN_CAPABILITY:
+        raise RuntimeError(
+            f"{torch.cuda.get_device_name(dev)} has compute capability {cap}; "
+            f"the kernels need {MIN_CAPABILITY} or above (sm_90a)"
+        )
+    return dev
+
+
+class CompiledNetwork:
+    """A Network bound to one device and one ExecutionPlan, owning its state."""
+
+    def __init__(self, network, config: Optional[ExecutionConfig] = None):
+        self.network = network
+        self.config = config if config is not None else ExecutionConfig()
+        self.device = resolve_device(self.config.device)
+        network.build()
+        self.layers = list(network.layers)
+        self.state = NetworkState(layers=tuple(s.to(self.device) for s in network.states))
+        self.plan: ExecutionPlan = make_plan(
+            self.config.engine, self.layers, self.device, donate=self.config.donate
+        )
+        self.activations = store_for(self.layers, self.config, self.device)
+        self._rng = np.random.default_rng(network.seed)
+
+    @property
+    def hidden_layers(self) -> List[StructuralPlasticityLayer]:
+        return self.plan.hidden_layers
+
+    @property
+    def readout_layer(self) -> Optional[DenseLayer]:
+        return self.plan.readout_layer
+
+    # -------------------------------------------------------------- forward
+    def predict(self, x, batch_size: int = 1024) -> torch.Tensor:
+        """Class scores on the compiled device.  With the activation store
+        the hidden stack runs through the same level-H projection training
+        used, so only the readout head runs per call."""
+        states = self.state.layers
+        outs = []
+        if self.activations is not None and self.hidden_layers:
+            h = self.activations.level(len(self.hidden_layers), list(states), x, chunk=batch_size)
+            head = build_head(self.layers)
+            for i in range(0, h.shape[0], batch_size):
+                outs.append(head(states, rows_to(h, i, i + batch_size, self.device)))
+        else:
+            fwd = build_forward(self.layers)
+            for i in range(0, x.shape[0], batch_size):
+                outs.append(fwd(states, rows_to(x, i, i + batch_size, self.device)))
+        return torch.cat(outs)
+
+    def evaluate(self, dataset, batch_size: int = 1024) -> float:
+        """Classification accuracy (argmax over output units)."""
+        x, y = dataset
+        pred = self.predict(x, batch_size=batch_size).argmax(dim=-1).cpu().numpy()
+        return float(np.mean(pred == np.asarray(y)))
+
+    # ------------------------------------------------------------- training
+    def fit(
+        self,
+        dataset,
+        epochs_hidden=10,
+        epochs_readout: int = 10,
+        batch_size: int = 128,
+        readout: str = "bcpnn",
+        shuffle: bool = True,
+        verbose: bool = False,
+    ):
+        """Phase-program BCPNN training (Alg. 1 + supervised readout)."""
+        from repro_torch.core.network import FitResult
+
+        t0 = time.perf_counter()
+        history: List[dict] = []
+        self._run(
+            dataset, epochs_hidden, epochs_readout, batch_size, readout, shuffle,
+            verbose, history, partial=False,
+        )
+        return FitResult(
+            epochs_hidden=epochs_hidden,
+            epochs_readout=epochs_readout,
+            batch_size=min(batch_size, dataset[0].shape[0]),
+            wall_time_s=time.perf_counter() - t0,
+            history=history,
+        )
+
+    def partial_fit(
+        self,
+        dataset,
+        batch_size: int = 128,
+        readout: Optional[str] = None,
+        shuffle: bool = False,
+        verbose: bool = False,
+    ):
+        """One incremental pass over a chunk: one Hebbian epoch per hidden
+        layer, plus one readout epoch when ``readout`` is given.  A ragged
+        tail is dropped and reported as a ``ragged_tail_dropped`` entry."""
+        from repro_torch.core.network import FitResult
+
+        t0 = time.perf_counter()
+        history: List[dict] = []
+        self._run(
+            dataset, 1, 1 if readout is not None else 0, batch_size,
+            readout or "bcpnn", shuffle, verbose, history, partial=True,
+        )
+        return FitResult(
+            epochs_hidden=1,
+            epochs_readout=1 if readout is not None else 0,
+            batch_size=min(batch_size, dataset[0].shape[0]),
+            wall_time_s=time.perf_counter() - t0,
+            history=history,
+        )
+
+    def _run(
+        self, dataset, epochs_hidden, epochs_readout, batch_size, readout,
+        shuffle, verbose, history, partial,
+    ) -> None:
+        from repro_torch.runtime.program import HiddenPhase, compile_program, run_program
+
+        x, y = dataset
+        n_total = x.shape[0]
+        if n_total == 0:
+            raise ValueError("fit() called with an empty dataset")
+        # Clamp B to the dataset; each epoch trains n samples (a multiple of
+        # B) from a full-dataset permutation, so the ragged tail rotates.
+        batch_size = min(batch_size, n_total)
+        n = (n_total // batch_size) * batch_size
+        if partial and n < n_total:
+            history.append({"phase": "ragged_tail_dropped", "samples": n_total - n})
+        program = compile_program(
+            len(self.hidden_layers), epochs_hidden, epochs_readout, readout
+        )
+        if y is None and any(not isinstance(p, HiddenPhase) for p in program.phases):
+            raise ValueError(
+                "readout training requires labels: pass (x, y), or run "
+                "hidden-only with epochs_readout=0 (fit) / readout=None (partial_fit)"
+            )
+        if verbose:
+            print(f"[fit/{self.plan.name}] program: {program.describe()}")
+        run_program(self, program, x, y, n, n_total, batch_size, shuffle, verbose, history)
+
+    def _epoch_indices(self, n: int, n_total: int, shuffle: bool) -> np.ndarray:
+        """First ``n`` indices of a full-dataset permutation drawn from
+        ``np.random.default_rng(network.seed)``, as the reference draws them."""
+        if not shuffle:
+            return np.arange(n)
+        return self._rng.permutation(n_total)[:n]

@@ -1,0 +1,230 @@
+"""Functional BCPNN layers (the DSL's building blocks).
+
+Each layer is a plain object: ``init(generator) -> LayerState`` plus
+``forward(state, x)`` / ``train_batch(state, x, [y])`` transitions that
+return new states and never mutate the old ones (the activation store
+invalidates cached projections by state identity).  Two layer types, as in
+the paper's Listing 1:
+
+* :class:`StructuralPlasticityLayer`: input -> hidden, unsupervised
+  Hebbian learning with a dynamic receptive-field mask (Alg. 1).
+* :class:`DenseLayer`: hidden -> output, supervised readout with the
+  post-activations clamped to one-hot labels.
+
+The hot ops go through ``repro_torch.kernels.ops``, which picks the Hopper
+kernels for CUDA tensors and their plain versions for CPU tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import learning, plasticity
+from repro_torch.core.learning import MarginalState
+from repro_torch.core.plasticity import PlasticityState
+from repro_torch.core.units import UnitLayout
+from repro_torch.kernels import ops
+
+
+class LayerState(NamedTuple):
+    """Learnable state of a BCPNN layer.
+
+    w/b are derived from the marginals each cycle but cached here because
+    inference uses them without touching the marginals.  ``step`` counts
+    the train batches seen on the device; ``host_step`` mirrors it on the
+    host, so rewiring is decided without reading the device each batch.
+    """
+
+    marginals: MarginalState
+    w: torch.Tensor
+    b: torch.Tensor
+    plast: Optional[PlasticityState]
+    step: torch.Tensor  # int32 scalar
+    host_step: int = 0
+
+    def to(self, device) -> "LayerState":
+        """This state with every tensor on ``device`` (a new state object)."""
+        m = self.marginals
+        return LayerState(
+            marginals=MarginalState(m.ci.to(device), m.cj.to(device), m.cij.to(device)),
+            w=self.w.to(device),
+            b=self.b.to(device),
+            plast=None if self.plast is None else PlasticityState(self.plast.hcu_mask.to(device)),
+            step=self.step.to(device),
+            host_step=self.host_step,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class BCPNNLayerSpec:
+    """Hyperparameters shared by both layer types."""
+
+    pre: UnitLayout
+    post: UnitLayout
+    lam: float = 0.001
+    k_b: float = 1.0
+    n_cycles: int = 1
+    gain: float = 1.0  # softmax inverse temperature (soft-WTA sharpness)
+
+    @property
+    def n_pre(self) -> int:
+        return self.pre.n_units
+
+    @property
+    def n_post(self) -> int:
+        return self.post.n_units
+
+
+def _unit_mask(spec: BCPNNLayerSpec, state: LayerState) -> Optional[torch.Tensor]:
+    if state.plast is None:
+        return None
+    return state.plast.unit_mask(spec.pre, spec.post)
+
+
+def _forward(
+    spec: BCPNNLayerSpec, state: LayerState, x: torch.Tensor,
+    mask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """s = x @ (w o mask) + b, times the gain, then softmax per HCU.  The
+    gain multiply between the two kernels stays a plain elementwise op."""
+    s = ops.masked_matmul(x, state.w, state.b, mask=mask)
+    if spec.gain != 1.0:
+        s = s * spec.gain
+    return ops.hcu_softmax(s, n_hcu=spec.post.n_hcu, n_mcu=spec.post.n_mcu)
+
+
+def _learn(
+    spec: BCPNNLayerSpec, state: LayerState, ai: torch.Tensor, aj: torch.Tensor,
+    mask: Optional[torch.Tensor],
+) -> LayerState:
+    """n_cycles of the EWMA marginal -> weight update (Alg.1 L10-16)."""
+    marg, w, b = state.marginals, state.w, state.b
+    for _ in range(spec.n_cycles):
+        marg, w, b = ops.bcpnn_update(marg, ai, aj, lam=spec.lam, k_b=spec.k_b, mask=mask)
+    return LayerState(
+        marginals=marg, w=w, b=b, plast=state.plast, step=state.step + 1,
+        host_step=state.host_step + 1,
+    )
+
+
+def _device(generator: Optional[torch.Generator]) -> torch.device:
+    return generator.device if generator is not None else torch.device("cpu")
+
+
+class StructuralPlasticityLayer:
+    """Unsupervised BCPNN layer with dynamic receptive fields (Alg. 1)."""
+
+    def __init__(
+        self,
+        pre: UnitLayout,
+        post: UnitLayout,
+        fan_in: Optional[int] = None,
+        lam: float = 0.001,
+        k_b: float = 1.0,
+        n_cycles: int = 1,
+        mask_update_every: Optional[int] = None,
+        init_jitter: float = 1.0,
+        gain: float = 1.0,
+    ):
+        self.spec = BCPNNLayerSpec(
+            pre=pre, post=post, lam=lam, k_b=k_b, n_cycles=n_cycles, gain=gain
+        )
+        self.init_jitter = init_jitter
+        self.fan_in = fan_in if fan_in is not None else pre.n_hcu
+        # Alg.1 L4: "if i_B % N_HCU == 0: update plasticity mask"
+        self.mask_update_every = (
+            mask_update_every if mask_update_every is not None else post.n_hcu
+        )
+
+    def init(self, generator: torch.Generator) -> LayerState:
+        """Jittered marginals, then random receptive fields, both drawn from
+        ``generator`` and placed on its device."""
+        spec, device = self.spec, _device(generator)
+        marg = learning.init_marginals(
+            spec.n_pre, spec.n_post, spec.pre, spec.post,
+            generator=generator, jitter=self.init_jitter, device=device,
+        )
+        if self.fan_in < spec.pre.n_hcu:
+            plast = plasticity.init_random_mask(generator, spec.pre, spec.post, self.fan_in)
+        else:
+            plast = plasticity.full_mask(spec.pre, spec.post, device=device)
+        w, b = learning.weights_from_marginals(marg, spec.k_b)
+        w = w * plast.unit_mask(spec.pre, spec.post)
+        return LayerState(
+            marginals=marg, w=w, b=b, plast=plast,
+            step=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+    def forward(self, state: LayerState, x: torch.Tensor) -> torch.Tensor:
+        return _forward(self.spec, state, x, _unit_mask(self.spec, state))
+
+    def train_batch(
+        self, state: LayerState, x: torch.Tensor
+    ) -> Tuple[LayerState, torch.Tensor]:
+        """One Alg.1 batch iteration: (maybe) rewire, forward, learn.  The
+        unit mask is expanded once and shared by the forward and the update."""
+        state = self.maybe_update_mask(state)
+        mask = _unit_mask(self.spec, state)
+        aj = _forward(self.spec, state, x, mask)
+        return _learn(self.spec, state, x, aj, mask), aj
+
+    def maybe_update_mask(self, state: LayerState) -> LayerState:
+        """Rewire every ``mask_update_every`` batches (Alg.1 L4-6), decided
+        on the host mirror of the step counter: no device sync."""
+        if self.fan_in >= self.spec.pre.n_hcu:
+            return state  # dense: nothing to rewire
+        if state.host_step % self.mask_update_every != 0:
+            return state
+        new_plast = plasticity.update_mask(
+            state.plast, state.marginals, self.spec.pre, self.spec.post
+        )
+        # Re-apply the (possibly changed) mask to the cached weights.
+        w = state.w * new_plast.unit_mask(self.spec.pre, self.spec.post)
+        return state._replace(w=w, plast=new_plast)
+
+
+class DenseLayer:
+    """Supervised BCPNN readout layer: marginal learning against one-hot
+    targets (a_k := onehot(y))."""
+
+    def __init__(
+        self,
+        pre: UnitLayout,
+        post: UnitLayout,
+        lam: float = 0.001,
+        k_b: float = 1.0,
+        n_cycles: int = 1,
+        gain: float = 1.0,
+    ):
+        self.spec = BCPNNLayerSpec(
+            pre=pre, post=post, lam=lam, k_b=k_b, n_cycles=n_cycles, gain=gain
+        )
+
+    def init(self, generator: Optional[torch.Generator] = None) -> LayerState:
+        """Marginals at the prior; ``generator`` only names the device."""
+        spec, device = self.spec, _device(generator)
+        marg = learning.init_marginals(
+            spec.n_pre, spec.n_post, spec.pre, spec.post, device=device
+        )
+        w, b = learning.weights_from_marginals(marg, spec.k_b)
+        return LayerState(
+            marginals=marg, w=w, b=b, plast=None,
+            step=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+    def forward(self, state: LayerState, x: torch.Tensor) -> torch.Tensor:
+        return _forward(self.spec, state, x, None)
+
+    def train_batch(
+        self, state: LayerState, x: torch.Tensor, y: torch.Tensor
+    ) -> Tuple[LayerState, torch.Tensor]:
+        """Supervised batch: targets (int labels or already one-hot) become
+        the post-activations for the marginal update."""
+        if y.ndim == x.ndim - 1:  # integer labels -> one-hot over output units
+            aj = F.one_hot(y.long(), self.spec.n_post).to(x.dtype)
+        else:
+            aj = y
+        return _learn(self.spec, state, x, aj, None), aj

@@ -1,0 +1,44 @@
+"""Hopper kernel for the softmax within each hypercolumn.
+
+Replaces the TPU kernel ``repro/kernels/hcu_softmax.py:hcu_softmax``
+(``pl.pallas_call`` at line 62).  Source: ``csrc/hcu_softmax.cu``.
+
+Bound on an H100: a read and a write of s, a few flops per element, so it
+is bound by bytes (about 3 MB at B=128, H=3000).  Design: the paper's own
+CUDA one, one warp per (row, HCU) with lanes striding over the MCUs and
+``__shfl_xor_sync`` reductions for the max and the sum.  The TPU kernel's
+-inf padding of the MCU axis to 128 lanes is not needed.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+launches = 0  # kernel launches since the last reset (see ops.reset_launches)
+
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_fn = None
+
+
+def hcu_softmax(s: torch.Tensor, n_hcu: int, n_mcu: int) -> torch.Tensor:
+    """s (B, n_hcu*n_mcu) -> per-HCU softmax activations, same shape.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    global launches, _fn
+    if s.ndim != 2 or s.shape[-1] != n_hcu * n_mcu:
+        raise ValueError(f"hcu_softmax: bad shape {tuple(s.shape)} for layout ({n_hcu},{n_mcu})")
+    if _build.on_cpu("hcu_softmax", s):
+        return ref.hcu_softmax(s, n_hcu, n_mcu)
+    if _fn is None:
+        _fn = _build.function("hcu_softmax", "hcu_softmax_f32", _ARGTYPES)
+    out = torch.empty_like(s)
+    _build.launch(
+        "hcu_softmax", _fn, s.device, s.data_ptr(), out.data_ptr(),
+        s.shape[0], n_hcu, n_mcu,
+    )
+    launches += 1
+    return out

@@ -1,0 +1,178 @@
+"""Phase programs: training as an explicit, inspectable schedule.
+
+``CompiledNetwork.fit``/``partial_fit`` compile their arguments into a
+:class:`TrainProgram`, an ordered tuple of :class:`HiddenPhase` and
+:class:`BcpnnReadoutPhase`, and one driver (:func:`run_program`) executes
+it.  Each phase boundary is where a layer freezes, so the driver projects
+the dataset once through the newly frozen prefix (the activation store) and
+every epoch of the phase gathers from that level.  Every epoch's history
+entry splits its wall time into the host's enqueue span (``host_s``) and the
+wait for the device at the one synchronisation that ends the epoch
+(``device_wait_s``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class HiddenPhase:
+    """Unsupervised Hebbian epochs for hidden layer ``li`` (greedy stage)."""
+
+    li: int
+    epochs: int
+
+
+@dataclasses.dataclass(frozen=True)
+class BcpnnReadoutPhase:
+    """Supervised BCPNN DenseLayer readout on frozen hidden codes."""
+
+    epochs: int
+
+
+Phase = Union[HiddenPhase, BcpnnReadoutPhase]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainProgram:
+    """An ordered, immutable training schedule."""
+
+    phases: Tuple[Phase, ...]
+
+    def describe(self) -> str:
+        """One line, e.g. ``hidden0 x20 -> readout(bcpnn) x10``."""
+        parts = [
+            f"hidden{p.li} x{p.epochs}" if isinstance(p, HiddenPhase)
+            else f"readout(bcpnn) x{p.epochs}"
+            for p in self.phases
+        ]
+        return " -> ".join(parts) if parts else "(empty)"
+
+
+def compile_program(
+    n_hidden: int,
+    epochs_hidden: Union[int, Sequence[int]],
+    epochs_readout: int,
+    readout: str = "bcpnn",
+) -> TrainProgram:
+    """Compile fit/partial_fit arguments into a :class:`TrainProgram`.
+
+    ``epochs_hidden`` is one epoch count for every hidden layer or a
+    per-layer schedule.  Only the BCPNN readout is ported so far.
+    """
+    if readout != "bcpnn":
+        raise ValueError(f"readout={readout!r} is not ported yet (want 'bcpnn')")
+    if isinstance(epochs_hidden, (int, np.integer)):
+        schedule = [int(epochs_hidden)] * n_hidden
+    else:
+        schedule = [int(e) for e in epochs_hidden]
+        if len(schedule) != n_hidden:
+            raise ValueError(
+                f"epochs_hidden schedule has {len(schedule)} entries for "
+                f"{n_hidden} hidden layers"
+            )
+    if any(e < 0 for e in schedule) or epochs_readout < 0:
+        raise ValueError("epoch counts must be non-negative")
+    phases: List[Phase] = [HiddenPhase(li, e) for li, e in enumerate(schedule) if e > 0]
+    if epochs_readout > 0:
+        phases.append(BcpnnReadoutPhase(epochs_readout))
+    return TrainProgram(tuple(phases))
+
+
+def run_program(
+    net, program: TrainProgram, x, y, n: int, n_total: int, batch_size: int,
+    shuffle: bool, verbose: bool, history: List[dict],
+) -> None:
+    """Execute ``program`` against a CompiledNetwork, publishing each layer's
+    state onto ``net.state`` as its phase completes."""
+    for phase in program.phases:
+        if isinstance(phase, HiddenPhase):
+            _run_hidden_phase(net, phase, x, n, n_total, batch_size, shuffle, verbose, history)
+        else:
+            _run_bcpnn_phase(net, phase, x, y, n, n_total, batch_size, shuffle, verbose, history)
+
+
+def _timed(history: List[dict], entry: dict, t0: float, device: torch.device) -> None:
+    """Record one history entry with its wall time split into the host-side
+    enqueue span (``host_s``) and the device wait at the one synchronisation
+    of the boundary (``device_wait_s``); ``seconds`` is the total."""
+    t1 = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t2 = time.perf_counter()
+    entry["host_s"] = t1 - t0
+    entry["device_wait_s"] = t2 - t1
+    entry["seconds"] = t2 - t0
+    history.append(entry)
+
+
+def _phase_input(net, level: int, states, x, batch_size, history):
+    """The cached level-k projection (project-once), or None on the fused path."""
+    store = net.activations
+    if store is None:
+        return None
+    t0 = time.perf_counter()
+    xk = store.level(level, states, x, chunk=batch_size)
+    if level > 0:
+        _timed(history, {"phase": "project", "level": level}, t0, net.device)
+    return xk
+
+
+def _run_hidden_phase(net, phase, x, n, n_total, batch_size, shuffle, verbose, history) -> None:
+    li = phase.li
+    states = list(net.state.layers)
+    state = states[li]
+    xk = _phase_input(net, li, states, x, batch_size, history)
+    if xk is not None:
+        run_epoch = net.plan.hidden_epoch_cached(li)
+        step = lambda st, idx: run_epoch(st, xk, idx, batch_size)  # noqa: E731
+    else:
+        run_epoch = net.plan.hidden_epoch(li)
+        below = states[:li]
+        step = lambda st, idx: run_epoch(st, below, x, idx, batch_size)  # noqa: E731
+    for epoch in range(phase.epochs):
+        t0 = time.perf_counter()
+        state = step(state, net._epoch_indices(n, n_total, shuffle))
+        _timed(history, {"phase": f"hidden{li}", "epoch": epoch}, t0, net.device)
+        if verbose:
+            print(f"[fit/{net.plan.name}] hidden layer {li} epoch {epoch + 1}/{phase.epochs}")
+    states[li] = state
+    net.state = net.state._replace(layers=tuple(states))
+
+
+def _run_bcpnn_phase(net, phase, x, y, n, n_total, batch_size, shuffle, verbose, history) -> None:
+    if net.readout_layer is None:
+        return
+    li = len(net.layers) - 1
+    states = list(net.state.layers)
+    state = states[li]
+    hk = _phase_input(net, li, states, x, batch_size, history)
+    if hk is not None:
+        run_epoch = net.plan.readout_epoch_cached()
+        step = lambda st, idx: run_epoch(st, hk, y, idx, batch_size)  # noqa: E731
+    else:
+        run_epoch = net.plan.readout_epoch()
+        hidden_states = states[:li]
+        step = lambda st, idx: run_epoch(st, hidden_states, x, y, idx, batch_size)  # noqa: E731
+    for epoch in range(phase.epochs):
+        t0 = time.perf_counter()
+        state = step(state, net._epoch_indices(n, n_total, shuffle))
+        _timed(history, {"phase": "readout", "epoch": epoch}, t0, net.device)
+        if verbose:
+            print(f"[fit/{net.plan.name}] readout epoch {epoch + 1}/{phase.epochs}")
+    states[li] = state
+    net.state = net.state._replace(layers=tuple(states))
+
+
+__all__ = [
+    "HiddenPhase",
+    "BcpnnReadoutPhase",
+    "TrainProgram",
+    "compile_program",
+    "run_program",
+]

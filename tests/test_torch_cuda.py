@@ -1,0 +1,124 @@
+"""The Hopper kernels on the card, against their plain versions.
+
+Every test here carries the ``cuda`` marker and skips without a CUDA device
+of compute capability 9.0 or above.  The file imports no JAX, so it runs on
+a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import (
+    DenseLayer,
+    ExecutionConfig,
+    Network,
+    StructuralPlasticityLayer,
+    UnitLayout,
+    onehot_layout,
+)
+from repro_torch.core.learning import MarginalState
+from repro_torch.data import complementary_code, mnist_like
+from repro_torch.kernels import ops, ref
+
+# (B, F, n_hcu, n_mcu): the sweep of test_torch_kernels.py.
+SHAPES = [
+    (32, 64, 4, 16),
+    (13, 17, 3, 7),
+    (64, 200, 2, 129),
+    (130, 300, 20, 16),
+    (257, 140, 2, 70),
+    (40, 96, 3, 100),
+    (48, 300, 1, 10),
+]
+# Kernel sums run in another order than the plain versions' library calls:
+# f32 reassociation error grows with the contraction depth (<= 300 here).
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available() or torch.cuda.get_device_capability() < (9, 0):
+        pytest.skip("needs a CUDA device of compute capability 9.0 or above")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _problem(B, F, n_hcu, n_mcu, use_mask, device, seed=7):
+    rng = np.random.default_rng(seed)
+    H = n_hcu * n_mcu
+    arrs = dict(
+        x=rng.random((B, F)),
+        aj=rng.random((B, H)),
+        w=rng.standard_normal((F, H)) * 0.1,
+        b=rng.standard_normal(H) * 0.1,
+        s=rng.standard_normal((B, H)) * 4.0,
+        ci=rng.random(F) * 0.5 + 0.25,
+        cj=rng.random(H) * 0.5 + 0.25,
+        cij=rng.random((F, H)) * 0.25 + 0.1,
+        mask=(rng.random((F, H)) > 0.3) if use_mask else None,
+    )
+    return {
+        k: None if v is None else torch.as_tensor(v, dtype=torch.float32, device=device)
+        for k, v in arrs.items()
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_mask", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_kernels_match_plain_on_card(card, shape, use_mask):
+    p = _problem(*shape, use_mask, card)
+    _, _, n_hcu, n_mcu = shape
+    counts = ops.launch_counts()
+    torch.testing.assert_close(
+        ops.masked_matmul(p["x"], p["w"], p["b"], mask=p["mask"]),
+        ref.masked_matmul(p["x"], p["w"], p["b"], mask=p["mask"]), **TOL,
+    )
+    torch.testing.assert_close(
+        ops.hcu_softmax(p["s"], n_hcu, n_mcu), ref.hcu_softmax(p["s"], n_hcu, n_mcu), **TOL
+    )
+    marg = MarginalState(p["ci"], p["cj"], p["cij"])
+    new, w, bias = ops.bcpnn_update(marg, p["x"], p["aj"], lam=0.05, k_b=0.7, mask=p["mask"])
+    plain = ref.bcpnn_update(
+        p["x"], p["aj"], p["ci"], p["cj"], p["cij"], 0.05, k_b=0.7, mask=p["mask"]
+    )
+    for got, want in zip((new.ci, new.cj, new.cij, w, bias), plain):
+        torch.testing.assert_close(got, want, **TOL)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert all(after[k] == counts[k] + 1 for k in after)
+
+
+@pytest.mark.cuda
+def test_kernels_reject_what_they_do_not_take(card):
+    x = torch.ones(4, 6, device=card)
+    with pytest.raises(ValueError, match="float32"):
+        ops.masked_matmul(x.double(), torch.ones(6, 8, device=card, dtype=torch.float64), None)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.masked_matmul(x, torch.ones(8, 6, device=card).T, None)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.masked_matmul(x, torch.ones(6, 8), None)
+
+
+@pytest.mark.cuda
+def test_fit_on_card_matches_cpu(card):
+    """A small Listing-1 fit on the card against the same fit on the CPU
+    (plain versions), from one initial state and one shuffle order."""
+    ds = mnist_like(n_train=512, n_test=128, n_features=24, seed=0)
+    x, layout = complementary_code(ds.x_train)
+    xt, _ = complementary_code(ds.x_test)
+    net = Network(seed=0)
+    net.add(StructuralPlasticityLayer(layout, UnitLayout(4, 10), fan_in=12, lam=0.05, gain=4.0))
+    net.add(DenseLayer(UnitLayout(4, 10), onehot_layout(10), lam=0.05))
+    gpu = net.compile()
+    cpu = net.compile(ExecutionConfig(device="cpu"))
+    assert gpu.device.type == "cuda"
+    for c in (gpu, cpu):
+        c.fit((x, ds.y_train), epochs_hidden=1, epochs_readout=1, batch_size=64)
+    for sg, sc in zip(gpu.state.layers, cpu.state.layers):
+        torch.testing.assert_close(sg.w.cpu(), sc.w, rtol=1e-4, atol=1e-4)
+        if sc.plast is not None:
+            assert torch.equal(sg.plast.hcu_mask.cpu(), sc.plast.hcu_mask)
+    torch.testing.assert_close(gpu.predict(xt).cpu(), cpu.predict(xt), rtol=1e-4, atol=1e-5)

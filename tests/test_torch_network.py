@@ -1,0 +1,196 @@
+"""The port's slice as a whole: Network -> compile -> fit -> predict /
+evaluate against the JAX package's ``ExecutionConfig(engine="scan",
+use_kernels=True)`` from the same (carried-across) init and seed, plus the
+port's own engine, cache and device contracts."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint.store import path_key
+from repro.core import DenseLayer as JDense
+from repro.core import Network as JNetwork
+from repro.core import StructuralPlasticityLayer as JPlastic
+from repro.core import UnitLayout as JUnitLayout
+from repro.core import onehot_layout as jonehot
+from repro.core.compiled import ExecutionConfig as JExecutionConfig
+from repro.data import complementary_code as jcomplementary_code
+from repro.data import mnist_like as jmnist_like
+from repro_torch.checkpoint import flat_from_network_state, network_state_from_flat
+from repro_torch.core import (
+    DenseLayer,
+    ExecutionConfig,
+    Network,
+    StructuralPlasticityLayer,
+    UnitLayout,
+    onehot_layout,
+)
+from repro_torch.data import complementary_code, mnist_like
+from repro_torch.runtime.activations import ActivationStore
+
+FIT_RTOL, FIT_ATOL = 1e-4, 1e-5
+HIDDEN = (4, 8)
+LAYER_KW = dict(fan_in=6, lam=0.05, gain=4.0, init_jitter=1.0)
+FIT_KW = dict(epochs_hidden=2, epochs_readout=2, batch_size=32)
+
+
+def _jflat(layer_states):
+    tree = {"layers": {str(i): s for i, s in enumerate(layer_states)}}
+    return {
+        path_key(p): np.asarray(leaf)
+        for p, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]
+    }
+
+
+@pytest.fixture(scope="module")
+def data():
+    ds = mnist_like(n_train=256, n_test=100, n_features=12, seed=0)
+    x, layout = complementary_code(ds.x_train)
+    xt, _ = complementary_code(ds.x_test)
+    return ds, x, xt, layout
+
+
+def _torch_net(seed=0):
+    net = Network(seed=seed)
+    net.add(StructuralPlasticityLayer(UnitLayout(12, 2), UnitLayout(*HIDDEN), **LAYER_KW))
+    net.add(DenseLayer(UnitLayout(*HIDDEN), onehot_layout(10), lam=0.05))
+    return net
+
+
+@pytest.fixture(scope="module")
+def jax_run(data):
+    """A JAX fit on the Pallas kernel path: its initial and final states."""
+    ds, x, xt, _ = data
+    net = JNetwork(seed=0)
+    net.add(JPlastic(JUnitLayout(12, 2), JUnitLayout(*HIDDEN), **LAYER_KW))
+    net.add(JDense(JUnitLayout(*HIDDEN), jonehot(10), lam=0.05))
+    compiled = net.compile(JExecutionConfig(engine="scan", use_kernels=True))
+    init = _jflat(compiled.state.layers)
+    compiled.fit((x, ds.y_train), **FIT_KW)
+    return dict(
+        init=init,
+        final=_jflat(compiled.state.layers),
+        predict=np.asarray(compiled.predict(xt)),
+        accuracy=compiled.evaluate((xt, ds.y_test)),
+    )
+
+
+def _fit_from_jax_init(data, jax_run, **config):
+    ds, x, _, _ = data
+    compiled = _torch_net().compile(ExecutionConfig(device="cpu", **config))
+    compiled.state = network_state_from_flat(jax_run["init"], compiled.layers)
+    result = compiled.fit((x, ds.y_train), **FIT_KW)
+    return compiled, result
+
+
+def test_data_generators_are_identical():
+    ds, jds = mnist_like(n_train=64, n_test=16, seed=3), jmnist_like(n_train=64, n_test=16, seed=3)
+    for a, b in ((ds.x_train, jds.x_train), (ds.y_train, jds.y_train), (ds.x_test, jds.x_test)):
+        np.testing.assert_array_equal(a, b)
+    x, layout = complementary_code(ds.x_train)
+    jx, jlayout = jcomplementary_code(jds.x_train)
+    np.testing.assert_array_equal(x, jx)
+    assert layout.shape == jlayout.shape
+
+
+def test_fit_and_predict_match_jax(data, jax_run):
+    ds, _, xt, _ = data
+    compiled, result = _fit_from_jax_init(data, jax_run)
+    port = flat_from_network_state(compiled.state)
+    assert sorted(port) == sorted(jax_run["final"])
+    for k, want in jax_run["final"].items():
+        np.testing.assert_allclose(port[k], want, rtol=FIT_RTOL, atol=FIT_ATOL, err_msg=k)
+    np.testing.assert_allclose(
+        compiled.predict(xt).numpy(), jax_run["predict"], rtol=FIT_RTOL, atol=FIT_ATOL
+    )
+    assert compiled.evaluate((xt, ds.y_test)) == jax_run["accuracy"]
+    phases = [h["phase"] for h in result.history]
+    assert phases == ["hidden0", "hidden0", "project", "readout", "readout"]
+    assert all(h["seconds"] >= h["host_s"] >= 0.0 for h in result.history)
+
+
+def _states_equal(a, b):
+    fa, fb = flat_from_network_state(a.state), flat_from_network_state(b.state)
+    assert sorted(fa) == sorted(fb)
+    for k in fa:
+        np.testing.assert_array_equal(fa[k], fb[k], err_msg=k)
+
+
+def test_scan_plan_equals_batch_plan(data, jax_run):
+    scan, _ = _fit_from_jax_init(data, jax_run, engine="scan")
+    batch, _ = _fit_from_jax_init(data, jax_run, engine="batch")
+    _states_equal(scan, batch)
+
+
+@pytest.mark.parametrize("engine", ["scan", "batch"])
+def test_cached_and_uncached_activations_agree(data, jax_run, engine):
+    cached, _ = _fit_from_jax_init(data, jax_run, engine=engine)
+    fused, result = _fit_from_jax_init(data, jax_run, engine=engine, cache_activations=False)
+    _states_equal(cached, fused)
+    assert "project" not in [h["phase"] for h in result.history]
+    xt = data[2]
+    np.testing.assert_array_equal(cached.predict(xt).numpy(), fused.predict(xt).numpy())
+
+
+def test_donate_reuses_the_epoch_buffer(data, jax_run):
+    donating, _ = _fit_from_jax_init(data, jax_run, donate=True)
+    fresh, _ = _fit_from_jax_init(data, jax_run, donate=False)
+    _states_equal(donating, fresh)
+    assert set(donating.plan._buffers) == {"x", "y"} and not fresh.plan._buffers
+
+
+def test_store_spills_and_reuses_levels(data):
+    ds, x, xt, _ = data
+    net = _torch_net().compile(ExecutionConfig(device="cpu"))
+    net.fit((x, ds.y_train), **FIT_KW)
+    states = list(net.state.layers)
+    tiny = ActivationStore(net.layers, torch.device("cpu"), budget_bytes=1)
+    roomy = ActivationStore(net.layers, torch.device("cpu"))
+    h_tiny = tiny.level(1, states, x, chunk=32)
+    h_roomy = roomy.level(1, states, x, chunk=32)
+    assert tiny.resident(1, x) == "host" and roomy.resident(1, x) == "device"
+    torch.testing.assert_close(h_tiny, h_roomy, rtol=0, atol=0)
+    assert roomy.level(1, states, x, chunk=32) is h_roomy and roomy.stats["hits"] == 1
+    # A new state object for layer 0 invalidates the level above it.
+    states[0] = states[0]._replace()
+    roomy.level(1, states, x, chunk=32)
+    assert roomy.stats["evictions"] == 1 and roomy.stats["projections"] == 2
+    # The ragged tail is padded to a full chunk: any chunk gives the same rows.
+    torch.testing.assert_close(roomy.level(1, states, xt, chunk=32)[:64],
+                               ActivationStore(net.layers, "cpu").level(1, states, xt[:64], chunk=64))
+
+
+def test_partial_fit_reports_the_dropped_tail(data):
+    ds, x, _, _ = data
+    net = _torch_net().compile(ExecutionConfig(device="cpu"))
+    result = net.partial_fit((x[:70], ds.y_train[:70]), batch_size=32, readout="bcpnn")
+    assert result.history[0] == {"phase": "ragged_tail_dropped", "samples": 6}
+    assert net.state.layers[0].host_step == 2 and int(net.state.layers[0].step) == 2
+
+
+def test_default_device_needs_a_hopper_card(data):
+    """compile() with the default config runs on the card or raises: it
+    never carries on quietly on the CPU."""
+    if torch.cuda.is_available() and torch.cuda.get_device_capability() >= (9, 0):
+        assert _torch_net().compile().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device"):
+        _torch_net().compile()
+    with pytest.raises(RuntimeError):
+        _torch_net().compile(ExecutionConfig(device="cuda:0"))
+
+
+def test_unported_options_raise_by_name(data):
+    ds, x, _, _ = data
+    for name in ("fused_phase", "precision", "trainer", "use_kernels", "strict", "trace", "profile_dir"):
+        with pytest.raises(TypeError, match=name):
+            ExecutionConfig(**{name: None})
+    with pytest.raises(TypeError, match="use_kernels"):
+        StructuralPlasticityLayer(UnitLayout(2, 2), UnitLayout(2, 2), use_kernels=True)
+    net = _torch_net().compile(ExecutionConfig(device="cpu"))
+    with pytest.raises(ValueError, match="sgd"):
+        net.fit((x, ds.y_train), readout="sgd", **FIT_KW)
+    for method in ("save", "load", "streaming", "serve"):
+        assert not hasattr(net, method)
+    with pytest.raises(ValueError, match="engine"):
+        ExecutionConfig(engine="pipelined")
