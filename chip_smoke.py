@@ -11,14 +11,23 @@ the run with a non-zero exit:
    sources in this checkout (one ``nvcc`` per source, in parallel);
 2. switch TF32 off, so the plain versions run in full f32;
 3. hold each kernel against its plain version at the shapes the main path
-   gives it, and time the kernel, the plain version and, where one exists,
-   a single PyTorch library call computing the same function;
-4. drive the main path, the paper's Listing 1 at MNIST width (784
+   gives it (``bcpnn_phase`` also against the three-kernel composition it
+   replaces, ``bf_round`` bit for bit, special values included), and time
+   the kernel, the plain version and, where one exists, a single PyTorch
+   library call computing the same function;
+4. drive the main paths, the paper's Listing 1 at MNIST width (784
    complementary-coded features -> 30x100 hidden -> 10 classes), through
-   ``Network`` -> ``compile`` -> ``fit`` -> ``evaluate`` on the card with
-   every launch counter reset just before, then the same fit on the CPU
-   through the plain versions; the card's accuracy must be >= 0.5 and
-   within 0.03 of the CPU's;
+   ``Network`` -> ``compile`` -> ``fit`` -> ``evaluate``: the unfused f32
+   path and the fused path with bf16 state
+   (``ExecutionConfig(fused_phase=True, precision=PrecisionPolicy.named(
+   "fp32", state_format="bf16"))``), each on the card with every launch
+   counter reset just before its compile, then each on the CPU through the
+   plain versions; on each path the card's accuracy must be >= 0.5 and
+   within 0.03 of the CPU's, and the launch counts must be those of the
+   path (on the fused one: one ``bcpnn_phase`` per hidden batch, one
+   ``bcpnn_update`` per readout batch, ``bf_round`` at compile); then time
+   the staging of one hidden epoch's input alone, the host time both paths
+   share;
 5. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
    ...}`` line.
 
@@ -113,13 +122,19 @@ def bound_ms(n_bytes: float, n_flops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(torch, got, want, rtol: float, atol_rel: float):
+def compare(torch, got, want, tol):
     """Max abs error, and max rel error over elements at least 1e-3 of the
     output's scale; fails unless every element has
-    |got - want| <= rtol * |want| + atol_rel * max|want| (per output)."""
+    |got - want| <= rtol * |want| + atol_rel * max|want| + atol (per
+    output).  ``tol`` is one (rtol, atol_rel[, atol]) for every output or a
+    list of them, one per output.  Outputs are compared in f32 (bf16
+    traces are widened, exactly)."""
+    tols = tol if isinstance(tol, list) else [tol] * len(got)
     max_abs = max_rel = 0.0
-    for g, w in zip(got, want):
+    for g, w, t in zip(got, want, tols):
+        rtol, atol_rel, atol = (*t, 0.0)[:3]
         check(g.shape == w.shape, f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+        g, w = g.float(), w.float()
         check(bool(torch.isfinite(g).all()), "kernel output is not finite")
         diff = (g - w).abs()
         scale = float(w.abs().max())
@@ -127,9 +142,18 @@ def compare(torch, got, want, rtol: float, atol_rel: float):
         big = w.abs() >= 1e-3 * scale  # relative error where it means something
         if bool(big.any()):
             max_rel = max(max_rel, float((diff[big] / w.abs()[big]).max()))
-        limit = rtol * w.abs() + atol_rel * scale
+        limit = rtol * w.abs() + atol_rel * scale + atol
         check(bool((diff <= limit).all()), f"error {float(diff.max())} beyond tolerance")
     return max_abs, max_rel
+
+
+def bit_exact(torch, got, want):
+    """Fails unless every output equals its reference bit for bit (f32
+    compared as int32, so NaNs and signed zeros count)."""
+    for g, w in zip(got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype == torch.float32, "bf_round output type")
+        check(torch.equal(g.view(torch.int32), w.view(torch.int32)), "bf_round is not bit-exact")
+    return 0.0, 0.0
 
 
 def kernel_checks(torch, ops, ref, dev):
@@ -168,12 +192,46 @@ def kernel_checks(torch, ops, ref, dev):
     ).float()
     ci_r, cj_r = 0.005 + 0.01 * uniform(H), 0.1 + 0.01 * uniform(N_CLASSES)
     cij_r = (ci_r[:, None] * cj_r[None, :]) * torch.exp(normal(H, N_CLASSES))
-    lam, k_b = 0.02, 1.0
+    lam, k_b, gain = 0.02, 1.0, 4.0
+    bf = [t.bfloat16() for t in (ci_h, cj_h, cij_h)]      # the bf16 state tier
+    bf_r = [t.bfloat16() for t in (ci_r, cj_r, cij_r)]
+    w_hm = w_h * mask  # the cached weights carry the mask, as on the main path
+    f32 = 4  # bytes
+    specials = torch.tensor(
+        [0.0, -0.0, 1e-40, -1e-40, math.inf, -math.inf, math.nan, 3.4028234663852886e38,
+         -3.4028234663852886e38, 1.9999999, 0.99999994, 1.0 + 2**-8, 3.9999998, 1.5],
+        device=dev,
+    )
 
-    def update(fn, ai, aj, ci, cj, cij, m):
-        return lambda: fn(ai, aj, ci, cj, cij, lam, k_b=k_b, mask=m)
+    def update(fn, ai, aj, ci, cj, cij, m, **kw):
+        return lambda: fn(ai, aj, ci, cj, cij, lam, k_b=k_b, mask=m, **kw)
 
+    def phase(fn, state, **kw):
+        return lambda: fn(x, w_hm, b_h, *state, lam, n_hcu, n_mcu, k_b=k_b, gain=gain,
+                          mask=mask, **kw)
+
+    def composition():  # the unfused path: three kernels and the gain multiply
+        s = ops.masked_matmul(x, w_hm, b_h, mask=mask) * gain
+        aj = ops.hcu_softmax(s, n_hcu, n_mcu)
+        ci, cj, cij, w, bias = bk.bcpnn_update(x, aj, ci_h, cj_h, cij_h, lam, k_b=k_b, mask=mask)
+        return aj, ci, cj, cij, w, bias
+
+    def round_cases(m):
+        return lambda: (bfk.bf_round(cij_h, m), bfk.bf_round(specials, m)), \
+            lambda: (ref.bf_round(cij_h, m), ref.bf_round(specials, m))
+
+    # One bf16 ulp of a trace is at most 2^-7 of it; w and bias are logs of
+    # traces, so one ulp moves them by at most ~2^-7 each.
+    trace_tol = (2.0**-7, 0.0)
+    log_tol = (0.0, 0.0, 2.0**-5)
+    phase_bytes = f32 * (B * F + B * H + 5 * F * H + 2 * F + 4 * H)
+    phase_bytes_bf16 = f32 * (B * F + B * H + 3 * F * H + 2 * H) + 2 * (2 * F * H + 2 * F + 2 * H)
+    phase_flops = 4 * B * F * H + 8 * F * H + 5 * B * H
+    from repro_torch.kernels import bcpnn_phase as pk
     from repro_torch.kernels import bcpnn_update as bk
+    from repro_torch.kernels import bf_round as bfk
+    round7, plain7 = round_cases(7)
+    round11, plain11 = round_cases(11)
     specs = [
         dict(
             name="masked_matmul",
@@ -230,20 +288,83 @@ def kernel_checks(torch, ops, ref, dev):
                  None,
                  4 * (B * H + B * N_CLASSES + 2 * H + 3 * N_CLASSES + 3 * H * N_CLASSES),
                  2 * B * H * N_CLASSES + 6 * H * N_CLASSES),
+                (f"ai({B},{F}) aj({B},{H}) cij({F},{H}) masked, bf16 state, mantissa 7",
+                 update(bk.bcpnn_update, x, h, *bf, mask, state_mantissa=7,
+                        state_dtype=torch.bfloat16),
+                 update(ref.bcpnn_update, x, h, *bf, mask, state_mantissa=7),
+                 None,
+                 f32 * (B * F + B * H + 2 * F * H + 2 * H) + 2 * (2 * F * H + 2 * F + 2 * H),
+                 2 * B * F * H + 7 * F * H,
+                 [trace_tol] * 3 + [log_tol] * 2, "bf16"),
+                (f"ai({B},{H}) aj({B},{N_CLASSES}) cij({H},{N_CLASSES}), bf16 state, mantissa 7",
+                 update(bk.bcpnn_update, h, onehot, *bf_r, None, state_mantissa=7,
+                        state_dtype=torch.bfloat16),
+                 update(ref.bcpnn_update, h, onehot, *bf_r, None, state_mantissa=7),
+                 None,
+                 f32 * (B * H + B * N_CLASSES + H * N_CLASSES + N_CLASSES)
+                 + 2 * (2 * H * N_CLASSES + 2 * H + 2 * N_CLASSES),
+                 2 * B * H * N_CLASSES + 6 * H * N_CLASSES,
+                 [trace_tol] * 3 + [log_tol] * 2, "bf16"),
+            ],
+        ),
+        dict(
+            name="bcpnn_phase",
+            source="src/repro_torch/kernels/csrc/bcpnn_phase.cu",
+            replaces="src/repro/kernels/bcpnn_phase.py:190 (bcpnn_phase_fused; pallas_call :265)",
+            tol=(1e-4, 1e-5),
+            cases=[
+                (f"x({B},{F}) w,mask,cij({F},{H}) {n_hcu}x{n_mcu} gain {gain}",
+                 phase(pk.bcpnn_phase, (ci_h, cj_h, cij_h)),
+                 phase(ref.bcpnn_phase, (ci_h, cj_h, cij_h)),
+                 None, phase_bytes, phase_flops),
+                (f"x({B},{F}) {n_hcu}x{n_mcu}, bf16 state, mantissa 7",
+                 phase(pk.bcpnn_phase, bf, state_mantissa=7, state_dtype=torch.bfloat16),
+                 phase(ref.bcpnn_phase, bf, state_mantissa=7),
+                 None, phase_bytes_bf16, phase_flops,
+                 [(1e-4, 1e-5)] + [trace_tol] * 3 + [log_tol] * 2, "bf16"),
+                # a_j = softmax(gain * s): the two paths sum s (|s| ~ 100,
+                # 1568 terms) in other orders, ~1e-4 apart, and the gain
+                # carries that into a_j as a relative error of ~4e-4.
+                (f"x({B},{F}) {n_hcu}x{n_mcu} against the three-kernel composition",
+                 phase(pk.bcpnn_phase, (ci_h, cj_h, cij_h)), composition,
+                 None, phase_bytes, phase_flops, [(1e-3, 1e-5)] + [(1e-4, 1e-5)] * 5,
+                 "three_kernels"),
+            ],
+        ),
+        dict(
+            name="bf_round",
+            source="src/repro_torch/kernels/csrc/bf_round.cu",
+            replaces="src/repro/kernels/bf_round.py:42 (bf_round; pallas_call :63)",
+            tol="bit-exact",
+            cases=[
+                # Integer operations, a handful per element: far below the
+                # bytes' time, so the bound counts bytes alone.
+                (f"cij({F},{H}) and {len(specials)} specials, mantissa 7",
+                 round7, plain7, lambda: cij_h.to(torch.bfloat16),
+                 8 * (F * H + len(specials)), 0),
+                (f"cij({F},{H}) and {len(specials)} specials, mantissa 11",
+                 round11, plain11, None, 8 * (F * H + len(specials)), 0),
             ],
         ),
     ]
     records = []
     for spec in specs:
-        rtol, atol_rel = spec["tol"]
         worst_abs = 0.0
-        timed = None
-        for label, kernel, plain, library, n_bytes, n_flops in spec["cases"]:
+        timed, extra = None, {}
+        for label, kernel, plain, library, n_bytes, n_flops, *opt in spec["cases"]:
+            # opt: [per-output tolerances (None: the spec's), timing key]
+            tol = opt[0] if opt and opt[0] is not None else spec["tol"]
             got, want = kernel(), plain()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             torch.cuda.synchronize()
-            max_abs, max_rel = compare(torch, got, want, rtol, atol_rel)
+            if tol == "bit-exact":
+                max_abs, max_rel = bit_exact(torch, got, want)
+            else:
+                max_abs, max_rel = compare(torch, got, want, tol)
+            if opt[1:] == ["bf16"]:  # the traces come back in their storage dtype
+                n_bf16 = sum(t.dtype == torch.bfloat16 for t in got)
+                check(n_bf16 == 3, f"{spec['name']}: {n_bf16} bf16 outputs, want the 3 traces")
             worst_abs = max(worst_abs, max_abs)
             ms = device_ms(torch, kernel, flush)
             plain_ms = device_ms(torch, plain, flush)
@@ -251,23 +372,44 @@ def kernel_checks(torch, ops, ref, dev):
             bms, bound_by = bound_ms(n_bytes, n_flops)
             print(
                 f"check {spec['name']} {label}: max_abs_err={max_abs:.3e} "
-                f"max_rel_err={max_rel:.3e} (tol rtol={rtol} + {atol_rel}*max|ref|) "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-                f"{'null' if library_ms is None else f'{library_ms:.4f}'} "
-                f"bound_ms={bms:.4f} ({bound_by})"
+                f"max_rel_err={max_rel:.3e} (tol {tol}) "
+                f"kernel_ms={ms:.5f} versus_ms={plain_ms:.5f} library_ms="
+                f"{'null' if library_ms is None else f'{library_ms:.5f}'} "
+                f"bound_ms={bms:.5f} ({bound_by})"
             )
-            if timed is None:  # the first case is the hidden layer's shape
+            if timed is None:  # the first case is the main path's shape
                 timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by,
                              library_ms=library_ms, at=label)
+            elif opt[1:] == ["three_kernels"]:  # fused and composition, same inputs
+                extra.update(three_kernels_ms=plain_ms, fused_vs_three_kernels_ms=ms)
+            elif len(opt) > 1:  # a second timing of note: the bf16 tier, at
+                extra.setdefault(f"{opt[1]}_ms", ms)  # the first (hidden) shape
         records.append(dict(
             name=spec["name"], route="cuda", source=spec["source"],
-            replaces=spec["replaces"], max_abs_err=worst_abs, **timed,
+            replaces=spec["replaces"], max_abs_err=worst_abs, **timed, **extra,
         ))
     return records
 
 
-def main_path(torch, ops, core, data, devices=("cuda", "cpu")):
-    """Phase 4: Listing 1 at MNIST width on the card, then on the CPU."""
+def epoch_staging_s(torch, stack_epoch, x, n, device) -> float:
+    """Median host seconds to stage one hidden epoch of the raw input as the
+    scan plan does on both paths: a shuffled gather on the host and a copy
+    into the reused epoch buffer on the card (level 0 is not cached there)."""
+    g = torch.Generator().manual_seed(0)
+    buf = torch.empty((n // B, B, x.shape[1]), dtype=torch.float32, device=device)
+    times = []
+    for _ in range(5):
+        idx = torch.randperm(len(x), generator=g)[:n].numpy()
+        t0 = time.perf_counter()
+        stack_epoch(x, idx, B, device, out=buf)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def main_path(torch, ops, core, data, policy, devices=("cuda", "cpu")):
+    """Phase 4: Listing 1 at MNIST width on both paths, each on the card
+    (launches counted from zero at its compile) and then on the CPU."""
     ds = data.mnist_like(n_train=8192, n_test=2048, n_features=N_FEATURES, seed=0)
     x, in_layout = data.complementary_code(ds.x_train)
     xt, _ = data.complementary_code(ds.x_test)
@@ -278,36 +420,72 @@ def main_path(torch, ops, core, data, devices=("cuda", "cpu")):
     ))
     net.add(core.DenseLayer(hidden, core.onehot_layout(N_CLASSES), lam=0.02))
     fit_kw = dict(epochs_hidden=2, epochs_readout=2, batch_size=B)
+    batches = len(x) // B
+    paths = {
+        "unfused_f32": dict(),
+        "fused_bf16": dict(fused_phase=True,
+                           precision=policy.PrecisionPolicy.named("fp32", state_format="bf16")),
+    }
 
-    runs = {}
-    for i, device in enumerate(devices):
-        compiled = net.compile(core.ExecutionConfig(engine="scan", device=device))
-        if i == 0:
-            ops.reset_launches()
-        t0 = time.perf_counter()
-        result = compiled.fit((x, ds.y_train), **fit_kw)
-        scores = compiled.predict(xt)
-        acc = compiled.evaluate((xt, ds.y_test))
-        if i == 0:
-            torch.cuda.synchronize()
-            launches = ops.launch_counts()
-        wall = time.perf_counter() - t0
-        check(tuple(scores.shape) == (len(xt), N_CLASSES), f"scores shape {tuple(scores.shape)}")
-        check(bool(torch.isfinite(scores).all()), f"non-finite scores on {device}")
-        runs[device if i == 0 else "cpu"] = dict(acc=acc, fit_s=result.wall_time_s, fit_evaluate_s=wall,
-                            history=result.history)
-        print(f"main path [{device}]: accuracy={acc:.4f} fit_wall_s={result.wall_time_s:.4f} "
-              f"fit+evaluate_s={wall:.4f}")
-        for h in result.history:
-            print(f"  {device} {h['phase']}" + (f" epoch {h['epoch']}" if "epoch" in h else "")
-                  + f": host_s={h['host_s']:.4f} device_wait_s={h['device_wait_s']:.4f}")
-    print(f"main path launches: {json.dumps(launches)} ({len(x) // B} batches per epoch)")
-    gpu_acc, cpu_acc = runs[devices[0]]["acc"], runs["cpu"]["acc"]
-    check(gpu_acc >= 0.5, f"accuracy on the card {gpu_acc} < 0.5")
-    check(abs(gpu_acc - cpu_acc) <= 0.03, f"card {gpu_acc} vs CPU {cpu_acc}: off by more than 0.03")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the main path")
-    return launches, runs
+    launches, runs = {}, {}
+    for path, cfg in paths.items():
+        for i, device in enumerate(devices):
+            on_card = i == 0
+            if on_card:
+                ops.reset_launches()
+            t0 = time.perf_counter()
+            compiled = net.compile(core.ExecutionConfig(engine="scan", device=device, **cfg))
+            result = compiled.fit((x, ds.y_train), **fit_kw)
+            scores = compiled.predict(xt)
+            acc = compiled.evaluate((xt, ds.y_test))
+            if on_card:
+                torch.cuda.synchronize()
+                launches[path] = ops.launch_counts()
+            wall = time.perf_counter() - t0
+            check(tuple(scores.shape) == (len(xt), N_CLASSES), f"scores shape {tuple(scores.shape)}")
+            check(bool(torch.isfinite(scores).all()), f"non-finite scores on {device} ({path})")
+            dtypes = sorted({str(t.dtype) for t in compiled.state.layers[0].marginals})
+            runs[f"{path}/{'card' if on_card else 'cpu'}"] = dict(
+                acc=acc, fit_s=result.wall_time_s, compile_fit_evaluate_s=wall,
+                hidden_trace_dtypes=dtypes, history=result.history,
+            )
+            print(f"main path {path} [{device}]: accuracy={acc:.4f} fit_wall_s="
+                  f"{result.wall_time_s:.4f} compile+fit+evaluate_s={wall:.4f} "
+                  f"hidden traces {dtypes}")
+            for h in result.history:
+                print(f"  {path} {device} {h['phase']}"
+                      + (f" epoch {h['epoch']}" if "epoch" in h else "")
+                      + f": host_s={h['host_s']:.4f} device_wait_s={h['device_wait_s']:.4f}")
+        print(f"main path {path} launches: {json.dumps(launches[path])} ({batches} batches per epoch)")
+        card_acc, cpu_acc = runs[f"{path}/card"]["acc"], runs[f"{path}/cpu"]["acc"]
+        check(card_acc >= 0.5, f"{path}: accuracy on the card {card_acc} < 0.5")
+        check(abs(card_acc - cpu_acc) <= 0.03,
+              f"{path}: card {card_acc} vs CPU {cpu_acc}: off by more than 0.03")
+
+    unfused, fused = launches["unfused_f32"], launches["fused_bf16"]
+    for name in ("masked_matmul", "hcu_softmax", "bcpnn_update"):
+        check(unfused[name] > 0, f"{name} was not launched on the unfused path")
+    check(unfused["bcpnn_phase"] == 0 and unfused["bf_round"] == 0,
+          f"the unfused f32 path launched bcpnn_phase/bf_round: {unfused}")
+    hidden_batches = fit_kw["epochs_hidden"] * batches
+    readout_batches = fit_kw["epochs_readout"] * batches
+    check(fused["bcpnn_phase"] == hidden_batches,
+          f"bcpnn_phase launched {fused['bcpnn_phase']} times, want {hidden_batches}")
+    check(fused["bcpnn_update"] == readout_batches,
+          f"bcpnn_update launched {fused['bcpnn_update']} times, want {readout_batches}")
+    check(fused["bf_round"] >= 1, "bf_round was not launched at compile")
+    for name in ("masked_matmul", "hcu_softmax"):
+        check(fused[name] > 0, f"{name} was not launched on the fused path")
+    check(runs["fused_bf16/card"]["hidden_trace_dtypes"] == ["torch.bfloat16"],
+          f"hidden traces after fit: {runs['fused_bf16/card']['hidden_trace_dtypes']}")
+
+    from repro_torch.runtime.epoch_engine import stack_epoch
+
+    stage_s = epoch_staging_s(torch, stack_epoch, x, batches * B, torch.device(devices[0]))
+    print(f"main path epoch staging (host gather + copy of {batches * B}x{x.shape[1]} f32, "
+          f"{batches * B * x.shape[1] * 4 / 1e6:.1f} MB, part of each hidden epoch's host_s): "
+          f"{stage_s:.4f} s")
+    return launches, runs, stage_s
 
 
 def main() -> int:
@@ -319,6 +497,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import core, data
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.precision import policy
 
     # Phase 1: the card, then the kernels' build.
     card = nvidia_smi()
@@ -341,19 +520,24 @@ def main() -> int:
     # Phase 3: each kernel against its plain version.
     records = kernel_checks(torch, ops, ref, torch.device("cuda", torch.cuda.current_device()))
 
-    # Phase 4: the main path, launches counted from zero.
-    launches, runs = main_path(torch, ops, core, data)
+    # Phase 4: the main paths, launches counted from zero on each.
+    launches, runs, stage_s = main_path(torch, ops, core, data, policy)
 
     # Phase 5: the records.
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in launches.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "at")
-    kernels = [{k: rec[k] for k in keys} for rec in records]
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "at", "launches_by_path")
+    kernels = [
+        {**{k: rec[k] for k in keys}, **{k: v for k, v in rec.items() if k not in keys}}
+        for rec in records
+    ]
     check(all(math.isfinite(k["ms"]) for k in kernels), "non-finite kernel time")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "main_path": {d: {k: v for k, v in r.items() if k != "history"} for d, r in runs.items()},
+        "epoch_staging_s": stage_s,
     }))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ The keys are those of the reference's whole-network checkpoint
     layers/<i>/plast/hcu_mask          (hidden layers only)
 
 so a state trained by either package, or read from such a checkpoint,
-loads into the other.
+loads into the other.  Arrays keep their dtype: bf16 traces of the
+quantized state tier (``ml_dtypes.bfloat16`` arrays on the reference's
+side, viewed through their bits here) stay bf16.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.store import decode_array
 from repro_torch.core.compiled import NetworkState
 from repro_torch.core.layers import LayerState
 from repro_torch.core.learning import MarginalState
@@ -32,10 +35,10 @@ def network_state_from_flat(
     def get(key: str, shape) -> torch.Tensor:
         if key not in flat:
             raise KeyError(f"missing array {key!r}")
-        arr = np.array(flat[key], dtype=np.float32)  # a writable copy
-        if tuple(arr.shape) != tuple(shape):
-            raise ValueError(f"{key}: shape {arr.shape} != expected {tuple(shape)}")
-        return torch.from_numpy(arr).to(device)
+        t = decode_array(np.asarray(flat[key]))
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{key}: shape {tuple(t.shape)} != expected {tuple(shape)}")
+        return t.to(device)
 
     states = []
     for i, layer in enumerate(layers):
@@ -61,7 +64,8 @@ def network_state_from_flat(
 
 
 def flat_from_network_state(state: NetworkState) -> Dict[str, np.ndarray]:
-    """The inverse of :func:`network_state_from_flat`, as host numpy arrays."""
+    """The inverse of :func:`network_state_from_flat`, as host numpy arrays
+    (numpy has no bf16: bf16 traces come back as float32, exactly)."""
     flat = {}
     for i, s in enumerate(state.layers):
         p = f"layers/{i}/"
@@ -69,7 +73,8 @@ def flat_from_network_state(state: NetworkState) -> Dict[str, np.ndarray]:
             ("marginals/ci", s.marginals.ci), ("marginals/cj", s.marginals.cj),
             ("marginals/cij", s.marginals.cij), ("w", s.w), ("b", s.b), ("step", s.step),
         ):
-            flat[p + name] = t.detach().cpu().numpy()
+            t = t.detach().cpu()
+            flat[p + name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
         if s.plast is not None:
             flat[p + "plast/hcu_mask"] = s.plast.hcu_mask.detach().cpu().numpy()
     return flat

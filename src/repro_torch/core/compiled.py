@@ -9,22 +9,25 @@
 :class:`ExecutionConfig` holds everything about *how* the network runs.
 On a CUDA device every hot op is a hand-written Hopper kernel; on the CPU
 the same code runs the kernels' plain versions (the tests use this).
-Options of the reference that are not ported yet (``trainer``,
-``precision``, ``use_kernels``, ``fused_phase``, ``strict``, ``trace``,
-``profile_dir``) are absent, so passing one raises a ``TypeError`` that
-names it; so do ``save``/``load``/``streaming``/``serve``, which this
-class does not have yet.
+``fused_phase=True`` trains each hidden batch in one ``bcpnn_phase``
+launch; ``precision=PrecisionPolicy.named("fp32", state_format="bf16")``
+keeps the traces in bf16.  Options of the reference that are not ported yet
+(``trainer``, ``use_kernels``, ``strict``, ``trace``, ``profile_dir``) are
+absent, so passing one raises a ``TypeError`` that names it;
+``streaming``/``serve`` are not methods of this class yet.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.layers import DenseLayer, LayerState, StructuralPlasticityLayer
+from repro_torch.precision.policy import PrecisionPolicy, quantize_marginals
 from repro_torch.runtime.activations import store_for
 from repro_torch.runtime.epoch_engine import rows_to
 from repro_torch.runtime.plans import PLANS, ExecutionPlan, make_plan
@@ -83,6 +86,13 @@ class ExecutionConfig:
                  parity reference).
     activation_budget_mb: device-memory budget for cached levels; beyond it
                  levels spill to pinned host memory.
+    precision:   a PrecisionPolicy (or a format name) bound into every
+                 layer.  Only the quantized state tier is ported:
+                 ``PrecisionPolicy.named("fp32", state_format="bf16")``; a
+                 reduced datapath (e.g. "bf20") raises.
+    fused_phase: train each hidden batch in one ``bcpnn_phase`` launch
+                 (forward, softmax and update); composes with the state
+                 tier.
     """
 
     engine: str = "scan"
@@ -90,12 +100,45 @@ class ExecutionConfig:
     donate: bool = True
     cache_activations: bool = True
     activation_budget_mb: float = 512.0
+    precision: Any = None
+    fused_phase: bool = False
 
     def __post_init__(self):
         if self.engine not in PLANS:
             raise ValueError(f"Unknown engine {self.engine!r} (want one of {sorted(PLANS)})")
         if self.activation_budget_mb <= 0:
             raise ValueError("activation_budget_mb must be positive")
+        if isinstance(self.precision, str):
+            object.__setattr__(self, "precision", PrecisionPolicy.named(self.precision))
+        if self.precision is not None and not self.precision.fmt.is_identity:
+            name = self.precision.fmt.name
+            if self.fused_phase:
+                raise ValueError(
+                    "fused_phase is incompatible with a reduced-precision datapath "
+                    f"(precision fmt {name!r}); use PrecisionPolicy.named('fp32', "
+                    "state_format=...) for the quantized state tier, which does compose"
+                )
+            raise NotImplementedError(
+                f"precision {name!r}: the reduced-precision datapath is not ported "
+                "yet; PrecisionPolicy.named('fp32', state_format=...) is"
+            )
+
+    def bind_layer(self, layer):
+        """A copy of ``layer`` with this config's precision and fused-phase
+        choices bound into its spec (the declarative layer is never
+        mutated).  Only hidden layers get ``fused_phase``: the readout's
+        post-activations are clamped to labels, so it has no forward and
+        softmax to fuse into its update."""
+        overrides = {}
+        if self.precision is not None:
+            overrides["precision"] = self.precision
+        if self.fused_phase and isinstance(layer, StructuralPlasticityLayer):
+            overrides["fused_phase"] = True
+        if not overrides:
+            return layer
+        bound = copy.copy(layer)
+        bound.spec = dataclasses.replace(layer.spec, **overrides)
+        return bound
 
 
 def resolve_device(device) -> torch.device:
@@ -129,8 +172,15 @@ class CompiledNetwork:
         self.config = config if config is not None else ExecutionConfig()
         self.device = resolve_device(self.config.device)
         network.build()
-        self.layers = list(network.layers)
-        self.state = NetworkState(layers=tuple(s.to(self.device) for s in network.states))
+        self.layers = [self.config.bind_layer(layer) for layer in network.layers]
+        # The state tier rounds and casts the initial traces here, so every
+        # epoch starts in the storage dtype (one bf_round launch per trace
+        # on the card).
+        states = [s.to(self.device) for s in network.states]
+        self.state = NetworkState(layers=tuple(
+            s._replace(marginals=quantize_marginals(s.marginals, layer.spec.precision))
+            for layer, s in zip(self.layers, states)
+        ))
         self.plan: ExecutionPlan = make_plan(
             self.config.engine, self.layers, self.device, donate=self.config.donate
         )
@@ -251,6 +301,30 @@ class CompiledNetwork:
         if verbose:
             print(f"[fit/{self.plan.name}] program: {program.describe()}")
         run_program(self, program, x, y, n, n_total, batch_size, shuffle, verbose, history)
+
+    # ----------------------------------------------------------- checkpoint
+    def save(self, directory: str, step: int = 0, retain: int = 3) -> str:
+        """Whole-network checkpoint, written atomically: every layer's state
+        plus the host shuffle RNG, in the reference's layout
+        (``repro_torch.checkpoint``).  Returns the checkpoint's path."""
+        from repro_torch.checkpoint.network import save_network
+
+        return save_network(
+            directory, step, self.state, self._rng.bit_generator.state, retain=retain
+        )
+
+    def load(self, path: str) -> "CompiledNetwork":
+        """Restore a whole-network checkpoint (this package's or the
+        reference's) into this compiled network; the architectures must
+        match.  The saved shuffle RNG state resumes, so a resumed fit draws
+        the same shuffles."""
+        from repro_torch.checkpoint.network import load_network
+
+        layer_states, rng_state = load_network(path, list(self.state.layers), self.device)
+        self.state = NetworkState(layers=tuple(layer_states))
+        if rng_state is not None:
+            self._rng.bit_generator.state = rng_state
+        return self
 
     def _epoch_indices(self, n: int, n_total: int, shuffle: bool) -> np.ndarray:
         """First ``n`` indices of a full-dataset permutation drawn from

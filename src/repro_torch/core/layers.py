@@ -12,7 +12,10 @@ the paper's Listing 1:
   post-activations clamped to one-hot labels.
 
 The hot ops go through ``repro_torch.kernels.ops``, which picks the Hopper
-kernels for CUDA tensors and their plain versions for CPU tensors.
+kernels for CUDA tensors and their plain versions for CPU tensors.  A spec
+with ``fused_phase`` trains each hidden batch in the one-launch
+``bcpnn_phase`` kernel; a ``precision`` policy with a ``state_format``
+keeps the traces in the quantized state tier.
 """
 from __future__ import annotations
 
@@ -47,9 +50,8 @@ class LayerState(NamedTuple):
 
     def to(self, device) -> "LayerState":
         """This state with every tensor on ``device`` (a new state object)."""
-        m = self.marginals
         return LayerState(
-            marginals=MarginalState(m.ci.to(device), m.cj.to(device), m.cij.to(device)),
+            marginals=self.marginals.to(device),
             w=self.w.to(device),
             b=self.b.to(device),
             plast=None if self.plast is None else PlasticityState(self.plast.hcu_mask.to(device)),
@@ -68,6 +70,25 @@ class BCPNNLayerSpec:
     k_b: float = 1.0
     n_cycles: int = 1
     gain: float = 1.0  # softmax inverse temperature (soft-WTA sharpness)
+    # A PrecisionPolicy; only its state tier is ported (fmt must be fp32).
+    precision: object = None
+    # One-launch training: forward + softmax + EWMA + weights in the
+    # bcpnn_phase kernel.  Composes with the quantized state tier.
+    fused_phase: bool = False
+
+    def __post_init__(self):
+        fmt = getattr(self.precision, "fmt", None)
+        if fmt is not None and not fmt.is_identity:
+            if self.fused_phase:
+                raise ValueError(
+                    "fused_phase is incompatible with a reduced-precision datapath "
+                    f"(precision fmt {fmt.name!r}); only the quantized state tier "
+                    "(state_format=) composes with the fused kernel"
+                )
+            raise NotImplementedError(
+                f"the reduced-precision datapath (precision fmt {fmt.name!r}) is not "
+                "ported yet; PrecisionPolicy.named('fp32', state_format=...) is"
+            )
 
     @property
     def n_pre(self) -> int:
@@ -76,6 +97,14 @@ class BCPNNLayerSpec:
     @property
     def n_post(self) -> int:
         return self.post.n_units
+
+
+def _state_format(spec: BCPNNLayerSpec):
+    """The storage format of the quantized state tier, if any."""
+    p = spec.precision
+    if p is not None and p.has_state_tier:
+        return p.state_format
+    return None
 
 
 def _unit_mask(spec: BCPNNLayerSpec, state: LayerState) -> Optional[torch.Tensor]:
@@ -102,12 +131,34 @@ def _learn(
 ) -> LayerState:
     """n_cycles of the EWMA marginal -> weight update (Alg.1 L10-16)."""
     marg, w, b = state.marginals, state.w, state.b
+    sfmt = _state_format(spec)
     for _ in range(spec.n_cycles):
-        marg, w, b = ops.bcpnn_update(marg, ai, aj, lam=spec.lam, k_b=spec.k_b, mask=mask)
+        marg, w, b = ops.bcpnn_update(
+            marg, ai, aj, lam=spec.lam, k_b=spec.k_b, mask=mask, state_format=sfmt
+        )
     return LayerState(
         marginals=marg, w=w, b=b, plast=state.plast, step=state.step + 1,
         host_step=state.host_step + 1,
     )
+
+
+def _fused_train_batch(
+    spec: BCPNNLayerSpec, state: LayerState, x: torch.Tensor,
+    mask: Optional[torch.Tensor],
+) -> Tuple[LayerState, torch.Tensor]:
+    """The one-launch training path: the whole Alg.1 batch iteration
+    (forward, gain, HCU softmax, EWMA marginals, weight/bias epilogue) in
+    one ``bcpnn_phase`` kernel."""
+    marg, w, b, aj = ops.bcpnn_phase(
+        state.marginals, x, state.w, state.b, spec.post,
+        lam=spec.lam, k_b=spec.k_b, gain=spec.gain, mask=mask,
+        n_cycles=spec.n_cycles, state_format=_state_format(spec),
+    )
+    new_state = LayerState(
+        marginals=marg, w=w, b=b, plast=state.plast, step=state.step + 1,
+        host_step=state.host_step + 1,
+    )
+    return new_state, aj
 
 
 def _device(generator: Optional[torch.Generator]) -> torch.device:
@@ -126,11 +177,14 @@ class StructuralPlasticityLayer:
         k_b: float = 1.0,
         n_cycles: int = 1,
         mask_update_every: Optional[int] = None,
+        precision=None,
         init_jitter: float = 1.0,
         gain: float = 1.0,
+        fused_phase: bool = False,
     ):
         self.spec = BCPNNLayerSpec(
-            pre=pre, post=post, lam=lam, k_b=k_b, n_cycles=n_cycles, gain=gain
+            pre=pre, post=post, lam=lam, k_b=k_b, n_cycles=n_cycles, gain=gain,
+            precision=precision, fused_phase=fused_phase,
         )
         self.init_jitter = init_jitter
         self.fan_in = fan_in if fan_in is not None else pre.n_hcu
@@ -165,9 +219,12 @@ class StructuralPlasticityLayer:
         self, state: LayerState, x: torch.Tensor
     ) -> Tuple[LayerState, torch.Tensor]:
         """One Alg.1 batch iteration: (maybe) rewire, forward, learn.  The
-        unit mask is expanded once and shared by the forward and the update."""
+        unit mask is expanded once and shared by the forward and the update
+        (or by the one fused kernel with ``spec.fused_phase``)."""
         state = self.maybe_update_mask(state)
         mask = _unit_mask(self.spec, state)
+        if self.spec.fused_phase:
+            return _fused_train_batch(self.spec, state, x, mask)
         aj = _forward(self.spec, state, x, mask)
         return _learn(self.spec, state, x, aj, mask), aj
 
@@ -197,10 +254,12 @@ class DenseLayer:
         lam: float = 0.001,
         k_b: float = 1.0,
         n_cycles: int = 1,
+        precision=None,
         gain: float = 1.0,
     ):
         self.spec = BCPNNLayerSpec(
-            pre=pre, post=post, lam=lam, k_b=k_b, n_cycles=n_cycles, gain=gain
+            pre=pre, post=post, lam=lam, k_b=k_b, n_cycles=n_cycles, gain=gain,
+            precision=precision,
         )
 
     def init(self, generator: Optional[torch.Generator] = None) -> LayerState:

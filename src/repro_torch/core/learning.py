@@ -32,6 +32,10 @@ class MarginalState(NamedTuple):
     def n_pre(self) -> int:
         return self.ci.shape[0]
 
+    def to(self, device) -> "MarginalState":
+        """This state with every trace on ``device`` (dtypes kept)."""
+        return MarginalState(self.ci.to(device), self.cj.to(device), self.cij.to(device))
+
     @property
     def n_post(self) -> int:
         return self.cj.shape[0]

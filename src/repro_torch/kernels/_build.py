@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its
 own into ``lib<name>.so`` (one ``nvcc`` per source, all started together),
-for ``sm_90a``.  The libraries go to ``build/repro_torch_kernels/<hash>/``
-at the repository root, keyed by a hash of the sources and flags, and are
-loaded with ``ctypes``.  Importing this module builds nothing.
+for ``sm_90a``; the sources share headers (``csrc/*.cuh``).  The libraries
+go to ``build/repro_torch_kernels/<hash>/`` at the repository root, keyed by
+a hash of every file under ``csrc/`` and the flags, and are loaded with
+``ctypes``.  Importing this module builds nothing.
 """
 from __future__ import annotations
 
@@ -14,12 +15,12 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 CSRC = Path(__file__).with_name("csrc")
-SOURCES = ("masked_matmul", "hcu_softmax", "bcpnn_update")
+SOURCES = ("masked_matmul", "hcu_softmax", "bcpnn_update", "bcpnn_phase", "bf_round")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -42,8 +43,9 @@ def _nvcc() -> str:
 
 def build_dir() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        digest.update((CSRC / f"{name}.cu").read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        digest.update(path.relative_to(CSRC).as_posix().encode())
+        digest.update(path.read_bytes())
     return BUILD_ROOT / digest.hexdigest()[:16]
 
 
@@ -101,14 +103,25 @@ def function(lib: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     return fn
 
 
-def on_cpu(name: str, *tensors) -> bool:
+F32 = (torch.float32,)
+STATE = (torch.float32, torch.bfloat16)  # traces of the quantized state tier
+
+
+def on_cpu(name: str, *tensors, dtypes: Optional[Sequence[Tuple[torch.dtype, ...]]] = None) -> bool:
     """Dispatch by the device of the inputs (``None`` entries are skipped).
 
     True when every tensor lies on the CPU: the caller takes the plain
-    version.  False when all lie on one CUDA device as contiguous f32: the
-    caller launches the kernel.  Anything else raises; there is no fallback.
+    version.  False when all lie on one CUDA device, contiguous and of a
+    dtype the kernel takes: ``dtypes`` gives the allowed dtypes per
+    argument (default: :data:`F32` for every one).  The caller then
+    launches the kernel.  Anything else raises; there is no fallback.
     """
-    ts = [t for t in tensors if t is not None]
+    if dtypes is None:
+        dtypes = [F32] * len(tensors)
+    if len(dtypes) != len(tensors):
+        raise ValueError(f"{name}: {len(tensors)} tensors but {len(dtypes)} dtype entries")
+    pairs = [(t, d) for t, d in zip(tensors, dtypes) if t is not None]
+    ts = [t for t, _ in pairs]
     devices = {t.device for t in ts}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs lie on several devices {sorted(map(str, devices))}")
@@ -117,10 +130,11 @@ def on_cpu(name: str, *tensors) -> bool:
         return True
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for tensors on {device}")
-    for t in ts:
-        if t.dtype != torch.float32 or not t.is_contiguous():
+    for t, allowed in pairs:
+        if t.dtype not in allowed or not t.is_contiguous():
+            want = " or ".join(str(d).replace("torch.", "") for d in allowed)
             raise ValueError(
-                f"{name}: the kernel takes contiguous float32 tensors, got "
+                f"{name}: the kernel takes contiguous {want} tensors here, got "
                 f"{t.dtype} of shape {tuple(t.shape)} (contiguous={t.is_contiguous()})"
             )
     return False

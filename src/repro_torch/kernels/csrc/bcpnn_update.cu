@@ -1,13 +1,19 @@
-// BCPNN marginal + weight update (Alg. 1 L11-16), f32, on Hopper (sm_90a).
+// BCPNN marginal + weight update (Alg. 1 L11-16), f32 arithmetic, on
+// Hopper (sm_90a).
 //
-// Replaces the TPU kernel repro/kernels/bcpnn_update.py:bcpnn_update_fused
-// (with state_mantissa=None).  Given a_i (B, F), a_j (B, H) and the old
-// traces c_i (F,), c_j (H,), C_ij (F, H):
+// Replaces the TPU kernel repro/kernels/bcpnn_update.py:bcpnn_update_fused.
+// Given a_i (B, F), a_j (B, H) and the old traces c_i (F,), c_j (H,),
+// C_ij (F, H):
 //   c_i'  = (1-lam) c_i  + lam mean_b a_i
 //   c_j'  = (1-lam) c_j  + lam mean_b a_j
 //   C_ij' = (1-lam) C_ij + lam (a_i^T a_j) / B
+//   with state_mantissa m > 0, each trace is then RNE-rounded to m bits
+//   (the quantized state tier, rne_round.cuh)
 //   w     = [log C_ij' - log c_i' - log c_j'] * mask,  bias = k_b log c_j'
-// every log taken of max(., EPS).
+// every log taken of max(., EPS), of the rounded traces when rounding.
+// The traces are read in their storage dtype (state_in_bf16) and written
+// in theirs (state_out_bf16): bf16 only when m <= 7, where the rounded
+// values are exact, so no separate cast pass over C_ij is needed.
 //
 // The TPU kernel carries its sums across sequential grid steps.  Here one
 // 256-thread block owns a 64 (F) x 64 (H) tile and loops over the whole
@@ -24,7 +30,7 @@
 // about 78 MB (C_ij and mask in, C_ij' and w out) against 1.2 GFLOP of
 // outer product: it is bound by bytes on this card.  mask may be null.
 
-#include <cuda_runtime.h>
+#include "rne_round.cuh"
 
 namespace {
 
@@ -40,12 +46,13 @@ constexpr float EPS = 1e-8f;
 
 __global__ void __launch_bounds__(THREADS)
 bcpnn_update_kernel(const float* __restrict__ ai, const float* __restrict__ aj,
-                    const float* __restrict__ ci, const float* __restrict__ cj,
-                    const float* __restrict__ cij, const float* __restrict__ mask,
-                    float* __restrict__ ci_out, float* __restrict__ cj_out,
-                    float* __restrict__ cij_out, float* __restrict__ w_out,
+                    const void* __restrict__ ci, const void* __restrict__ cj,
+                    const void* __restrict__ cij, const float* __restrict__ mask,
+                    void* __restrict__ ci_out, void* __restrict__ cj_out,
+                    void* __restrict__ cij_out, float* __restrict__ w_out,
                     float* __restrict__ bias_out, int B, int F, int H,
-                    float lam, float one_m, float k_b) {
+                    float lam, float one_m, float k_b, int state_mantissa,
+                    int state_in_bf16, int state_out_bf16) {
   __shared__ float ais[BB][TF];
   __shared__ float ajs[BB][TH];
   __shared__ float log_ci[TF];
@@ -103,19 +110,21 @@ bcpnn_update_kernel(const float* __restrict__ ai, const float* __restrict__ aj,
   if (tid < TF) {
     const int gf = f0 + tid;
     if (gf < F) {
-      const float c = one_m * ci[gf] + lam * (col / batch);
-      if (blockIdx.x == 0) ci_out[gf] = c;
+      const float c = rne_round(one_m * load_state(ci, gf, state_in_bf16) + lam * (col / batch),
+                                state_mantissa);
+      if (blockIdx.x == 0) store_state(ci_out, gf, c, state_out_bf16);
       log_ci[tid] = logf(fmaxf(c, EPS));
     }
   } else if (tid < TF + TH) {
     const int jh = tid - TF;
     const int gh = h0 + jh;
     if (gh < H) {
-      const float c = one_m * cj[gh] + lam * (col / batch);
+      const float c = rne_round(one_m * load_state(cj, gh, state_in_bf16) + lam * (col / batch),
+                                state_mantissa);
       const float lc = logf(fmaxf(c, EPS));
       log_cj[jh] = lc;
       if (blockIdx.y == 0) {
-        cj_out[gh] = c;
+        store_state(cj_out, gh, c, state_out_bf16);
         bias_out[gh] = k_b * lc;
       }
     }
@@ -133,8 +142,10 @@ bcpnn_update_kernel(const float* __restrict__ ai, const float* __restrict__ aj,
       const int gh = h0 + hj;
       if (gh >= H) continue;
       const size_t idx = (size_t)gf * H + gh;
-      const float c = one_m * cij[idx] + lam * (acc[i][j] / batch);
-      cij_out[idx] = c;
+      const float c = rne_round(
+          one_m * load_state(cij, idx, state_in_bf16) + lam * (acc[i][j] / batch),
+          state_mantissa);
+      store_state(cij_out, idx, c, state_out_bf16);
       float wv = logf(fmaxf(c, EPS)) - log_ci[fi] - log_cj[hj];
       if (mask != nullptr) wv *= mask[idx];
       w_out[idx] = wv;
@@ -144,14 +155,15 @@ bcpnn_update_kernel(const float* __restrict__ ai, const float* __restrict__ aj,
 
 }  // namespace
 
-extern "C" int bcpnn_update_f32(const float* ai, const float* aj, const float* ci,
-                                const float* cj, const float* cij, const float* mask,
-                                float* ci_out, float* cj_out, float* cij_out,
+extern "C" int bcpnn_update_f32(const float* ai, const float* aj, const void* ci,
+                                const void* cj, const void* cij, const float* mask,
+                                void* ci_out, void* cj_out, void* cij_out,
                                 float* w_out, float* bias_out, int B, int F, int H,
-                                float lam, float one_m, float k_b, cudaStream_t stream) {
+                                float lam, float one_m, float k_b, int state_mantissa,
+                                int state_in_bf16, int state_out_bf16, cudaStream_t stream) {
   const dim3 grid((H + TH - 1) / TH, (F + TF - 1) / TF);
   bcpnn_update_kernel<<<grid, THREADS, 0, stream>>>(
       ai, aj, ci, cj, cij, mask, ci_out, cj_out, cij_out, w_out, bias_out, B, F, H,
-      lam, one_m, k_b);
+      lam, one_m, k_b, state_mantissa, state_in_bf16, state_out_bf16);
   return static_cast<int>(cudaGetLastError());
 }

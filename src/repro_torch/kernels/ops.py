@@ -5,20 +5,26 @@ kernel's plain version (``ref.py``), CUDA tensors launch the hand-written
 Hopper kernel, and anything else raises.  There is no fallback and no
 ``use_kernels`` flag: on the card the kernels are the path.
 
-``state_format`` (the quantized state tier) arrives with the precision
-slice; until then it raises.
+``state_format`` (None, a format name or a ``BFFormat``) selects the
+quantized state tier: the new traces come back rounded to the format's
+mantissa, in bf16 when that is exact.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import bcpnn_phase as _pk
 from repro_torch.kernels import bcpnn_update as _bk
+from repro_torch.kernels import bf_round as _bfk
 from repro_torch.kernels import hcu_softmax as _sk
 from repro_torch.kernels import masked_matmul as _mk
 
-KERNELS = {"masked_matmul": _mk, "hcu_softmax": _sk, "bcpnn_update": _bk}
+KERNELS = {
+    "masked_matmul": _mk, "hcu_softmax": _sk, "bcpnn_update": _bk,
+    "bcpnn_phase": _pk, "bf_round": _bfk,
+}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -29,6 +35,17 @@ def launch_counts() -> Dict[str, int]:
 def reset_launches() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+
+
+def _state_spec(state_format) -> Tuple[Optional[int], Optional[torch.dtype]]:
+    """Resolve a ``state_format`` (None | name | BFFormat) into the kernels'
+    (mantissa_bits, storage_dtype) pair."""
+    if state_format is None:
+        return None, None
+    from repro_torch.precision.formats import get_format, state_spec
+
+    fmt = get_format(state_format) if isinstance(state_format, str) else state_format
+    return state_spec(fmt)
 
 
 def hcu_softmax(s: torch.Tensor, n_hcu: int, n_mcu: int) -> torch.Tensor:
@@ -45,6 +62,10 @@ def masked_matmul(
     return _mk.masked_matmul(x, w, b, mask=mask)
 
 
+def bf_round(x: torch.Tensor, mantissa_bits: int) -> torch.Tensor:
+    return _bfk.bf_round(x, mantissa_bits)
+
+
 def bcpnn_update(
     marginals,
     ai: torch.Tensor,
@@ -55,15 +76,49 @@ def bcpnn_update(
     state_format=None,
 ):
     """Full Alg.1 L11-16 cycle: returns (new MarginalState, w, b), matching
-    ``learning.learning_cycle``.  The vector EWMAs and the bias run inside
-    the kernel beside the C_ij outer product."""
+    ``learning.learning_cycle``.  The vector EWMAs, the bias and, with
+    ``state_format``, the rounding run inside the kernel beside the C_ij
+    outer product."""
     from repro_torch.core.learning import MarginalState
 
-    if state_format is not None:
-        raise NotImplementedError(
-            f"state_format={state_format!r}: the quantized state tier is not ported yet"
-        )
+    mant, sdtype = _state_spec(state_format)
     ci, cj, cij, w, bias = _bk.bcpnn_update(
-        ai, aj, marginals.ci, marginals.cj, marginals.cij, lam, k_b=k_b, mask=mask
+        ai, aj, marginals.ci, marginals.cj, marginals.cij, lam, k_b=k_b, mask=mask,
+        state_mantissa=mant, state_dtype=sdtype,
     )
     return MarginalState(ci=ci, cj=cj, cij=cij), w, bias
+
+
+def bcpnn_phase(
+    marginals,
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    layout,
+    lam: float,
+    k_b: float = 1.0,
+    gain: float = 1.0,
+    mask: Optional[torch.Tensor] = None,
+    n_cycles: int = 1,
+    state_format=None,
+):
+    """One whole BCPNN training batch (Alg.1 L8-16) in one launch: forward
+    support, gain, per-HCU softmax, batch means, EWMA marginals and the
+    weight/bias epilogue.  ``layout`` is the post UnitLayout.  Extra
+    learning cycles (``n_cycles > 1``) reuse the first cycle's activations
+    through :func:`bcpnn_update`, as the unfused path does.  Returns
+    (new MarginalState, w', b', aj)."""
+    from repro_torch.core.learning import MarginalState
+
+    mant, sdtype = _state_spec(state_format)
+    aj, ci, cj, cij, w_n, bias = _pk.bcpnn_phase(
+        x, w, b, marginals.ci, marginals.cj, marginals.cij, lam,
+        layout.n_hcu, layout.n_mcu, k_b=k_b, gain=gain, mask=mask,
+        state_mantissa=mant, state_dtype=sdtype,
+    )
+    state = MarginalState(ci=ci, cj=cj, cij=cij)
+    for _ in range(n_cycles - 1):
+        state, w_n, bias = bcpnn_update(
+            state, x, aj, lam, k_b=k_b, mask=mask, state_format=state_format
+        )
+    return state, w_n, bias, aj

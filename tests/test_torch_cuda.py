@@ -20,7 +20,10 @@ from repro_torch.core import (
 )
 from repro_torch.core.learning import MarginalState
 from repro_torch.data import complementary_code, mnist_like
+from repro_torch.kernels import bcpnn_phase as pk
+from repro_torch.kernels import bcpnn_update as bk
 from repro_torch.kernels import ops, ref
+from repro_torch.precision import PrecisionPolicy
 
 # (B, F, n_hcu, n_mcu): the sweep of test_torch_kernels.py.
 SHAPES = [
@@ -88,7 +91,8 @@ def test_kernels_match_plain_on_card(card, shape, use_mask):
         torch.testing.assert_close(got, want, **TOL)
     torch.cuda.synchronize()
     after = ops.launch_counts()
-    assert all(after[k] == counts[k] + 1 for k in after)
+    for k in ("masked_matmul", "hcu_softmax", "bcpnn_update"):
+        assert after[k] == counts[k] + 1
 
 
 @pytest.mark.cuda
@@ -122,3 +126,109 @@ def test_fit_on_card_matches_cpu(card):
         if sc.plast is not None:
             assert torch.equal(sg.plast.hcu_mask.cpu(), sc.plast.hcu_mask)
     torch.testing.assert_close(gpu.predict(xt).cpu(), cpu.predict(xt), rtol=1e-4, atol=1e-5)
+
+
+# The state tier: the kernel and the plain version round f32 sums taken in
+# different orders, so a trace may land one ulp of the format apart
+# (rtol 2^-m) and w/bias, logs of the traces, ~2^-m apart (atol 2^-(m-1)).
+def _state_close(got, want, mant):
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-mant, atol=0)
+
+
+def _phase_args(p, shape):
+    _, _, n_hcu, n_mcu = shape
+    return p["x"], p["w"], p["b"], p["ci"], p["cj"], p["cij"], 0.05, n_hcu, n_mcu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_mask", [True, False])
+@pytest.mark.parametrize("shape", SHAPES + [(600, 300, 3, 100)])  # the last: a_j re-read from global
+def test_bcpnn_phase_matches_plain_on_card(card, shape, use_mask):
+    p = _problem(*shape, use_mask, card)
+    kw = dict(k_b=0.7, gain=1.3, mask=p["mask"])
+    before = ops.launch_counts()["bcpnn_phase"]
+    got = pk.bcpnn_phase(*_phase_args(p, shape), **kw)
+    want = ref.bcpnn_phase(*_phase_args(p, shape), **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, **TOL)
+    # ... and against the three-kernel composition it replaces.
+    _, _, n_hcu, n_mcu = shape
+    s = ops.masked_matmul(p["x"], p["w"], p["b"], mask=p["mask"]) * 1.3
+    aj = ops.hcu_softmax(s, n_hcu, n_mcu)
+    st, w_n, b_n = ops.bcpnn_update(
+        MarginalState(p["ci"], p["cj"], p["cij"]), p["x"], aj, lam=0.05, k_b=0.7, mask=p["mask"]
+    )
+    for g, w in zip(got, (aj, *st, w_n, b_n)):
+        torch.testing.assert_close(g, w, **TOL)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bcpnn_phase"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mant,dtype", [(7, torch.bfloat16), (11, None)])
+@pytest.mark.parametrize("shape", [SHAPES[1], SHAPES[5], (128, 1568, 30, 100)])
+def test_rounding_epilogues_match_plain_on_card(card, shape, mant, dtype):
+    p = _problem(*shape, True, card)
+    store = dtype or torch.float32
+    ci, cj, cij = (p[k].to(store) for k in ("ci", "cj", "cij"))
+    args = _phase_args(p, shape)
+    got = pk.bcpnn_phase(*args[:3], ci, cj, cij, *args[6:], k_b=0.7, gain=1.3, mask=p["mask"],
+                         state_mantissa=mant, state_dtype=dtype)
+    want = ref.bcpnn_phase(*args[:3], ci, cj, cij, *args[6:], k_b=0.7, gain=1.3, mask=p["mask"],
+                           state_mantissa=mant)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    for g, w in zip(got[1:4], want[1:4]):
+        assert g.dtype == store
+        _state_close(g, w, mant)
+    for g, w in zip(got[4:], want[4:]):
+        torch.testing.assert_close(g, w, rtol=0, atol=2.0 ** -(mant - 1))
+    got = bk.bcpnn_update(p["x"], want[0], ci, cj, cij, 0.05, k_b=0.7, mask=p["mask"],
+                          state_mantissa=mant, state_dtype=dtype)
+    want = ref.bcpnn_update(p["x"], want[0], ci, cj, cij, 0.05, k_b=0.7, mask=p["mask"],
+                            state_mantissa=mant)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == store
+        _state_close(g, w, mant)
+    for g, w in zip(got[3:], want[3:]):
+        torch.testing.assert_close(g, w, rtol=0, atol=2.0 ** -(mant - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mant", [1, 7, 11, 22, 23])
+def test_bf_round_bit_exact_on_card(card, mant):
+    f32 = np.finfo(np.float32)
+    specials = torch.tensor(
+        [0.0, -0.0, 1e-40, -1e-40, float("inf"), -float("inf"), float("nan"), f32.max, -f32.max,
+         1.9999999, 0.99999994, 1.0 + 2**-8, 3.9999998], device=card,
+    )
+    rng = np.random.default_rng(mant)
+    bits = torch.from_numpy(rng.integers(-2**31, 2**31, 100_003, dtype=np.int64).astype(np.int32))
+    x = torch.cat([specials, bits.view(torch.float32).to(card)])
+    for t in (x, x[1:]):  # 16-byte aligned, then not: the scalar path
+        got = ops.bf_round(t, mant)
+        assert torch.equal(got.view(torch.int32), ref.bf_round(t, mant).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_fused_bf16_fit_on_card_matches_cpu(card):
+    """The fused, bf16-state Listing 1 on the card against the CPU's plain
+    versions, from one initial state and one shuffle order."""
+    ds = mnist_like(n_train=512, n_test=128, n_features=24, seed=0)
+    x, layout = complementary_code(ds.x_train)
+    xt, _ = complementary_code(ds.x_test)
+    net = Network(seed=0)
+    net.add(StructuralPlasticityLayer(layout, UnitLayout(4, 10), fan_in=12, lam=0.05, gain=4.0))
+    net.add(DenseLayer(UnitLayout(4, 10), onehot_layout(10), lam=0.05))
+    cfg = dict(fused_phase=True, precision=PrecisionPolicy.named("fp32", state_format="bf16"))
+    ops.reset_launches()
+    gpu = net.compile(ExecutionConfig(**cfg))
+    cpu = net.compile(ExecutionConfig(device="cpu", **cfg))
+    for c in (gpu, cpu):
+        c.fit((x, ds.y_train), epochs_hidden=1, epochs_readout=1, batch_size=64)
+    counts = ops.launch_counts()
+    assert counts["bcpnn_phase"] == 8 and counts["bcpnn_update"] == 8 and counts["bf_round"] == 6
+    assert gpu.state.layers[0].marginals.cij.dtype == torch.bfloat16
+    for sg, sc in zip(gpu.state.layers, cpu.state.layers):
+        _state_close(sg.marginals.cij.cpu(), sc.marginals.cij, 7)
+    torch.testing.assert_close(gpu.predict(xt).cpu(), cpu.predict(xt), rtol=0, atol=2.0**-6)

@@ -1,5 +1,6 @@
 """The port stands alone: no file of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or the JAX package."""
+``chip_smoke.py``, imports JAX, the JAX package or ``ml_dtypes`` (the
+machine with the card has none; bf16 arrays go through their bits)."""
 import ast
 import os
 import pathlib
@@ -11,7 +12,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_roots(path: pathlib.Path):
@@ -44,6 +45,7 @@ def test_every_module_imports_with_jax_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import importlib\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"

@@ -1,7 +1,9 @@
 """The port's slice as a whole: Network -> compile -> fit -> predict /
 evaluate against the JAX package's ``ExecutionConfig(engine="scan",
-use_kernels=True)`` from the same (carried-across) init and seed, plus the
-port's own engine, cache and device contracts."""
+use_kernels=True)`` from the same (carried-across) init and seed, the
+fused-phase path (f32 and bf16 state) against the JAX package's
+``ExecutionConfig(fused_phase=True, ...)``, plus the port's own engine,
+cache and device contracts."""
 import jax
 import numpy as np
 import pytest
@@ -14,10 +16,12 @@ from repro.core import StructuralPlasticityLayer as JPlastic
 from repro.core import UnitLayout as JUnitLayout
 from repro.core import onehot_layout as jonehot
 from repro.core.compiled import ExecutionConfig as JExecutionConfig
+from repro.precision import PrecisionPolicy as JPrecisionPolicy
 from repro.data import complementary_code as jcomplementary_code
 from repro.data import mnist_like as jmnist_like
 from repro_torch.checkpoint import flat_from_network_state, network_state_from_flat
 from repro_torch.core import (
+    BCPNNLayerSpec,
     DenseLayer,
     ExecutionConfig,
     Network,
@@ -26,6 +30,7 @@ from repro_torch.core import (
     onehot_layout,
 )
 from repro_torch.data import complementary_code, mnist_like
+from repro_torch.precision import PrecisionPolicy
 from repro_torch.runtime.activations import ActivationStore
 
 FIT_RTOL, FIT_ATOL = 1e-4, 1e-5
@@ -57,14 +62,13 @@ def _torch_net(seed=0):
     return net
 
 
-@pytest.fixture(scope="module")
-def jax_run(data):
-    """A JAX fit on the Pallas kernel path: its initial and final states."""
+def _jax_fit(data, config):
+    """A JAX fit under ``config``: its initial and final states."""
     ds, x, xt, _ = data
     net = JNetwork(seed=0)
     net.add(JPlastic(JUnitLayout(12, 2), JUnitLayout(*HIDDEN), **LAYER_KW))
     net.add(JDense(JUnitLayout(*HIDDEN), jonehot(10), lam=0.05))
-    compiled = net.compile(JExecutionConfig(engine="scan", use_kernels=True))
+    compiled = net.compile(config)
     init = _jflat(compiled.state.layers)
     compiled.fit((x, ds.y_train), **FIT_KW)
     return dict(
@@ -75,12 +79,43 @@ def jax_run(data):
     )
 
 
+@pytest.fixture(scope="module")
+def jax_run(data):
+    """A JAX fit on the Pallas kernel path."""
+    return _jax_fit(data, JExecutionConfig(engine="scan", use_kernels=True))
+
+
+BF16_STATE = dict(fused_phase=True, precision=PrecisionPolicy.named("fp32", state_format="bf16"))
+
+
+@pytest.fixture(scope="module")
+def jax_fused_runs(data):
+    """JAX fits on the fused Pallas kernel, with f32 and with bf16 state."""
+    return {
+        "f32": _jax_fit(data, JExecutionConfig(engine="scan", fused_phase=True)),
+        "bf16": _jax_fit(data, JExecutionConfig(
+            engine="scan", fused_phase=True,
+            precision=JPrecisionPolicy.named("fp32", state_format="bf16"),
+        )),
+    }
+
+
 def _fit_from_jax_init(data, jax_run, **config):
     ds, x, _, _ = data
     compiled = _torch_net().compile(ExecutionConfig(device="cpu", **config))
     compiled.state = network_state_from_flat(jax_run["init"], compiled.layers)
     result = compiled.fit((x, ds.y_train), **FIT_KW)
     return compiled, result
+
+
+def _assert_fit_matches(compiled, run, xt, rtol=FIT_RTOL, atol=FIT_ATOL):
+    port = flat_from_network_state(compiled.state)
+    assert sorted(port) == sorted(run["final"])
+    for k, want in run["final"].items():
+        np.testing.assert_allclose(
+            port[k], np.asarray(want, np.float32), rtol=rtol, atol=atol, err_msg=k
+        )
+    np.testing.assert_allclose(compiled.predict(xt).numpy(), run["predict"], rtol=rtol, atol=atol)
 
 
 def test_data_generators_are_identical():
@@ -96,13 +131,7 @@ def test_data_generators_are_identical():
 def test_fit_and_predict_match_jax(data, jax_run):
     ds, _, xt, _ = data
     compiled, result = _fit_from_jax_init(data, jax_run)
-    port = flat_from_network_state(compiled.state)
-    assert sorted(port) == sorted(jax_run["final"])
-    for k, want in jax_run["final"].items():
-        np.testing.assert_allclose(port[k], want, rtol=FIT_RTOL, atol=FIT_ATOL, err_msg=k)
-    np.testing.assert_allclose(
-        compiled.predict(xt).numpy(), jax_run["predict"], rtol=FIT_RTOL, atol=FIT_ATOL
-    )
+    _assert_fit_matches(compiled, jax_run, xt)
     assert compiled.evaluate((xt, ds.y_test)) == jax_run["accuracy"]
     phases = [h["phase"] for h in result.history]
     assert phases == ["hidden0", "hidden0", "project", "readout", "readout"]
@@ -180,9 +209,96 @@ def test_default_device_needs_a_hopper_card(data):
         _torch_net().compile(ExecutionConfig(device="cuda:0"))
 
 
+@pytest.mark.parametrize("engine", ["scan", "batch"])
+def test_fused_fit_matches_jax(data, jax_fused_runs, engine):
+    ds, _, xt, _ = data
+    run = jax_fused_runs["f32"]
+    compiled, _ = _fit_from_jax_init(data, run, engine=engine, fused_phase=True)
+    assert compiled.layers[0].spec.fused_phase and not compiled.layers[1].spec.fused_phase
+    _assert_fit_matches(compiled, run, xt)
+    assert compiled.evaluate((xt, ds.y_test)) == run["accuracy"]
+
+
+def test_fused_fit_matches_unfused(data, jax_run):
+    """Port fused against port unfused, from one init: the same sums in
+    other orders, so equal to f32 reassociation error."""
+    xt = data[2]
+    fused, _ = _fit_from_jax_init(data, jax_run, fused_phase=True)
+    unfused, _ = _fit_from_jax_init(data, jax_run)
+    fa, fb = flat_from_network_state(fused.state), flat_from_network_state(unfused.state)
+    for k in fa:
+        np.testing.assert_allclose(fa[k], fb[k], rtol=FIT_RTOL, atol=FIT_ATOL, err_msg=k)
+    np.testing.assert_allclose(
+        fused.predict(xt).numpy(), unfused.predict(xt).numpy(), rtol=FIT_RTOL, atol=FIT_ATOL
+    )
+
+
+# bf16 traces: the two packages round f32 sums taken in different orders, so
+# a trace next to a rounding boundary may land one bf16 ulp (2^-8 relative)
+# away; w and bias then move by ~2^-7 at that element, which the readout's
+# softmax damps.  At this size no trace lands apart (the traces agree bit
+# for bit); the test allows one ulp per trace and 2^-6 on the scores
+# (per-class probabilities in [0, 1]), and accuracy within 0.03, the bar
+# of the card check.
+BF16_TRACE_RTOL = 2.0**-8
+BF16_SCORE_ATOL = 2.0**-6
+
+
+def test_fused_bf16_state_fit_matches_jax(data, jax_fused_runs):
+    ds, _, xt, _ = data
+    run = jax_fused_runs["bf16"]
+    compiled, _ = _fit_from_jax_init(data, run, **BF16_STATE)
+    for s in compiled.state.layers:
+        assert {t.dtype for t in s.marginals} == {torch.bfloat16}
+        assert s.w.dtype == s.b.dtype == torch.float32
+    port = flat_from_network_state(compiled.state)
+    for k, want in run["final"].items():
+        if "marginals" in k:
+            np.testing.assert_allclose(
+                port[k], np.asarray(want, np.float32), rtol=BF16_TRACE_RTOL, atol=0, err_msg=k
+            )
+    np.testing.assert_allclose(
+        compiled.predict(xt).numpy(), run["predict"], rtol=0, atol=BF16_SCORE_ATOL
+    )
+    assert abs(compiled.evaluate((xt, ds.y_test)) - run["accuracy"]) <= 0.03
+
+
+def test_compile_quantizes_the_initial_state(data):
+    """compile() rounds and casts the traces into the storage tier once."""
+    net = _torch_net()
+    plain = net.compile(ExecutionConfig(device="cpu"))
+    tier = net.compile(ExecutionConfig(device="cpu", **BF16_STATE))
+    for a, b in zip(plain.state.layers, tier.state.layers):
+        for ta, tb in zip(a.marginals, b.marginals):
+            assert tb.dtype == torch.bfloat16
+            torch.testing.assert_close(tb.float(), ta, rtol=2.0**-8, atol=0)
+        assert torch.equal(a.w, b.w)
+    assert net.states[0].marginals.cij.dtype == torch.float32  # declarative state untouched
+
+
+def test_fused_config_validation():
+    with pytest.raises(ValueError, match="datapath"):
+        ExecutionConfig(device="cpu", fused_phase=True, precision="bf20")
+    with pytest.raises(ValueError, match="datapath"):
+        BCPNNLayerSpec(
+            pre=UnitLayout(2, 2), post=UnitLayout(2, 2), fused_phase=True,
+            precision=PrecisionPolicy.named("bf20"),
+        )
+    assert ExecutionConfig(device="cpu", fused_phase=True).fused_phase is True
+    # The spec needs no kernel switch: the fused kernel is the path.
+    assert BCPNNLayerSpec(pre=UnitLayout(2, 2), post=UnitLayout(2, 2), fused_phase=True).fused_phase
+    with pytest.raises(TypeError, match="use_kernels"):
+        ExecutionConfig(device="cpu", fused_phase=True, use_kernels=True)
+    net = _torch_net()
+    bound = [ExecutionConfig(device="cpu", **BF16_STATE).bind_layer(la) for la in net.layers]
+    assert [b.spec.fused_phase for b in bound] == [True, False]
+    assert all(b.spec.precision.has_state_tier for b in bound)
+    assert not any(la.spec.fused_phase or la.spec.precision for la in net.layers)
+
+
 def test_unported_options_raise_by_name(data):
     ds, x, _, _ = data
-    for name in ("fused_phase", "precision", "trainer", "use_kernels", "strict", "trace", "profile_dir"):
+    for name in ("trainer", "use_kernels", "strict", "trace", "profile_dir"):
         with pytest.raises(TypeError, match=name):
             ExecutionConfig(**{name: None})
     with pytest.raises(TypeError, match="use_kernels"):
@@ -190,7 +306,7 @@ def test_unported_options_raise_by_name(data):
     net = _torch_net().compile(ExecutionConfig(device="cpu"))
     with pytest.raises(ValueError, match="sgd"):
         net.fit((x, ds.y_train), readout="sgd", **FIT_KW)
-    for method in ("save", "load", "streaming", "serve"):
+    for method in ("streaming", "serve"):
         assert not hasattr(net, method)
     with pytest.raises(ValueError, match="engine"):
         ExecutionConfig(engine="pipelined")
