@@ -14,7 +14,9 @@ the run with a non-zero exit:
    gives it (``bcpnn_phase`` also against the three-kernel composition it
    replaces, ``bf_round`` bit for bit, special values included), and time
    the kernel, the plain version and, where one exists, a single PyTorch
-   library call computing the same function;
+   library call computing the same function (the forward pair at each of
+   its main-path shapes: a training batch or projection chunk of B rows,
+   and predict's chunk of P rows through the hidden layer and the head);
 4. drive the main paths, the paper's Listing 1 at MNIST width (784
    complementary-coded features -> 30x100 hidden -> 10 classes), through
    ``Network`` -> ``compile`` -> ``fit`` -> ``evaluate``: the unfused f32
@@ -22,12 +24,13 @@ the run with a non-zero exit:
    (``ExecutionConfig(fused_phase=True, precision=PrecisionPolicy.named(
    "fp32", state_format="bf16"))``), each on the card with every launch
    counter reset just before its compile, then each on the CPU through the
-   plain versions; on each path the card's accuracy must be >= 0.5 and
-   within 0.03 of the CPU's, and the launch counts must be those of the
-   path (on the fused one: one ``bcpnn_phase`` per hidden batch, one
-   ``bcpnn_update`` per readout batch, ``bf_round`` at compile); then time
-   the staging of one hidden epoch's input alone, the host time both paths
-   share;
+   plain versions, timing ``fit``, ``predict`` and ``evaluate`` apart; on
+   each path the card's accuracy must be >= 0.5 and within 0.03 of the
+   CPU's, and the launch counts must be those of the path (one
+   ``masked_matmul`` and one ``hcu_softmax`` per forward pass; on the
+   fused path one ``bcpnn_phase`` per hidden batch, one ``bcpnn_update``
+   per readout batch, ``bf_round`` at compile); then time the staging of
+   one hidden epoch's input alone, the host time both paths share;
 5. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
    ...}`` line.
 
@@ -52,6 +55,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 
 B, N_FEATURES, HIDDEN, N_CLASSES = 128, 784, (30, 100), 10
+P = 1024  # predict's and evaluate's chunk (CompiledNetwork.predict batch_size)
 FAN_IN = 392  # half the input HCUs: rewiring runs every 30 batches
 REPS = 20
 
@@ -158,7 +162,8 @@ def bit_exact(torch, got, want):
 
 def kernel_checks(torch, ops, ref, dev):
     """Phase 3: each kernel against its plain version at the main path's
-    shapes; returns one record per kernel, timed at the hidden-layer shape."""
+    shapes; returns one record per kernel, its top-level times those of the
+    hidden-layer shape and every case's times under ``cases``."""
     g = torch.Generator(device=dev).manual_seed(0)
     F, H = 2 * N_FEATURES, HIDDEN[0] * HIDDEN[1]
     n_hcu, n_mcu = HIDDEN
@@ -181,10 +186,13 @@ def kernel_checks(torch, ops, ref, dev):
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)  # 64 MB
     x = uniform(B, F)
     h = codes(B, n_hcu, n_mcu)
+    # predict's chunk: the hidden projection and the readout head at P rows
+    x_p, h_p = uniform(P, F), codes(P, n_hcu, n_mcu)
+    s_p, s_r = 4 * normal(P, H), 4 * normal(P, N_CLASSES)
     mask = unit_mask(N_FEATURES, 2, n_hcu, n_mcu, FAN_IN)
     w_h, b_h = normal(F, H), 0.1 * normal(H)
     w_r, b_r = normal(H, N_CLASSES), 0.1 * normal(N_CLASSES)
-    s_h, s_r = 4 * normal(B, H), 4 * normal(B, N_CLASSES)
+    s_h = 4 * normal(B, H)
     ci_h, cj_h = 0.25 + 0.5 * uniform(F), 0.005 + 0.01 * uniform(H)
     cij_h = (ci_h[:, None] * cj_h[None, :]) * torch.exp(normal(F, H))
     onehot = torch.nn.functional.one_hot(
@@ -202,6 +210,27 @@ def kernel_checks(torch, ops, ref, dev):
          -3.4028234663852886e38, 1.9999999, 0.99999994, 1.0 + 2**-8, 3.9999998, 1.5],
         device=dev,
     )
+
+    def mm_case(a, w, b, m):
+        (rows, k), n = a.shape, w.shape[1]
+        p = mk.plan(rows, k, n, mk.n_sm(dev))
+        masked = "*mask" if m is not None else ""
+        return (f"x({rows},{k}) @ w({k},{n}){masked} + b "
+                f"[plan {p.config} CL={p.cl} {p.ctas} CTAs]",
+                lambda: ops.masked_matmul(a, w, b, mask=m),
+                lambda: ref.masked_matmul(a, w, b, mask=m),
+                (lambda: torch.matmul(a, w * m) + b) if m is not None
+                else (lambda: torch.matmul(a, w) + b),
+                f32 * (rows * k + (2 if m is not None else 1) * k * n + n + rows * n),
+                2 * rows * k * n + (k * n if m is not None else 0))
+
+    def sm_case(s, hcu, mcu):
+        rows = s.shape[0]
+        return (f"s({rows},{hcu}x{mcu})",
+                lambda: ops.hcu_softmax(s, hcu, mcu),
+                lambda: ref.hcu_softmax(s, hcu, mcu),
+                lambda: torch.softmax(s.view(rows, hcu, mcu), -1),
+                2 * f32 * rows * hcu * mcu, 5 * rows * hcu * mcu)
 
     def update(fn, ai, aj, ci, cj, cij, m, **kw):
         return lambda: fn(ai, aj, ci, cj, cij, lam, k_b=k_b, mask=m, **kw)
@@ -230,6 +259,7 @@ def kernel_checks(torch, ops, ref, dev):
     from repro_torch.kernels import bcpnn_phase as pk
     from repro_torch.kernels import bcpnn_update as bk
     from repro_torch.kernels import bf_round as bfk
+    from repro_torch.kernels import masked_matmul as mk
     round7, plain7 = round_cases(7)
     round11, plain11 = round_cases(11)
     specs = [
@@ -238,37 +268,16 @@ def kernel_checks(torch, ops, ref, dev):
             source="src/repro_torch/kernels/csrc/masked_matmul.cu",
             replaces="src/repro/kernels/masked_matmul.py:47 (masked_matmul; pallas_call :80)",
             tol=(1e-4, 1e-5),
-            cases=[
-                (f"x({B},{F}) @ w({F},{H})*mask + b",
-                 lambda: ops.masked_matmul(x, w_h, b_h, mask=mask),
-                 lambda: ref.masked_matmul(x, w_h, b_h, mask=mask),
-                 lambda: torch.matmul(x, w_h * mask) + b_h,
-                 4 * (B * F + 2 * F * H + H + B * H), 2 * B * F * H + F * H),
-                (f"h({B},{H}) @ w({H},{N_CLASSES}) + b",
-                 lambda: ops.masked_matmul(h, w_r, b_r),
-                 lambda: ref.masked_matmul(h, w_r, b_r),
-                 lambda: torch.matmul(h, w_r) + b_r,
-                 4 * (B * H + H * N_CLASSES + N_CLASSES + B * N_CLASSES),
-                 2 * B * H * N_CLASSES),
-            ],
+            cases=[mm_case(*c) for c in (
+                (x, w_h, b_h, mask), (x_p, w_h, b_h, mask), (h_p, w_r, b_r, None))],
         ),
         dict(
             name="hcu_softmax",
             source="src/repro_torch/kernels/csrc/hcu_softmax.cu",
             replaces="src/repro/kernels/hcu_softmax.py:34 (hcu_softmax; pallas_call :62)",
             tol=(1e-5, 1e-6),
-            cases=[
-                (f"s({B},{n_hcu}x{n_mcu})",
-                 lambda: ops.hcu_softmax(s_h, n_hcu, n_mcu),
-                 lambda: ref.hcu_softmax(s_h, n_hcu, n_mcu),
-                 lambda: torch.softmax(s_h.view(B, n_hcu, n_mcu), -1),
-                 8 * B * H, 5 * B * H),
-                (f"s({B},1x{N_CLASSES})",
-                 lambda: ops.hcu_softmax(s_r, 1, N_CLASSES),
-                 lambda: ref.hcu_softmax(s_r, 1, N_CLASSES),
-                 lambda: torch.softmax(s_r.view(B, 1, N_CLASSES), -1),
-                 8 * B * N_CLASSES, 5 * B * N_CLASSES),
-            ],
+            cases=[sm_case(*c) for c in (
+                (s_h, n_hcu, n_mcu), (s_p, n_hcu, n_mcu), (s_r, 1, N_CLASSES))],
         ),
         dict(
             name="bcpnn_update",
@@ -350,7 +359,7 @@ def kernel_checks(torch, ops, ref, dev):
     records = []
     for spec in specs:
         worst_abs = 0.0
-        timed, extra = None, {}
+        timed, extra, cases = None, {}, []
         for label, kernel, plain, library, n_bytes, n_flops, *opt in spec["cases"]:
             # opt: [per-output tolerances (None: the spec's), timing key]
             tol = opt[0] if opt and opt[0] is not None else spec["tol"]
@@ -377,16 +386,18 @@ def kernel_checks(torch, ops, ref, dev):
                 f"{'null' if library_ms is None else f'{library_ms:.5f}'} "
                 f"bound_ms={bms:.5f} ({bound_by})"
             )
+            case = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by,
+                        library_ms=library_ms, at=label)
+            cases.append(dict(case, max_abs_err=max_abs, max_rel_err=max_rel))
             if timed is None:  # the first case is the main path's shape
-                timed = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by,
-                             library_ms=library_ms, at=label)
+                timed = case
             elif opt[1:] == ["three_kernels"]:  # fused and composition, same inputs
                 extra.update(three_kernels_ms=plain_ms, fused_vs_three_kernels_ms=ms)
             elif len(opt) > 1:  # a second timing of note: the bf16 tier, at
                 extra.setdefault(f"{opt[1]}_ms", ms)  # the first (hidden) shape
         records.append(dict(
             name=spec["name"], route="cuda", source=spec["source"],
-            replaces=spec["replaces"], max_abs_err=worst_abs, **timed, **extra,
+            replaces=spec["replaces"], max_abs_err=worst_abs, **timed, **extra, cases=cases,
         ))
     return records
 
@@ -433,25 +444,30 @@ def main_path(torch, ops, core, data, policy, devices=("cuda", "cpu")):
             on_card = i == 0
             if on_card:
                 ops.reset_launches()
+            sync = torch.cuda.synchronize if on_card else (lambda: None)
             t0 = time.perf_counter()
             compiled = net.compile(core.ExecutionConfig(engine="scan", device=device, **cfg))
             result = compiled.fit((x, ds.y_train), **fit_kw)
+            t1 = time.perf_counter()
             scores = compiled.predict(xt)
+            sync()
+            t2 = time.perf_counter()
             acc = compiled.evaluate((xt, ds.y_test))
+            sync()
+            t3 = time.perf_counter()
             if on_card:
-                torch.cuda.synchronize()
                 launches[path] = ops.launch_counts()
-            wall = time.perf_counter() - t0
+            wall = t3 - t0
             check(tuple(scores.shape) == (len(xt), N_CLASSES), f"scores shape {tuple(scores.shape)}")
             check(bool(torch.isfinite(scores).all()), f"non-finite scores on {device} ({path})")
             dtypes = sorted({str(t.dtype) for t in compiled.state.layers[0].marginals})
             runs[f"{path}/{'card' if on_card else 'cpu'}"] = dict(
-                acc=acc, fit_s=result.wall_time_s, compile_fit_evaluate_s=wall,
-                hidden_trace_dtypes=dtypes, history=result.history,
+                acc=acc, fit_s=result.wall_time_s, predict_s=t2 - t1, evaluate_s=t3 - t2,
+                compile_fit_evaluate_s=wall, hidden_trace_dtypes=dtypes, history=result.history,
             )
             print(f"main path {path} [{device}]: accuracy={acc:.4f} fit_wall_s="
-                  f"{result.wall_time_s:.4f} compile+fit+evaluate_s={wall:.4f} "
-                  f"hidden traces {dtypes}")
+                  f"{result.wall_time_s:.4f} predict_s={t2 - t1:.4f} evaluate_s={t3 - t2:.4f} "
+                  f"compile+fit+predict+evaluate_s={wall:.4f} hidden traces {dtypes}")
             for h in result.history:
                 print(f"  {path} {device} {h['phase']}"
                       + (f" epoch {h['epoch']}" if "epoch" in h else "")
@@ -465,6 +481,16 @@ def main_path(torch, ops, core, data, policy, devices=("cuda", "cpu")):
     unfused, fused = launches["unfused_f32"], launches["fused_bf16"]
     for name in ("masked_matmul", "hcu_softmax", "bcpnn_update"):
         check(unfused[name] > 0, f"{name} was not launched on the unfused path")
+    # The forward pair runs once per call of the layers' forward: per hidden
+    # training batch (unfused only), per projection chunk of the training
+    # set (B rows), per predict chunk of the test set (P rows) through the
+    # hidden layer, and per readout head call in predict and evaluate.
+    test_chunks = -(-len(xt) // P)
+    for path, counts in launches.items():
+        want = (batches + 3 * test_chunks
+                + (fit_kw["epochs_hidden"] * batches if path == "unfused_f32" else 0))
+        for name in ("masked_matmul", "hcu_softmax"):
+            check(counts[name] == want, f"{path}: {name} launched {counts[name]} times, want {want}")
     check(unfused["bcpnn_phase"] == 0 and unfused["bf_round"] == 0,
           f"the unfused f32 path launched bcpnn_phase/bf_round: {unfused}")
     hidden_batches = fit_kw["epochs_hidden"] * batches

@@ -5,9 +5,10 @@ Replaces the TPU kernel ``repro/kernels/hcu_softmax.py:hcu_softmax``
 
 Bound on an H100: a read and a write of s, a few flops per element, so it
 is bound by bytes (about 3 MB at B=128, H=3000).  Design: the paper's own
-CUDA one, one warp per (row, HCU) with lanes striding over the MCUs and
-``__shfl_xor_sync`` reductions for the max and the sum.  The TPU kernel's
--inf padding of the MCU axis to 128 lanes is not needed.
+CUDA one, one warp per (row, HCU) with ``__shfl_xor_sync`` reductions for
+the max and the sum, reading each hypercolumn into registers once
+(coalesced 4-byte loads), one ``expf`` per element and one write.
+The TPU kernel's -inf padding of the MCU axis to 128 lanes is not needed.
 """
 from __future__ import annotations
 
@@ -36,6 +37,8 @@ def hcu_softmax(s: torch.Tensor, n_hcu: int, n_mcu: int) -> torch.Tensor:
     if _fn is None:
         _fn = _build.function("hcu_softmax", "hcu_softmax_f32", _ARGTYPES)
     out = torch.empty_like(s)
+    if s.numel() == 0:
+        return out
     _build.launch(
         "hcu_softmax", _fn, s.device, s.data_ptr(), out.data_ptr(),
         s.shape[0], n_hcu, n_mcu,

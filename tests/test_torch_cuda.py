@@ -22,6 +22,7 @@ from repro_torch.core.learning import MarginalState
 from repro_torch.data import complementary_code, mnist_like
 from repro_torch.kernels import bcpnn_phase as pk
 from repro_torch.kernels import bcpnn_update as bk
+from repro_torch.kernels import masked_matmul as mk
 from repro_torch.kernels import ops, ref
 from repro_torch.precision import PrecisionPolicy
 
@@ -232,3 +233,119 @@ def test_fused_bf16_fit_on_card_matches_cpu(card):
     for sg, sc in zip(gpu.state.layers, cpu.state.layers):
         _state_close(sg.marginals.cij.cpu(), sc.marginals.cij, 7)
     torch.testing.assert_close(gpu.predict(xt).cpu(), cpu.predict(xt), rtol=0, atol=2.0**-6)
+
+
+# --- the forward pair at the main path's shapes and at every launch plan ---
+
+def _mm_inputs(m, k, n, device, use_mask=True, use_bias=True, seed=3):
+    rng = np.random.default_rng(seed)
+    arrs = (
+        rng.random((m, k)),
+        rng.standard_normal((k, n)) * 0.1,
+        rng.standard_normal(n) * 0.1 if use_bias else None,
+        (rng.random((k, n)) > 0.3) if use_mask else None,
+    )
+    return [None if a is None else torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in arrs]
+
+
+def _unaligned(t):
+    """A contiguous copy of t whose first element is 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    return view
+
+
+# (M, K, N): the three shapes of the main path (hidden batch or projection
+# chunk, predict's projection chunk, the readout head in predict/evaluate).
+MM_MAIN = [(128, 1568, 3000), (1024, 1568, 3000), (1024, 3000, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MM_MAIN)
+def test_masked_matmul_main_path_shapes(card, shape):
+    x, w, b, mask = _mm_inputs(*shape, card, use_mask=shape[2] > 10)
+    torch.testing.assert_close(
+        ops.masked_matmul(x, w, b, mask=mask), ref.masked_matmul(x, w, b, mask), **TOL
+    )
+
+
+def _forced_plan(m, k, n, config, cl):
+    cfg = mk.CONFIGS[config]
+    kslice = mk.kslice_for(k, cl, cfg.bk)
+    assert (cl - 1) * kslice < k <= cl * kslice, "every K slice non-empty"
+    return mk.Plan(config, cl, kslice, mk._cdiv(m, cfg.bm), mk._cdiv(n, cfg.bn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cl", range(1, mk.MAX_CLUSTER + 1))
+@pytest.mark.parametrize("config,n", [("wide", 300), ("narrow", 12)])
+def test_masked_matmul_every_plan(card, config, n, cl):
+    """Each tile configuration at each cluster size the plan can pick, on a
+    ragged shape whose K (1000) no CL x BK divides."""
+    m, k = 200, 1000
+    x, w, b, mask = _mm_inputs(m, k, n, card)
+    out = torch.empty((m, n), dtype=torch.float32, device=card)
+    got = mk.launch_planned(x, w, b, mask, out, _forced_plan(m, k, n, config, cl))
+    torch.testing.assert_close(got, ref.masked_matmul(x, w, b, mask), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_bias", [True, False])
+@pytest.mark.parametrize("use_mask", [True, False])
+@pytest.mark.parametrize("shape", [
+    (64, 12, 96),     # K shorter than one stage, 16-byte rows
+    (64, 5, 96),      # K shorter than one stage, 4-byte rows
+    (128, 1100, 200),  # K not divisible by CL x BK
+    (13, 17, 10),     # unaligned rows of x and of w
+    (33, 17, 7),
+    (130, 300, 20),
+])
+def test_masked_matmul_ragged_shapes(card, shape, use_mask, use_bias):
+    x, w, b, mask = _mm_inputs(*shape, card, use_mask=use_mask, use_bias=use_bias)
+    torch.testing.assert_close(
+        ops.masked_matmul(x, w, b, mask=mask), ref.masked_matmul(x, w, b, mask), **TOL
+    )
+
+
+@pytest.mark.cuda
+def test_masked_matmul_unaligned_base(card):
+    """Rows whose length is a multiple of 4 but whose base is not 16-byte
+    aligned take the 4-byte path."""
+    x, w, b, mask = _mm_inputs(96, 256, 64, card)
+    x, w, mask = _unaligned(x), _unaligned(w), _unaligned(mask)
+    torch.testing.assert_close(
+        ops.masked_matmul(x, w, b, mask=mask), ref.masked_matmul(x, w, b, mask), **TOL
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [MM_MAIN[0], MM_MAIN[2]])
+def test_masked_matmul_is_deterministic(card, shape):
+    """The split-K sum runs in rank order: two calls agree bit for bit."""
+    x, w, b, mask = _mm_inputs(*shape, card, use_mask=shape[2] > 10)
+    assert mk.plan(*shape, mk.n_sm(card)).cl > 1
+    first = ops.masked_matmul(x, w, b, mask=mask)
+    second = ops.masked_matmul(x, w, b, mask=mask)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (128, 30, 100), (1024, 30, 100), (1024, 1, 10),  # the main path
+    (64, 3, 7), (16, 5, 70),                          # n_mcu % 4 != 0
+    (16, 2, 129), (8, 3, 130), (8, 2, 256), (4, 2, 1000),  # above 128
+])
+def test_hcu_softmax_shapes(card, shape):
+    rows, n_hcu, n_mcu = shape
+    s = torch.as_tensor(
+        np.random.default_rng(rows + n_mcu).standard_normal((rows, n_hcu * n_mcu)) * 4.0,
+        dtype=torch.float32, device=card,
+    )
+    want = ref.hcu_softmax(s, n_hcu, n_mcu)
+    for t in (s, _unaligned(s)):  # a 16-byte aligned base, then one that is not
+        got = ops.hcu_softmax(t, n_hcu, n_mcu)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        assert torch.equal(got, ops.hcu_softmax(t, n_hcu, n_mcu))
