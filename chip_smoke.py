@@ -16,7 +16,10 @@ the run with a non-zero exit:
    the kernel, the plain version and, where one exists, a single PyTorch
    library call computing the same function (the forward pair at each of
    its main-path shapes: a training batch or projection chunk of B rows,
-   and predict's chunk of P rows through the hidden layer and the head);
+   and predict's chunk of P rows through the hidden layer and the head;
+   ``bcpnn_update`` at the hidden and the readout shape, each labelled with
+   its launch plan); then print where ``bcpnn_phase``'s time goes, phase
+   by phase (``tools/bcpnn_phase_profile.py``);
 4. drive the main paths, the paper's Listing 1 at MNIST width (784
    complementary-coded features -> 30x100 hidden -> 10 classes), through
    ``Network`` -> ``compile`` -> ``fit`` -> ``evaluate``: the unfused f32
@@ -235,6 +238,10 @@ def kernel_checks(torch, ops, ref, dev):
     def update(fn, ai, aj, ci, cj, cij, m, **kw):
         return lambda: fn(ai, aj, ci, cj, cij, lam, k_b=k_b, mask=m, **kw)
 
+    def up_plan(ai, aj):
+        p = bk.plan(ai.shape[0], ai.shape[1], aj.shape[1], mk.n_sm(dev))
+        return f" [plan {p.config} CL={p.cl} {p.ctas} CTAs]"
+
     def phase(fn, state, **kw):
         return lambda: fn(x, w_hm, b_h, *state, lam, n_hcu, n_mcu, k_b=k_b, gain=gain,
                           mask=mask, **kw)
@@ -260,6 +267,7 @@ def kernel_checks(torch, ops, ref, dev):
     from repro_torch.kernels import bcpnn_update as bk
     from repro_torch.kernels import bf_round as bfk
     from repro_torch.kernels import masked_matmul as mk
+    pp = pk.plan(B, F, n_hcu, n_mcu)
     round7, plain7 = round_cases(7)
     round11, plain11 = round_cases(11)
     specs = [
@@ -285,19 +293,20 @@ def kernel_checks(torch, ops, ref, dev):
             replaces="src/repro/kernels/bcpnn_update.py:138 (bcpnn_update_fused; pallas_call :192)",
             tol=(1e-4, 1e-5),
             cases=[
-                (f"ai({B},{F}) aj({B},{H}) cij({F},{H}) masked",
+                (f"ai({B},{F}) aj({B},{H}) cij({F},{H}) masked" + up_plan(x, h),
                  update(bk.bcpnn_update, x, h, ci_h, cj_h, cij_h, mask),
                  update(ref.bcpnn_update, x, h, ci_h, cj_h, cij_h, mask),
                  None,
                  4 * (B * F + B * H + 2 * F + 3 * H + 4 * F * H),
                  2 * B * F * H + 7 * F * H),
-                (f"ai({B},{H}) aj({B},{N_CLASSES}) cij({H},{N_CLASSES})",
+                (f"ai({B},{H}) aj({B},{N_CLASSES}) cij({H},{N_CLASSES})" + up_plan(h, onehot),
                  update(bk.bcpnn_update, h, onehot, ci_r, cj_r, cij_r, None),
                  update(ref.bcpnn_update, h, onehot, ci_r, cj_r, cij_r, None),
                  None,
                  4 * (B * H + B * N_CLASSES + 2 * H + 3 * N_CLASSES + 3 * H * N_CLASSES),
                  2 * B * H * N_CLASSES + 6 * H * N_CLASSES),
-                (f"ai({B},{F}) aj({B},{H}) cij({F},{H}) masked, bf16 state, mantissa 7",
+                (f"ai({B},{F}) aj({B},{H}) cij({F},{H}) masked, bf16 state, mantissa 7"
+                 + up_plan(x, h),
                  update(bk.bcpnn_update, x, h, *bf, mask, state_mantissa=7,
                         state_dtype=torch.bfloat16),
                  update(ref.bcpnn_update, x, h, *bf, mask, state_mantissa=7),
@@ -305,7 +314,8 @@ def kernel_checks(torch, ops, ref, dev):
                  f32 * (B * F + B * H + 2 * F * H + 2 * H) + 2 * (2 * F * H + 2 * F + 2 * H),
                  2 * B * F * H + 7 * F * H,
                  [trace_tol] * 3 + [log_tol] * 2, "bf16"),
-                (f"ai({B},{H}) aj({B},{N_CLASSES}) cij({H},{N_CLASSES}), bf16 state, mantissa 7",
+                (f"ai({B},{H}) aj({B},{N_CLASSES}) cij({H},{N_CLASSES}), bf16 state, mantissa 7"
+                 + up_plan(h, onehot),
                  update(bk.bcpnn_update, h, onehot, *bf_r, None, state_mantissa=7,
                         state_dtype=torch.bfloat16),
                  update(ref.bcpnn_update, h, onehot, *bf_r, None, state_mantissa=7),
@@ -322,7 +332,8 @@ def kernel_checks(torch, ops, ref, dev):
             replaces="src/repro/kernels/bcpnn_phase.py:190 (bcpnn_phase_fused; pallas_call :265)",
             tol=(1e-4, 1e-5),
             cases=[
-                (f"x({B},{F}) w,mask,cij({F},{H}) {n_hcu}x{n_mcu} gain {gain}",
+                (f"x({B},{F}) w,mask,cij({F},{H}) {n_hcu}x{n_mcu} gain {gain} [plan G={pp.g} "
+                 f"CL={pp.cl} FS={pp.fslice} {pp.ctas} CTAs]",
                  phase(pk.bcpnn_phase, (ci_h, cj_h, cij_h)),
                  phase(ref.bcpnn_phase, (ci_h, cj_h, cij_h)),
                  None, phase_bytes, phase_flops),
@@ -543,8 +554,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
-    # Phase 3: each kernel against its plain version.
-    records = kernel_checks(torch, ops, ref, torch.device("cuda", torch.cuda.current_device()))
+    # Phase 3: each kernel against its plain version, then where
+    # bcpnn_phase's time goes (tools/bcpnn_phase_profile.py, its profiling
+    # variant: per-CTA %globaltimer stamps of each phase).
+    dev = torch.device("cuda", torch.cuda.current_device())
+    records = kernel_checks(torch, ops, ref, dev)
+    sys.path.insert(0, str(ROOT / "tools"))
+    import bcpnn_phase_profile
+
+    profile = bcpnn_phase_profile.phase_profile(dev, reps=5)
+    for fmt, rec in profile.items():
+        print(f"bcpnn_phase profile ({fmt} state, {rec['ctas']} CTAs): "
+              + " ".join(f"{p}={rec[p]['median_ns'] / 1e3:.2f}us" for p in bcpnn_phase_profile.pk.PHASES)
+              + f" (median over CTAs) span={rec['span_ns'] / 1e3:.2f}us")
+    print(json.dumps({"bcpnn_phase_profile": profile}))
 
     # Phase 4: the main paths, launches counted from zero on each.
     launches, runs, stage_s = main_path(torch, ops, core, data, policy)

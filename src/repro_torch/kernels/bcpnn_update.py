@@ -4,33 +4,119 @@ Replaces the TPU kernel ``repro/kernels/bcpnn_update.py:bcpnn_update_fused``
 (``pl.pallas_call`` at line 192), with its optional rounding epilogue (the
 quantized state tier: traces RNE-rounded to ``state_mantissa`` bits and
 w/bias derived from the rounded traces, ``csrc/rne_round.cuh``).  Source:
-``csrc/bcpnn_update.cu``.  The traces are read in their storage dtype (f32
+``csrc/bcpnn_update.cu``; the update tile it shares with ``bcpnn_phase``
+(the register product over the batch and the epilogue) is
+``csrc/bcpnn_tile.cuh``.  The traces are read in their storage dtype (f32
 or bf16) and written straight in ``state_dtype``, so the bf16 tier costs no
 cast pass over C_ij.
 
 Bound on an H100: at the MNIST hidden layer (B=128, F=1568, H=3000) the
 update reads C_ij and the mask and writes C_ij' and w, about 78 MB, against
 1.2 GFLOP of outer product: it is bound by bytes (~23 µs at 3.35 TB/s).
-Design: the TPU kernel carries sums across its sequential grid; here one
-block per (F tile, H tile) loops over the whole batch instead, accumulating
-a_iᵀa_j in registers and the column sums of its own a_i and a_j slices in
-the same pass, so the means need no cross-block reduction and no atomics
-and every output element is written exactly once.
+The readout (F=3000, H=10) is bound by the bytes of a_i (~0.6 µs).
+
+Design: one CTA per (F tile, H tile) loops over the batch (the contraction
+axis) through a ring of 16-byte ``cp.async`` stages, keeps a 4x8 (wide) or
+2x4 (narrow) register micro-tile of a_iᵀa_j and takes the column sums behind
+c_i' and c_j' from the same stages, so the means need no cross-block
+reduction and no atomics; the epilogue makes 16-byte loads and stores.  The
+wide tile (64x64) is small so that five CTAs share an SM and one CTA's
+epilogue streams while others multiply.  The narrow tile (H <= 16) splits
+the batch over a thread-block cluster whose partial tiles are summed in
+rank order through distributed shared memory, so the readout fills the
+card.  Every output element is written once; the launch plan is the pure
+function :func:`plan`.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.masked_matmul import MAX_CLUSTER, _cdiv, n_sm
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launches)
 
+
+@dataclass(frozen=True)
+class TileConfig:
+    index: int  # the C entry point's ``config`` argument
+    tf: int     # F rows of a tile
+    th: int     # H columns of a tile
+    bk: int     # batch rows of a stage
+
+
+# The tile configurations of ``csrc/bcpnn_update.cu``: 64x64 tiles for
+# outputs wider than NARROW_MAX_H, 64x16 tiles for the narrower ones.
+CONFIGS: Dict[str, TileConfig] = {
+    "wide": TileConfig(0, 64, 64, 16),
+    "narrow": TileConfig(1, 64, 16, 16),
+}
+NARROW_MAX_H = 16  # H up to this takes the narrow tile
+# The plan's cost model, in multiply-adds per output element of a tile (as
+# masked_matmul.plan's): a CTA's fixed cost (the epilogue, the ring's fill)
+# and the extra cost of a split batch (the partial tile and the cluster sum).
+CTA_COST_B = 64
+SPLIT_COST_B = 32
+
+
+@dataclass(frozen=True)
+class Plan:
+    config: str
+    cl: int       # CTAs of a cluster, one batch slice each
+    bslice: int   # batch rows per slice, a multiple of the tile's BK
+    tiles_f: int
+    tiles_h: int
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles_f * self.tiles_h * self.cl
+
+
+def bslice_for(b: int, cl: int, bk: int) -> int:
+    """Batch rows per slice when ``cl`` CTAs split the batch: ceil(B / CL)
+    rounded up to a multiple of the stage depth ``bk``."""
+    return max(1, _cdiv(_cdiv(b, cl), bk)) * bk
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, f: int, h: int, n_sm: int) -> Plan:
+    """The launch plan for an update of batch ``b`` over an (f, h) tile
+    grid on ``n_sm`` SMs.
+
+    H up to 16 takes the narrow tile, anything wider the wide one.  For
+    each cluster size CL (1..8) the batch slice is rounded up to the
+    tile's BK and CL shrunk until every slice is non-empty.  The cost of a
+    candidate is the grid in waves of ``n_sm`` CTAs times one CTA's padded
+    multiply-adds plus :data:`CTA_COST_B` (and :data:`SPLIT_COST_B` when
+    the batch is split) per element of its tile.  Among the candidates
+    that put at least ``n_sm`` CTAs on the card, when any does, the
+    cheapest wins, ties going to the smaller CL.
+    """
+    if min(b, f, h) <= 0 or n_sm <= 0:
+        raise ValueError(f"bcpnn_update.plan: bad shape ({b}, {f}, {h}) or n_sm {n_sm}")
+    name = "narrow" if h <= NARROW_MAX_H else "wide"
+    cfg = CONFIGS[name]
+    tiles_f, tiles_h = _cdiv(f, cfg.tf), _cdiv(h, cfg.th)
+    candidates = []
+    for cl in range(1, MAX_CLUSTER + 1):
+        bslice = bslice_for(b, cl, cfg.bk)
+        if _cdiv(b, bslice) != cl:
+            continue  # the same plan as a smaller CL, or an empty slice
+        p = Plan(name, cl, bslice, tiles_f, tiles_h)
+        per_cta = bslice + CTA_COST_B + (SPLIT_COST_B if cl > 1 else 0)
+        cost = _cdiv(p.ctas, n_sm) * cfg.tf * cfg.th * per_cta
+        candidates.append((p.ctas < n_sm, cost, cl, p))
+    return min(candidates, key=lambda c: c[:3])[-1]
+
+
 _ARGTYPES = (
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 )
 _fn = None
 
@@ -57,7 +143,6 @@ def bcpnn_update(
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
-    global launches, _fn
     out_dtype = check_state(ci, cj, cij, state_mantissa, state_dtype)
     state = _build.STATE
     f32 = _build.F32
@@ -79,8 +164,20 @@ def bcpnn_update(
             f"aj {tuple(aj.shape)}, ci {tuple(ci.shape)}, cj {tuple(cj.shape)}, "
             f"cij {tuple(cij.shape)}, mask {None if mask is None else tuple(mask.shape)}"
         )
+    return launch_planned(
+        ai, aj, ci, cj, cij, lam, k_b, mask, state_mantissa, out_dtype,
+        plan(bsz, f, h, n_sm(ai.device)),
+    )
+
+
+def launch_planned(ai, aj, ci, cj, cij, lam, k_b, mask, state_mantissa, out_dtype,
+                   p: Plan):
+    """Launch the kernel with the plan ``p``; the wrapper's checks are the
+    caller's.  Returns (ci', cj', cij', w, bias)."""
+    global launches, _fn
     if _fn is None:
         _fn = _build.function("bcpnn_update", "bcpnn_update_f32", _ARGTYPES)
+    bsz = ai.shape[0]
     ci_n = torch.empty(ci.shape, dtype=out_dtype, device=ci.device)
     cj_n = torch.empty(cj.shape, dtype=out_dtype, device=cj.device)
     cij_n = torch.empty(cij.shape, dtype=out_dtype, device=cij.device)
@@ -91,9 +188,9 @@ def bcpnn_update(
         ai.data_ptr(), aj.data_ptr(), ci.data_ptr(), cj.data_ptr(),
         cij.data_ptr(), None if mask is None else mask.data_ptr(),
         ci_n.data_ptr(), cj_n.data_ptr(), cij_n.data_ptr(), w.data_ptr(),
-        bias.data_ptr(), bsz, f, h, float(lam), 1.0 - float(lam), float(k_b),
+        bias.data_ptr(), bsz, ai.shape[1], aj.shape[1], float(lam), 1.0 - float(lam), float(k_b),
         int(state_mantissa or 0), int(ci.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), CONFIGS[p.config].index, p.cl, p.bslice,
     )
     launches += 1
     return ci_n, cj_n, cij_n, w, bias

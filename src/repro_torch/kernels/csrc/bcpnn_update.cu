@@ -15,155 +15,336 @@
 // in theirs (state_out_bf16): bf16 only when m <= 7, where the rounded
 // values are exact, so no separate cast pass over C_ij is needed.
 //
-// The TPU kernel carries its sums across sequential grid steps.  Here one
-// 256-thread block owns a 64 (F) x 64 (H) tile and loops over the whole
-// batch in chunks of 16 rows: each chunk stages a_i[b, F tile] and
-// a_j[b, H tile] in shared memory, every thread accumulates its 4x4 slice of
-// a_i^T a_j in registers, and 128 threads sum the staged columns.  Since the
-// block sees the whole batch for its own columns, it has mean(a_i) for its
-// F slice and mean(a_j) for its H slice with no cross-block reduction and no
-// atomics: the result is deterministic.  The epilogue reads C_ij and the
-// mask once and writes C_ij' and w once.  Blocks of the first H tile write
-// c_i'; blocks of the first F tile write c_j' and the bias.
-//
-// At the MNIST hidden layer (B=128, F=1568, H=3000) the kernel must move
-// about 78 MB (C_ij and mask in, C_ij' and w out) against 1.2 GFLOP of
-// outer product: it is bound by bytes on this card.  mask may be null.
+// What bounds it on an H100 (67 TFLOP/s f32 FMA, 3.35 TB/s):
+//   - hidden (B=128, F=1568, H=3000, f32 traces, mask): 1.2 GFLOP against
+//     ~78 MB (C_ij and the mask in, C_ij' and w out): bytes, 0.023 ms;
+//   - readout (B=128, F=3000, H=10): 7.7 MFLOP against 1.9 MB, most of it
+//     a_i: bytes, 0.0006 ms; 47 tiles of 64 F rows alone would leave most
+//     of the 132 SMs idle.
+// The design (the tile itself, product and epilogue, is bcpnn_tile.cuh):
+//   - one CTA per (F tile, H tile) loops over the batch, which is the
+//     contraction axis: a_i and a_j arrive through a ring of NSTAGE stages
+//     of BK batch rows, filled with 16-byte cp.async (4-byte where F or H
+//     breaks the alignment), one __syncthreads per stage; each thread keeps
+//     an RM x RN micro-tile of a_i^T a_j in registers, read from shared
+//     memory as 16-byte vectors;
+//   - the column sums behind c_i' and c_j' are taken from the staged
+//     stages in the same loop, by every thread (no phase of idle threads);
+//     since a CTA sees the whole batch (or its cluster does) for its own
+//     columns, the means need no pass across CTAs and no atomics;
+//   - the epilogue makes 16-byte loads of C_ij (8-byte for bf16 traces) and
+//     of the mask and 16-byte stores of C_ij' and w;
+//   - wide (H > 16): 64 x 64 tiles, 4x8 a thread, 128 threads, 26 KB of
+//     shared memory: five CTAs an SM, so while some CTAs multiply, others
+//     stream their epilogues.  A bulk copy of the tile's C_ij and mask into
+//     shared memory during the product (cp.async.bulk on an mbarrier), a
+//     register preload of them, and 128 x 64 tiles were each slower in
+//     exploratory runs on the card: each cost CTAs an SM;
+//   - narrow (H <= 16): 64 x 16 tiles, 2x4 a thread, the batch split over
+//     a thread-block cluster of CL <= 8 CTAs: each CTA takes BS batch rows,
+//     writes its partial tile and column sums to its shared memory, and
+//     after a cluster barrier CTA r sums row share r over the cluster in
+//     rank order through distributed shared memory (deterministic, no
+//     atomics) and finishes it.  At the readout, 47 F tiles x CL 4 = 188
+//     CTAs;
+//   - the tile configuration, CL and BS come from a pure function on the
+//     host (kernels/bcpnn_update.py:plan) and are passed in.
+// Every output element is written once: c_i' by the CTAs of the first H
+// tile, c_j' and the bias by rank 0 of the CTAs of the first F tile.  mask
+// may be null.  All products are IEEE f32 FMA.
 
-#include "rne_round.cuh"
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
+
+#include <cstdint>
+#include <utility>
+
+#include "bcpnn_tile.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int TF = 64;   // F columns per block
-constexpr int TH = 64;   // H columns per block
-constexpr int BB = 16;   // batch rows per shared-memory stage
-constexpr int RF = 4;    // F rows per thread
-constexpr int RH = 4;    // H columns per thread
-constexpr int THREADS = (TF / RF) * (TH / RH);  // 256
-constexpr int TX = TH / RH;                     // 16 threads across H
-constexpr int TY = TF / RF;                     // 16 threads across F
-constexpr float EPS = 1e-8f;
+using namespace bcpnn_tile;
 
-__global__ void __launch_bounds__(THREADS)
-bcpnn_update_kernel(const float* __restrict__ ai, const float* __restrict__ aj,
-                    const void* __restrict__ ci, const void* __restrict__ cj,
-                    const void* __restrict__ cij, const float* __restrict__ mask,
-                    void* __restrict__ ci_out, void* __restrict__ cj_out,
-                    void* __restrict__ cij_out, float* __restrict__ w_out,
-                    float* __restrict__ bias_out, int B, int F, int H,
-                    float lam, float one_m, float k_b, int state_mantissa,
-                    int state_in_bf16, int state_out_bf16) {
-  __shared__ float ais[BB][TF];
-  __shared__ float ajs[BB][TH];
-  __shared__ float log_ci[TF];
-  __shared__ float log_cj[TH];
+template <int TF_, int TH_, int RM_, int RN_, int BK_, int NSTAGE_, int MINB_>
+struct Tile {
+  static constexpr int TF = TF_, TH = TH_, RM = RM_, RN = RN_, BK = BK_;
+  static constexpr int NSTAGE = NSTAGE_, MINB = MINB_;
+  static constexpr int TY = TF / RM;           // threads down the tile (F)
+  static constexpr int TX = TH / RN;           // threads across the tile (H)
+  static constexpr int THREADS = TX * TY;
+  static constexpr int STAGE = BK * (TF + TH);  // floats of one stage: a_i, a_j
+  static constexpr int PS = TH + 4;            // row length of the partial tile
+  static constexpr int RING = NSTAGE * STAGE > TF * PS ? NSTAGE * STAGE : TF * PS;
+  static constexpr int NCOL = cdiv(TF + TH, THREADS);  // summed columns per thread
+  static_assert(TF % RM == 0 && TH % RN == 0 && TH % 4 == 0 && vw<RN>() == 4, "tile shape");
+};
+
+// Wide: 64 x 64 tiles, 4x8 a thread, 128 threads, at least 4 CTAs an SM
+// (26 KB of shared memory each; at most 128 registers a thread).  Narrow,
+// for H <= 16: 64 x 16 tiles, 2x4 a thread, 128 threads.
+using Wide = Tile<64, 64, 4, 8, 16, 3, 4>;
+using Narrow = Tile<64, 16, 2, 4, 16, 3, 4>;
+
+struct Args {
+  const float* ai;
+  const float* aj;
+  const void* ci;
+  const void* cj;
+  const void* cij;
+  const float* mask;
+  void* ci_out;
+  void* cj_out;
+  void* cij_out;
+  float* w_out;
+  float* bias_out;
+  int B, F, H, CL, BS;
+  float k_b;
+  Update u;
+};
+
+// Floats of shared memory: the ring (later the partial tile), the column
+// sums and the logs.
+template <class T>
+__host__ __device__ constexpr int smem_floats() { return T::RING + 2 * (T::TF + T::TH); }
+
+template <class T, bool MASK, bool VA, bool VH>
+__global__ void __launch_bounds__(T::THREADS, T::MINB) bcpnn_update_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int TF = T::TF, TH = T::TH, RM = T::RM, RN = T::RN, BK = T::BK;
+  constexpr int TX = T::TX, TY = T::TY, THREADS = T::THREADS, NSTAGE = T::NSTAGE;
+  constexpr int STAGE = T::STAGE, PS = T::PS;
+  const int B = a.B, F = a.F, H = a.H, CL = a.CL;
+  const int rank = static_cast<int>(blockIdx.x) % CL;
+  const int tile = static_cast<int>(blockIdx.x) / CL;
+  const int tiles_h = cdiv(H, TH);
+  const int f0 = (tile / tiles_h) * TF;  // neighbouring CTAs: neighbouring columns
+  const int h0 = (tile % tiles_h) * TH;
+  const int b_lo = min(B, rank * a.BS);
+  const int b_hi = min(B, b_lo + a.BS);
+  const int nk = cdiv(b_hi - b_lo, BK);
+  const int per = cdiv(TF, CL);  // the rows of the tile this CTA finishes
+  const int r_lo = min(TF, rank * per);
+  const int r_hi = min(TF, min(r_lo + per, F - f0));
+  const int cols = min(TH, H - h0);
+
+  float* ring = smem;                    // RING: the stages, then the partial tile
+  float* sums = ring + T::RING;          // TF + TH: column sums of a_i, then a_j
+  float* log_ci = sums + TF + TH;        // TF
+  float* log_cj = log_ci + TF;           // TH
+
   const int tid = threadIdx.x;
   const int tx = tid % TX;
   const int ty = tid / TX;
-  const int f0 = blockIdx.y * TF;
-  const int h0 = blockIdx.x * TH;
 
-  float acc[RF][RH];
+  // Stage t of this CTA's batch rows into ring buffer buf.
+  auto fetch = [&](int t, int buf) {
+    float* As = ring + buf * STAGE;
+    float* Bs = As + BK * TF;
+    const int b0 = b_lo + t * BK;
+    constexpr int VA_N = VA ? 4 : 1, VH_N = VH ? 4 : 1;
 #pragma unroll
-  for (int i = 0; i < RF; ++i)
+    for (int u = 0; u < cdiv(BK * TF / VA_N, THREADS); ++u) {
+      const int e = tid + u * THREADS;
+      if (e < BK * TF / VA_N) {
+        const int k = e / (TF / VA_N), c = (e % (TF / VA_N)) * VA_N;
+        const bool ok = b0 + k < b_hi && f0 + c < F;  // F % 4 == 0 with VA: all 4 or none
+        copy_async<4 * VA_N>(As + k * TF + c,
+                             a.ai + (ok ? static_cast<size_t>(b0 + k) * F + f0 + c : 0), ok);
+      }
+    }
 #pragma unroll
-    for (int j = 0; j < RH; ++j) acc[i][j] = 0.f;
-  float col = 0.f;  // thread t < TF sums a_i column f0+t; TF <= t < TF+TH a_j column
+    for (int u = 0; u < cdiv(BK * TH / VH_N, THREADS); ++u) {
+      const int e = tid + u * THREADS;
+      if (e < BK * TH / VH_N) {
+        const int k = e / (TH / VH_N), c = (e % (TH / VH_N)) * VH_N;
+        const bool ok = b0 + k < b_hi && h0 + c < H;
+        copy_async<4 * VH_N>(Bs + k * TH + c,
+                             a.aj + (ok ? static_cast<size_t>(b0 + k) * H + h0 + c : 0), ok);
+      }
+    }
+  };
 
-  for (int b0 = 0; b0 < B; b0 += BB) {
+  float acc[RM][RN];
 #pragma unroll
-    for (int e = tid; e < BB * TF; e += THREADS) {
-      const int r = e / TF, c = e % TF;
-      const int gb = b0 + r, gf = f0 + c;
-      ais[r][c] = (gb < B && gf < F) ? ai[(size_t)gb * F + gf] : 0.f;
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+  float cs[T::NCOL];  // column c = tid + q * THREADS of [a_i tile | a_j tile]
+#pragma unroll
+  for (int q = 0; q < T::NCOL; ++q) cs[q] = 0.f;
+
+  // The ring: NSTAGE - 1 stages in flight ahead of the one multiplied; every
+  // iteration commits one group (empty past the end).
+#pragma unroll
+  for (int s = 0; s < NSTAGE - 1; ++s) {
+    if (s < nk) fetch(s, s);
+    __pipeline_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt % NSTAGE;
+    __pipeline_wait_prior(NSTAGE - 2);
+    __syncthreads();  // stage kt is visible; buffer (kt - 1) % NSTAGE is free
+    if (kt + NSTAGE - 1 < nk) fetch(kt + NSTAGE - 1, (kt + NSTAGE - 1) % NSTAGE);
+    __pipeline_commit();
+    const float* As = ring + buf * STAGE;
+    const float* Bs = As + BK * TF;
+#pragma unroll
+    for (int q = 0; q < T::NCOL; ++q) {
+      const int c = tid + q * THREADS;
+      if (c < TF + TH) {
+        const float* col = c < TF ? As + c : Bs + (c - TF);
+        const int ld = c < TF ? TF : TH;
+#pragma unroll
+        for (int kk = 0; kk < BK; ++kk) cs[q] += col[kk * ld];
+      }
     }
+    product_stage<RM, RN, TY, TX, BK>(As, TF, Bs, TH, acc, tx, ty);
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();  // the ring is free
+
 #pragma unroll
-    for (int e = tid; e < BB * TH; e += THREADS) {
-      const int r = e / TH, c = e % TH;
-      const int gb = b0 + r, gh = h0 + c;
-      ajs[r][c] = (gb < B && gh < H) ? aj[(size_t)gb * H + gh] : 0.f;
-    }
-    __syncthreads();
-    if (tid < TF) {
+  for (int q = 0; q < T::NCOL; ++q)
+    if (tid + q * THREADS < TF + TH) sums[tid + q * THREADS] = cs[q];
+  cg::cluster_group cluster = cg::this_cluster();
+  if (CL > 1) {  // the partial tile into this CTA's shared memory
 #pragma unroll
-      for (int r = 0; r < BB; ++r) col += ais[r][tid];
-    } else if (tid < TF + TH) {
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int r = 0; r < BB; ++r) col += ajs[r][tid - TF];
-    }
-#pragma unroll
-    for (int kk = 0; kk < BB; ++kk) {
-      float a[RF], b[RH];
-#pragma unroll
-      for (int i = 0; i < RF; ++i) a[i] = ais[kk][ty + TY * i];
-#pragma unroll
-      for (int j = 0; j < RH; ++j) b[j] = ajs[kk][tx + TX * j];
-#pragma unroll
-      for (int i = 0; i < RF; ++i)
-#pragma unroll
-        for (int j = 0; j < RH; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+      for (int h = 0; h < RN / 4; ++h)
+        *reinterpret_cast<float4*>(ring + micro<RM, TY>(ty, i) * PS + (h * TX + tx) * 4) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    cluster.sync();  // every partial tile and column sum is in place
+  } else {
     __syncthreads();
   }
 
-  const float batch = static_cast<float>(B);
-  if (tid < TF) {
-    const int gf = f0 + tid;
-    if (gf < F) {
-      const float c = rne_round(one_m * load_state(ci, gf, state_in_bf16) + lam * (col / batch),
-                                state_mantissa);
-      if (blockIdx.x == 0) store_state(ci_out, gf, c, state_out_bf16);
-      log_ci[tid] = logf(fmaxf(c, EPS));
-    }
-  } else if (tid < TF + TH) {
-    const int jh = tid - TF;
-    const int gh = h0 + jh;
-    if (gh < H) {
-      const float c = rne_round(one_m * load_state(cj, gh, state_in_bf16) + lam * (col / batch),
-                                state_mantissa);
-      const float lc = logf(fmaxf(c, EPS));
-      log_cj[jh] = lc;
-      if (blockIdx.y == 0) {
-        store_state(cj_out, gh, c, state_out_bf16);
-        bias_out[gh] = k_b * lc;
+  // c_i' for this CTA's rows of the tile, c_j' (and the bias) for its
+  // columns, the sums taken over the cluster in rank order.
+  for (int c = tid; c < TF + TH; c += THREADS) {
+    const bool row = c < TF;
+    if (row ? (c < r_lo || c >= r_hi) : c - TF >= cols) continue;
+    float s = 0.f;
+    for (int q = 0; q < CL; ++q) s += CL > 1 ? cluster.map_shared_rank(sums, q)[c] : sums[c];
+    if (row) {
+      const float v = trace(a.u, load_state(a.ci, f0 + c, a.u.in_bf16), s);
+      log_ci[c] = logf(fmaxf(v, EPS));
+      if (h0 == 0) store_state(a.ci_out, f0 + c, v, a.u.out_bf16);
+    } else {
+      const int gh = h0 + c - TF;
+      const float v = trace(a.u, load_state(a.cj, gh, a.u.in_bf16), s);
+      const float lc = logf(fmaxf(v, EPS));
+      log_cj[c - TF] = lc;
+      if (f0 == 0 && rank == 0) {
+        store_state(a.cj_out, gh, v, a.u.out_bf16);
+        a.bias_out[gh] = a.k_b * lc;
       }
     }
   }
   __syncthreads();
 
+  if (CL == 1) {
 #pragma unroll
-  for (int i = 0; i < RF; ++i) {
-    const int fi = ty + TY * i;
-    const int gf = f0 + fi;
-    if (gf >= F) continue;
+    for (int i = 0; i < RM; ++i) {
+      const int lr = micro<RM, TY>(ty, i);
+      if (lr >= r_hi) continue;
 #pragma unroll
-    for (int j = 0; j < RH; ++j) {
-      const int hj = tx + TX * j;
-      const int gh = h0 + hj;
-      if (gh >= H) continue;
-      const size_t idx = (size_t)gf * H + gh;
-      const float c = rne_round(
-          one_m * load_state(cij, idx, state_in_bf16) + lam * (acc[i][j] / batch),
-          state_mantissa);
-      store_state(cij_out, idx, c, state_out_bf16);
-      float wv = logf(fmaxf(c, EPS)) - log_ci[fi] - log_cj[hj];
-      if (mask != nullptr) wv *= mask[idx];
-      w_out[idx] = wv;
+      for (int h = 0; h < RN / 4; ++h) {
+        const int lc = (h * TX + tx) * 4;
+        if (lc >= cols) continue;
+        const float s4[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]};
+        epilogue4<VH, MASK>(a.u, a.cij, a.mask, a.cij_out, a.w_out,
+                            static_cast<size_t>(f0 + lr) * H + h0 + lc, min(4, cols - lc), s4,
+                            log_ci[lr], log_cj + lc);
+      }
     }
+    return;
   }
+  // Split batch: row share `rank` of the tile, summed over the cluster.
+  for (int e = tid; e < (r_hi - r_lo) * (TH / 4); e += THREADS) {
+    const int lr = r_lo + e / (TH / 4);
+    const int lc = (e % (TH / 4)) * 4;
+    if (lc >= cols) continue;
+    float s4[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int q = 0; q < CL; ++q) {  // rank order: the same sum on every run
+      const float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(ring, q) + lr * PS + lc);
+      s4[0] += v.x; s4[1] += v.y; s4[2] += v.z; s4[3] += v.w;
+    }
+    epilogue4<VH, MASK>(a.u, a.cij, a.mask, a.cij_out, a.w_out,
+                        static_cast<size_t>(f0 + lr) * H + h0 + lc, min(4, cols - lc), s4,
+                        log_ci[lr], log_cj + lc);
+  }
+  cluster.sync();  // no CTA leaves while another reads its shared memory
 }
+
+template <class T, bool MASK, bool VA, bool VH>
+int launch(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = smem_floats<T>() * sizeof(float);
+  auto kernel = bcpnn_update_kernel<T, MASK, VA, VH>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int tiles = cdiv(a.F, T::TF) * cdiv(a.H, T::TH);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * a.CL);
+  cfg.blockDim = dim3(T::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+using Launcher = int (*)(const Args&, cudaStream_t);
+
+// Variant I: bit 2 = mask, bit 1 = 16-byte a_i rows, bit 0 = 16-byte H rows
+// (a_j, C_ij, mask, C_ij', w).
+template <class T, int... I>
+int dispatch(const Args& a, int variant, cudaStream_t stream, std::integer_sequence<int, I...>) {
+  static constexpr Launcher table[] = {launch<T, (I & 4) != 0, (I & 2) != 0, (I & 1) != 0>...};
+  return table[variant](a, stream);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
+// config: 0 wide (64 x 64 tiles), 1 narrow (64 x 16, H <= 16); cl: CTAs of
+// the cluster that split the batch, bs batch rows each (a multiple of 16).
+// Returns cudaErrorInvalidValue for a plan that leaves a slice empty or does
+// not cover the batch, else the launch's error.
 extern "C" int bcpnn_update_f32(const float* ai, const float* aj, const void* ci,
                                 const void* cj, const void* cij, const float* mask,
                                 void* ci_out, void* cj_out, void* cij_out,
                                 float* w_out, float* bias_out, int B, int F, int H,
                                 float lam, float one_m, float k_b, int state_mantissa,
-                                int state_in_bf16, int state_out_bf16, cudaStream_t stream) {
-  const dim3 grid((H + TH - 1) / TH, (F + TF - 1) / TF);
-  bcpnn_update_kernel<<<grid, THREADS, 0, stream>>>(
-      ai, aj, ci, cj, cij, mask, ci_out, cj_out, cij_out, w_out, bias_out, B, F, H,
-      lam, one_m, k_b, state_mantissa, state_in_bf16, state_out_bf16);
-  return static_cast<int>(cudaGetLastError());
+                                int state_in_bf16, int state_out_bf16, int config, int cl,
+                                int bs, cudaStream_t stream) {
+  if (B <= 0 || F <= 0 || H <= 0 || cl < 1 || cl > 8 || bs <= 0 || bs % 16 != 0)
+    return cudaErrorInvalidValue;
+  if (static_cast<long long>(cl) * bs < B || (cl > 1 && static_cast<long long>(cl - 1) * bs >= B))
+    return cudaErrorInvalidValue;
+  const Update u{lam, one_m, 1.0f / static_cast<float>(B), state_mantissa, state_in_bf16,
+                 state_out_bf16};
+  const Args a{ai, aj, ci, cj, cij, mask, ci_out, cj_out, cij_out, w_out, bias_out,
+               B, F, H, cl, bs, k_b, u};
+  const bool va = F % 4 == 0 && aligned16(ai);
+  const bool vh = H % 4 == 0 && aligned16(aj) && aligned16(cij) && aligned16(cij_out) &&
+                  aligned16(w_out) && (mask == nullptr || aligned16(mask));
+  const int variant = (mask != nullptr ? 4 : 0) | (va ? 2 : 0) | (vh ? 1 : 0);
+  const auto all = std::make_integer_sequence<int, 8>{};
+  switch (config) {
+    case 0: return dispatch<Wide>(a, variant, stream, all);
+    case 1: return dispatch<Narrow>(a, variant, stream, all);
+    default: return cudaErrorInvalidValue;
+  }
 }

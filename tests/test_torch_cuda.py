@@ -349,3 +349,156 @@ def test_hcu_softmax_shapes(card, shape):
         got = ops.hcu_softmax(t, n_hcu, n_mcu)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
         assert torch.equal(got, ops.hcu_softmax(t, n_hcu, n_mcu))
+
+
+# --- the training pair: bcpnn_update at every launch plan, both kernels
+# deterministic at the main path's shapes ---
+
+def _update_inputs(b, f, h, device, use_mask, seed=5):
+    rng = np.random.default_rng(seed)
+    arrs = (
+        rng.random((b, f)), rng.random((b, h)),
+        rng.random(f) * 0.5 + 0.25, rng.random(h) * 0.5 + 0.25,
+        rng.random((f, h)) * 0.25 + 0.1,
+        (rng.random((f, h)) > 0.3) if use_mask else None,
+    )
+    return [None if a is None else torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in arrs]
+
+
+def _shifted(t):
+    """A contiguous copy of t (f32 or bf16) whose base is 4 bytes past a
+    16-byte boundary."""
+    k = 4 // t.element_size()
+    flat = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    view = flat[k:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    return view
+
+
+def _forced_update_plan(b, f, h, config, cl):
+    cfg = bk.CONFIGS[config]
+    bslice = bk.bslice_for(b, cl, cfg.bk)
+    assert (cl - 1) * bslice < b <= cl * bslice, "every batch slice non-empty"
+    return bk.Plan(config, cl, bslice, bk._cdiv(f, cfg.tf), bk._cdiv(h, cfg.th))
+
+
+# (config, H, state mantissa, mask): the prefetched tile with f32 and with
+# bf16 traces (H % 8 == 0), 16-byte rows without the prefetch (bf16, H % 8
+# != 0), 4-byte rows (H % 4 != 0), and the narrow tile with 4- and 16-byte rows.
+UPDATE_PLAN_CASES = [
+    ("wide", 140, None, True),
+    ("wide", 144, 7, True),
+    ("wide", 140, 7, True),
+    ("wide", 142, None, False),
+    ("narrow", 10, None, False),
+    ("narrow", 12, 7, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cl", range(1, bk.MAX_CLUSTER + 1))
+@pytest.mark.parametrize("config,h,mant,use_mask", UPDATE_PLAN_CASES)
+def test_bcpnn_update_every_plan(card, config, h, mant, use_mask, cl):
+    """Each tile configuration at each cluster size, on a batch (600) that
+    every CL splits into non-empty slices and a ragged F (300)."""
+    b, f = 600, 300
+    ai, aj, ci, cj, cij, mask = _update_inputs(b, f, h, card, use_mask)
+    dtype = torch.bfloat16 if mant == 7 else torch.float32
+    ci, cj, cij = ci.to(dtype), cj.to(dtype), cij.to(dtype)
+    got = bk.launch_planned(ai, aj, ci, cj, cij, 0.05, 0.7, mask, mant, dtype,
+                            _forced_update_plan(b, f, h, config, cl))
+    want = ref.bcpnn_update(ai, aj, ci, cj, cij, 0.05, k_b=0.7, mask=mask, state_mantissa=mant)
+    if mant is None:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **TOL)
+    else:
+        for g, w in zip(got[:3], want[:3]):
+            assert g.dtype == torch.bfloat16
+            _state_close(g, w, mant)
+        for g, w in zip(got[3:], want[3:]):
+            torch.testing.assert_close(g, w, rtol=0, atol=2.0 ** -(mant - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mant", [None, 7])
+def test_bcpnn_update_unaligned_base(card, mant):
+    """Rows whose length is a multiple of 8 but whose base is not 16-byte
+    aligned take the 4-byte path, without the prefetch."""
+    ai, aj, ci, cj, cij, mask = _update_inputs(96, 256, 136, card, True)
+    dtype = torch.bfloat16 if mant else torch.float32
+    ci, cj, cij = ci.to(dtype), cj.to(dtype), _shifted(cij.to(dtype))
+    got = bk.bcpnn_update(ai, aj, ci, cj, cij, 0.05, k_b=0.7, mask=_shifted(mask),
+                          state_mantissa=mant, state_dtype=dtype if mant else None)
+    want = ref.bcpnn_update(ai, aj, ci, cj, cij, 0.05, k_b=0.7, mask=mask, state_mantissa=mant)
+    for g, w in zip(got, want):
+        if mant:
+            torch.testing.assert_close(g.float(), w, rtol=2.0**-mant, atol=2.0 ** -(mant - 1))
+        else:
+            torch.testing.assert_close(g, w, **TOL)
+
+
+# (B, F, H, mask): the hidden update of the unfused path and the readout.
+UPDATE_MAIN = [(128, 1568, 3000, True), (128, 3000, 10, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", UPDATE_MAIN)
+def test_bcpnn_update_main_path_shapes(card, shape):
+    b, f, h, use_mask = shape
+    ai, aj, ci, cj, cij, mask = _update_inputs(b, f, h, card, use_mask)
+    got = bk.bcpnn_update(ai, aj, ci, cj, cij, 0.02, k_b=1.0, mask=mask)
+    want = ref.bcpnn_update(ai, aj, ci, cj, cij, 0.02, k_b=1.0, mask=mask)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mant", [None, 7])
+@pytest.mark.parametrize("shape", UPDATE_MAIN)
+def test_bcpnn_update_is_deterministic(card, shape, mant):
+    """No atomics, sums in a fixed order: two calls agree bit for bit."""
+    b, f, h, use_mask = shape
+    ai, aj, ci, cj, cij, mask = _update_inputs(b, f, h, card, use_mask)
+    dtype = torch.bfloat16 if mant else None
+    state = [t.to(dtype or torch.float32) for t in (ci, cj, cij)]
+    first = bk.bcpnn_update(ai, aj, *state, 0.02, mask=mask, state_mantissa=mant, state_dtype=dtype)
+    second = bk.bcpnn_update(ai, aj, *state, 0.02, mask=mask, state_mantissa=mant, state_dtype=dtype)
+    for g, w in zip(first, second):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mant", [None, 7])
+def test_bcpnn_phase_is_deterministic(card, mant):
+    """The rank-order sums of the softmax and the fixed update order: two
+    calls at the main path's shape agree bit for bit."""
+    p = _problem(128, 1568, 30, 100, True, card)
+    dtype = torch.bfloat16 if mant else None
+    state = [p[k].to(dtype or torch.float32) for k in ("ci", "cj", "cij")]
+    args = (p["x"], p["w"], p["b"], *state, 0.02, 30, 100)
+    kw = dict(k_b=1.0, gain=4.0, mask=p["mask"], state_mantissa=mant, state_dtype=dtype)
+    first, second = pk.bcpnn_phase(*args, **kw), pk.bcpnn_phase(*args, **kw)
+    for g, w in zip(first, second):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.cuda
+def test_bcpnn_phase_profile_variant(card):
+    """The profiling variant computes what the kernel computes and stamps
+    every CTA of the plan."""
+    p = _problem(128, 1568, 30, 100, True, card)
+    args = (p["x"], p["w"], p["b"], p["ci"], p["cj"], p["cij"], 0.02, 30, 100)
+    kw = dict(k_b=1.0, gain=4.0, mask=p["mask"])
+    before = ops.launch_counts()["bcpnn_phase"]
+    outs, prof = pk.profile(*args, **kw)
+    for g, w in zip(outs, pk.bcpnn_phase(*args, **kw)):
+        assert torch.equal(g, w)
+    assert prof.shape == (pk.plan(128, 1568, 30, 100).ctas, 2 + len(pk.PHASES))
+    assert bool((prof[:, 1] >= prof[:, 0]).all()) and bool((prof[:, 0] > 0).all())
+    assert ops.launch_counts()["bcpnn_phase"] == before + 1  # the profiled call is not counted
