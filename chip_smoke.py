@@ -12,8 +12,9 @@ the run with a non-zero exit:
 2. switch TF32 off, so the plain versions run in full f32;
 3. hold each kernel against its plain version at the shapes the main path
    gives it (``bcpnn_phase`` also against the three-kernel composition it
-   replaces, ``bf_round`` bit for bit, special values included), and time
-   the kernel, the plain version and, where one exists, a single PyTorch
+   replaces, ``bf_round`` bit for bit, special values included, also at
+   each shape where the reduced datapath rounds a stage), and time the
+   kernel, the plain version and, where one exists, a single PyTorch
    library call computing the same function (the forward pair at each of
    its main-path shapes: a training batch or projection chunk of B rows,
    and predict's chunk of P rows through the hidden layer and the head;
@@ -23,17 +24,27 @@ the run with a non-zero exit:
 4. drive the main paths, the paper's Listing 1 at MNIST width (784
    complementary-coded features -> 30x100 hidden -> 10 classes), through
    ``Network`` -> ``compile`` -> ``fit`` -> ``evaluate``: the unfused f32
-   path and the fused path with bf16 state
-   (``ExecutionConfig(fused_phase=True, precision=PrecisionPolicy.named(
-   "fp32", state_format="bf16"))``), each on the card with every launch
-   counter reset just before its compile, then each on the CPU through the
-   plain versions, timing ``fit``, ``predict`` and ``evaluate`` apart; on
-   each path the card's accuracy must be >= 0.5 and within 0.03 of the
-   CPU's, and the launch counts must be those of the path (one
-   ``masked_matmul`` and one ``hcu_softmax`` per forward pass; on the
-   fused path one ``bcpnn_phase`` per hidden batch, one ``bcpnn_update``
-   per readout batch, ``bf_round`` at compile); then time the staging of
-   one hidden epoch's input alone, the host time both paths share;
+   path; the fused path with bf16 state (``ExecutionConfig(fused_phase=True,
+   precision=PrecisionPolicy.named("fp32", state_format="bf16"))``); the
+   reduced datapath at bf20 (``ExecutionConfig(precision="bf20")``, every
+   algebraic stage rounded); and the hybrid SGD readout
+   (``fit(readout="sgd")``, f32, unfused).  Each runs on the card with
+   every launch counter reset just before its compile, then on the CPU
+   through the plain versions, timing ``fit``, ``predict`` and
+   ``evaluate`` apart; on each path the card's accuracy must be >= 0.5 and
+   within 0.03 of the CPU's, and the launch counts must be exactly those of
+   the path (one ``masked_matmul`` and one ``hcu_softmax`` per forward
+   pass; on the fused path one ``bcpnn_phase`` per hidden batch, one
+   ``bcpnn_update`` per readout batch, ``bf_round`` at compile; on the
+   datapath one ``bf_round`` per rounded stage and no update kernel; on
+   the SGD path no BCPNN kernel in the readout epochs).  Then the card
+   alone fits the datapath at fp32, bf16 and bf14 and prints the accuracy
+   cliff, and again at bf14 ... fp32 at the e2e test's configuration
+   (``tools/precision_cliff.py``; both printed, not gated); one datapath
+   training batch of each layer is held on the card against the CPU from
+   the same state, stage by stage, each stage within one format ulp of the
+   CPU's and at most 1% of its elements that far; and the staging of one
+   hidden epoch's input is timed alone, the host time every path shares;
 5. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
    ...}`` line.
 
@@ -60,6 +71,12 @@ PEAK_F32_FLOP_PER_S = 67e12
 B, N_FEATURES, HIDDEN, N_CLASSES = 128, 784, (30, 100), 10
 P = 1024  # predict's and evaluate's chunk (CompiledNetwork.predict batch_size)
 FAN_IN = 392  # half the input HCUs: rewiring runs every 30 batches
+DATAPATH_MANTISSA = 11  # bf20, the gated datapath of phase 4
+# bf_round launches of the reduced datapath's stages (precision/policy.py):
+# quantized_forward rounds a_i, w, b, the support and a_j, plus s * gain
+# when the gain is not 1; quantized_learning_cycle rounds a_i, a_j, m_i,
+# m_j, m_ij, c_i, c_j, c_ij, w and the bias.
+Q_FORWARD, Q_GAIN, Q_CYCLE = 5, 1, 10
 REPS = 20
 
 
@@ -213,6 +230,7 @@ def kernel_checks(torch, ops, ref, dev):
          -3.4028234663852886e38, 1.9999999, 0.99999994, 1.0 + 2**-8, 3.9999998, 1.5],
         device=dev,
     )
+    a_r = codes(B, 1, N_CLASSES)  # the readout's a_j at a training batch
 
     def mm_case(a, w, b, m):
         (rows, k), n = a.shape, w.shape[1]
@@ -255,6 +273,14 @@ def kernel_checks(torch, ops, ref, dev):
     def round_cases(m):
         return lambda: (bfk.bf_round(cij_h, m), bfk.bf_round(specials, m)), \
             lambda: (ref.bf_round(cij_h, m), ref.bf_round(specials, m))
+
+    def datapath_round(label, t):
+        # The datapath's stage boundaries at bf20 (mantissa 11); integer
+        # operations, so the bound counts bytes alone.
+        return (f"{label} {tuple(t.shape)}, mantissa {DATAPATH_MANTISSA} (datapath)",
+                lambda: bfk.bf_round(t, DATAPATH_MANTISSA),
+                lambda: ref.bf_round(t, DATAPATH_MANTISSA),
+                None, 8 * t.numel(), 0)
 
     # One bf16 ulp of a trace is at most 2^-7 of it; w and bias are logs of
     # traces, so one ulp moves them by at most ~2^-7 each.
@@ -364,6 +390,14 @@ def kernel_checks(torch, ops, ref, dev):
                  8 * (F * H + len(specials)), 0),
                 (f"cij({F},{H}) and {len(specials)} specials, mantissa 11",
                  round11, plain11, None, 8 * (F * H + len(specials)), 0),
+                # Every other shape the datapath rounds at: a training
+                # batch or projection chunk (B rows), the readout's update,
+                # and predict's chunk (P rows) through both layers.
+                *(datapath_round(*c) for c in (
+                    ("a_i", x), ("s, a_j", s_h), ("m_i, c_i", ci_h), ("b, m_j, c_j, bias", cj_h),
+                    ("readout w, m_ij, c_ij", w_r), ("readout b, m_j, c_j, bias", b_r),
+                    ("readout a_j", a_r), ("predict a_i", x_p),
+                    ("predict s, a_j; head a_i", s_p), ("predict head s, a_j", s_r))),
             ],
         ),
     ]
@@ -429,12 +463,136 @@ def epoch_staging_s(torch, stack_epoch, x, n, device) -> float:
     return statistics.median(times)
 
 
+def fit_once(torch, core, net, data_split, device, cfg, fit_kw, on_card):
+    """compile -> fit -> predict -> evaluate on ``device``, timed apart."""
+    x, y, xt, yt = data_split
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    compiled = net.compile(core.ExecutionConfig(engine="scan", device=device, **cfg))
+    result = compiled.fit((x, y), **fit_kw)
+    t1 = time.perf_counter()
+    scores = compiled.predict(xt)
+    sync()
+    t2 = time.perf_counter()
+    acc = compiled.evaluate((xt, yt))
+    sync()
+    t3 = time.perf_counter()
+    check(tuple(scores.shape) == (len(xt), N_CLASSES), f"scores shape {tuple(scores.shape)}")
+    check(bool(torch.isfinite(scores).all()), f"non-finite scores on {device}")
+    dtypes = sorted({str(t.dtype) for t in compiled.state.layers[0].marginals})
+    return compiled, dict(
+        acc=acc, fit_s=result.wall_time_s, predict_s=t2 - t1, evaluate_s=t3 - t2,
+        compile_fit_evaluate_s=t3 - t0, hidden_trace_dtypes=dtypes, history=result.history,
+    )
+
+
+def batch_device_ms(torch, card_nets, x, y, dev):
+    """Device ms of one training batch of each path (``device_ms``: CUDA
+    graph replays with an L2 flush before each), on the trained card
+    network's states at the main path's shapes: the hidden layer's
+    ``train_batch`` and, for the datapath, the readout's.  The hidden
+    step counters are past a rewiring batch, so no rewiring is timed."""
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    xb = torch.as_tensor(x[:B], device=dev)
+    yb = torch.as_tensor(y[:B], device=dev)
+    out = {}
+    for path in ("unfused_f32", "fused_bf16", "datapath_bf20"):
+        net = card_nets[path]
+        (hidden, readout), (hs, rs) = net.layers, net.state.layers
+        check(hs.host_step % hidden.mask_update_every != 0, f"{path}: a rewiring batch")
+        out[f"{path}/hidden"] = device_ms(torch, lambda: hidden.train_batch(hs, xb), flush)
+        if path == "datapath_bf20":
+            hb = hidden.forward(hs, xb)
+            out[f"{path}/readout"] = device_ms(torch, lambda: readout.train_batch(rs, hb, yb), flush)
+    return out
+
+
+def stage_rule(torch, label, got, want, mantissa, tol):
+    """The card's output of one datapath stage against the CPU's on the same
+    inputs, by the rule of ``tests/test_torch_datapath.py``: every element
+    within one ulp of the format at |want| plus the stage's f32 tolerance
+    (rtol * |want| + atol_rel * max|want|), and at most 1% of the elements
+    (at least one) beyond the f32 tolerance, i.e. rounded to a neighbour
+    after an f32 sum in another order.  Returns that count and the size."""
+    g, w = got.detach().to("cpu", torch.float64), want.detach().to(torch.float64)
+    check(g.shape == w.shape, f"datapath stage {label}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+    check(bool(torch.isfinite(g).all()), f"datapath stage {label}: not finite on the card")
+    rtol, atol_rel = tol
+    diff = (g - w).abs()
+    f32 = rtol * w.abs() + atol_rel * float(w.abs().max())
+    exponent = torch.frexp(torch.maximum(g.abs(), w.abs())).exponent
+    ulp = torch.ldexp(torch.ones_like(w), exponent - 1 - mantissa)
+    bad = diff > ulp + f32
+    n_bad = int(bad.sum())
+    check(n_bad == 0, f"datapath stage {label}: {n_bad} elements beyond one ulp + tolerance, "
+          f"worst {float(diff[bad].max()) if n_bad else 0.0:.3e}")
+    apart = int((diff > f32).sum())
+    check(apart <= max(1, 0.01 * diff.numel()),
+          f"datapath stage {label}: {apart} of {diff.numel()} elements a format ulp apart")
+    return apart, diff.numel()
+
+
+def datapath_stages(torch, ops, policy, compiled, x, y, dev):
+    """One datapath training batch of each layer, hidden then readout, on
+    the card against the same on the CPU from the card's trained state,
+    stage by stage: each stage gets the CPU's output of the stage before it
+    on both sides, so a difference is the stage's own.  The stages are
+    those of ``precision/policy.py``: the support (product, bias, gain),
+    the softmax, the learning cycle's traces, and w and bias, the last held
+    against the CPU's stage on the card's own traces.  The readout's
+    support and softmax are those predict runs, here at B rows."""
+    cpu = torch.device("cpu")
+    (hidden, readout), (hs, rs) = compiled.layers, compiled.state.layers
+    mask = hs.plast.unit_mask(hidden.spec.pre, hidden.spec.post)
+    xb = torch.as_tensor(x[:B], dtype=torch.float32)
+    onehot = torch.nn.functional.one_hot(torch.as_tensor(y[:B]).long(), N_CLASSES).float()
+    support_tol, softmax_tol, trace_tol, log_tol = (1e-4, 1e-5), (1e-5, 1e-6), (1e-5, 1e-8), (1e-5, 1e-6)
+    out = {}
+
+    def both(fn, *args):  # None stays None (no mask)
+        card = fn(*(None if a is None else a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        return card, fn(*(None if a is None else a.to(cpu) for a in args))
+
+    def held(label, got, want, mantissa, tol):
+        apart, n = stage_rule(torch, label, got, want, mantissa, tol)
+        out[label] = dict(ulp_apart=apart, elements=n)
+        print(f"datapath stage {label} {tuple(want.shape)} [card vs cpu]: {apart} of {n} "
+              f"elements a format ulp apart (mantissa {mantissa}, f32 tol {tol})")
+
+    ai = xb
+    for name, layer, st, m, aj_target in (("hidden", hidden, hs, mask, None),
+                                          ("readout", readout, rs, None, onehot)):
+        spec, pol = layer.spec, layer.spec.precision
+        mant = pol.fmt.mantissa_bits
+        layout = spec.post
+        s_card, s_cpu = both(lambda a, w, b, mm: policy.quantized_support(
+            a, w, b, pol, mask=mm, gain=spec.gain), ai, st.w, st.b, m)
+        held(f"{name} support", s_card, s_cpu, mant, support_tol)
+        a_card, a_cpu = both(lambda s: pol.q(ops.hcu_softmax(s, layout.n_hcu, layout.n_mcu)), s_cpu)
+        held(f"{name} softmax", a_card, a_cpu, mant, softmax_tol)
+        aj = a_cpu if aj_target is None else aj_target
+        (st_card, w_card, b_card), (st_cpu, _, _) = both(
+            lambda marg, a, j, mm: policy.quantized_learning_cycle(
+                marg, a, j, spec.lam, pol, spec.k_b, mask=mm), st.marginals, ai, aj, m)
+        for trace, got, want in zip(("c_i", "c_j", "c_ij"), st_card, st_cpu):
+            held(f"{name} {trace}", got, want, mant, trace_tol)
+        _, w_cpu, b_cpu = policy.state_quantized_cycle(
+            st_card.to(cpu), pol, k_b=spec.k_b, mask=None if m is None else m.to(cpu))
+        held(f"{name} w", w_card, pol.q(w_cpu), mant, log_tol)
+        held(f"{name} bias", b_card, pol.q(b_cpu), mant, log_tol)
+        ai = a_cpu  # the readout learns from the hidden codes
+    return out
+
+
 def main_path(torch, ops, core, data, policy, devices=("cuda", "cpu")):
-    """Phase 4: Listing 1 at MNIST width on both paths, each on the card
-    (launches counted from zero at its compile) and then on the CPU."""
+    """Phase 4: Listing 1 at MNIST width on four paths, each on the card
+    (launches counted from zero at its compile) and then on the CPU, then
+    the card alone at three more datapath formats."""
     ds = data.mnist_like(n_train=8192, n_test=2048, n_features=N_FEATURES, seed=0)
     x, in_layout = data.complementary_code(ds.x_train)
     xt, _ = data.complementary_code(ds.x_test)
+    split = (x, ds.y_train, xt, ds.y_test)
     hidden = core.UnitLayout(*HIDDEN)
     net = core.Network(seed=0)
     net.add(core.StructuralPlasticityLayer(
@@ -443,43 +601,33 @@ def main_path(torch, ops, core, data, policy, devices=("cuda", "cpu")):
     net.add(core.DenseLayer(hidden, core.onehot_layout(N_CLASSES), lam=0.02))
     fit_kw = dict(epochs_hidden=2, epochs_readout=2, batch_size=B)
     batches = len(x) // B
+    # path -> (ExecutionConfig options, fit options)
     paths = {
-        "unfused_f32": dict(),
-        "fused_bf16": dict(fused_phase=True,
-                           precision=policy.PrecisionPolicy.named("fp32", state_format="bf16")),
+        "unfused_f32": (dict(), dict()),
+        "fused_bf16": (dict(fused_phase=True,
+                            precision=policy.PrecisionPolicy.named("fp32", state_format="bf16")),
+                       dict()),
+        "datapath_bf20": (dict(precision="bf20"), dict()),
+        "sgd_readout": (dict(), dict(readout="sgd")),
     }
 
-    launches, runs = {}, {}
-    for path, cfg in paths.items():
+    launches, runs, card_nets = {}, {}, {}
+    for path, (cfg, extra) in paths.items():
         for i, device in enumerate(devices):
             on_card = i == 0
             if on_card:
                 ops.reset_launches()
-            sync = torch.cuda.synchronize if on_card else (lambda: None)
-            t0 = time.perf_counter()
-            compiled = net.compile(core.ExecutionConfig(engine="scan", device=device, **cfg))
-            result = compiled.fit((x, ds.y_train), **fit_kw)
-            t1 = time.perf_counter()
-            scores = compiled.predict(xt)
-            sync()
-            t2 = time.perf_counter()
-            acc = compiled.evaluate((xt, ds.y_test))
-            sync()
-            t3 = time.perf_counter()
+            compiled, run = fit_once(torch, core, net, split, device, cfg, {**fit_kw, **extra},
+                                     on_card)
             if on_card:
                 launches[path] = ops.launch_counts()
-            wall = t3 - t0
-            check(tuple(scores.shape) == (len(xt), N_CLASSES), f"scores shape {tuple(scores.shape)}")
-            check(bool(torch.isfinite(scores).all()), f"non-finite scores on {device} ({path})")
-            dtypes = sorted({str(t.dtype) for t in compiled.state.layers[0].marginals})
-            runs[f"{path}/{'card' if on_card else 'cpu'}"] = dict(
-                acc=acc, fit_s=result.wall_time_s, predict_s=t2 - t1, evaluate_s=t3 - t2,
-                compile_fit_evaluate_s=wall, hidden_trace_dtypes=dtypes, history=result.history,
-            )
-            print(f"main path {path} [{device}]: accuracy={acc:.4f} fit_wall_s="
-                  f"{result.wall_time_s:.4f} predict_s={t2 - t1:.4f} evaluate_s={t3 - t2:.4f} "
-                  f"compile+fit+predict+evaluate_s={wall:.4f} hidden traces {dtypes}")
-            for h in result.history:
+                card_nets[path] = compiled
+            runs[f"{path}/{'card' if on_card else 'cpu'}"] = run
+            print(f"main path {path} [{device}]: accuracy={run['acc']:.4f} fit_wall_s="
+                  f"{run['fit_s']:.4f} predict_s={run['predict_s']:.4f} evaluate_s="
+                  f"{run['evaluate_s']:.4f} compile+fit+predict+evaluate_s="
+                  f"{run['compile_fit_evaluate_s']:.4f} hidden traces {run['hidden_trace_dtypes']}")
+            for h in run["history"]:
                 print(f"  {path} {device} {h['phase']}"
                       + (f" epoch {h['epoch']}" if "epoch" in h else "")
                       + f": host_s={h['host_s']:.4f} device_wait_s={h['device_wait_s']:.4f}")
@@ -488,24 +636,33 @@ def main_path(torch, ops, core, data, policy, devices=("cuda", "cpu")):
         check(card_acc >= 0.5, f"{path}: accuracy on the card {card_acc} < 0.5")
         check(abs(card_acc - cpu_acc) <= 0.03,
               f"{path}: card {card_acc} vs CPU {cpu_acc}: off by more than 0.03")
+    print(f"readouts on the card: sgd accuracy={runs['sgd_readout/card']['acc']:.4f} "
+          f"beside bcpnn accuracy={runs['unfused_f32/card']['acc']:.4f} (same hidden path)")
 
     unfused, fused = launches["unfused_f32"], launches["fused_bf16"]
+    datapath, sgd = launches["datapath_bf20"], launches["sgd_readout"]
     for name in ("masked_matmul", "hcu_softmax", "bcpnn_update"):
         check(unfused[name] > 0, f"{name} was not launched on the unfused path")
     # The forward pair runs once per call of the layers' forward: per hidden
-    # training batch (unfused only), per projection chunk of the training
-    # set (B rows), per predict chunk of the test set (P rows) through the
-    # hidden layer, and per readout head call in predict and evaluate.
+    # training batch (not on the fused path), per projection chunk of the
+    # training set (B rows), per predict chunk of the test set (P rows)
+    # through the hidden layer, and per readout head call in predict and
+    # evaluate (none on the SGD path: its head is one plain product).
     test_chunks = -(-len(xt) // P)
+    hidden_batches = fit_kw["epochs_hidden"] * batches
+    readout_batches = fit_kw["epochs_readout"] * batches
+    forwards = {
+        "unfused_f32": hidden_batches + batches + 3 * test_chunks,
+        "fused_bf16": batches + 3 * test_chunks,
+        "datapath_bf20": hidden_batches + batches + 3 * test_chunks,
+        "sgd_readout": hidden_batches + batches + test_chunks,
+    }
     for path, counts in launches.items():
-        want = (batches + 3 * test_chunks
-                + (fit_kw["epochs_hidden"] * batches if path == "unfused_f32" else 0))
         for name in ("masked_matmul", "hcu_softmax"):
+            want = forwards[path]
             check(counts[name] == want, f"{path}: {name} launched {counts[name]} times, want {want}")
     check(unfused["bcpnn_phase"] == 0 and unfused["bf_round"] == 0,
           f"the unfused f32 path launched bcpnn_phase/bf_round: {unfused}")
-    hidden_batches = fit_kw["epochs_hidden"] * batches
-    readout_batches = fit_kw["epochs_readout"] * batches
     check(fused["bcpnn_phase"] == hidden_batches,
           f"bcpnn_phase launched {fused['bcpnn_phase']} times, want {hidden_batches}")
     check(fused["bcpnn_update"] == readout_batches,
@@ -515,6 +672,43 @@ def main_path(torch, ops, core, data, policy, devices=("cuda", "cpu")):
         check(fused[name] > 0, f"{name} was not launched on the fused path")
     check(runs["fused_bf16/card"]["hidden_trace_dtypes"] == ["torch.bfloat16"],
           f"hidden traces after fit: {runs['fused_bf16/card']['hidden_trace_dtypes']}")
+    # The datapath: every stage rounded, no update kernel (it would round
+    # m_ij after its EWMA) and no fused phase.  The hidden forwards have
+    # gain 4, the readout head gain 1.
+    hidden_fwd = Q_FORWARD + Q_GAIN
+    want_rounds = (hidden_batches * (hidden_fwd + Q_CYCLE) + batches * hidden_fwd
+                   + readout_batches * Q_CYCLE + test_chunks * hidden_fwd
+                   + 2 * test_chunks * Q_FORWARD)
+    check(datapath["bcpnn_update"] == 0 and datapath["bcpnn_phase"] == 0,
+          f"the datapath launched an update kernel: {datapath}")
+    check(datapath["bf_round"] == want_rounds,
+          f"datapath: bf_round launched {datapath['bf_round']} times, want {want_rounds}")
+    # The SGD readout: the hidden epochs' bcpnn_update and nothing else of
+    # BCPNN, so its readout epochs launched no BCPNN kernel.
+    check(sgd["bcpnn_update"] == hidden_batches and sgd["bcpnn_phase"] == 0
+          and sgd["bf_round"] == 0, f"sgd readout path launches: {sgd}")
+
+    # Paper Fig. 3 at MNIST width, on the card only: printed, not gated.
+    cliff = {"bf20": runs["datapath_bf20/card"]["acc"]}
+    for name in ("fp32", "bf16", "bf14"):
+        _, run = fit_once(torch, core, net, split, devices[0], dict(precision=name), fit_kw, True)
+        cliff[name] = run["acc"]
+        print(f"precision cliff {name} [card]: accuracy={run['acc']:.4f} "
+              f"fit_wall_s={run['fit_s']:.4f}")
+    print(f"precision cliff at MNIST width (card): {json.dumps(cliff)}")
+    # ... and at the e2e test's configuration, where the cliff shows.
+    import precision_cliff
+
+    cliff_e2e = precision_cliff.sweep(devices[0])
+    print(f"precision cliff at the e2e configuration (card, tools/precision_cliff.py): "
+          f"{json.dumps(cliff_e2e)}")
+
+    stages = datapath_stages(torch, ops, policy, card_nets["datapath_bf20"], x, ds.y_train,
+                             torch.device(devices[0]))
+
+    per_batch = batch_device_ms(torch, card_nets, x, ds.y_train, torch.device(devices[0]))
+    for key, ms in per_batch.items():
+        print(f"device ms of one training batch, {key}: {ms:.5f}")
 
     from repro_torch.runtime.epoch_engine import stack_epoch
 
@@ -522,7 +716,8 @@ def main_path(torch, ops, core, data, policy, devices=("cuda", "cpu")):
     print(f"main path epoch staging (host gather + copy of {batches * B}x{x.shape[1]} f32, "
           f"{batches * B * x.shape[1] * 4 / 1e6:.1f} MB, part of each hidden epoch's host_s): "
           f"{stage_s:.4f} s")
-    return launches, runs, stage_s
+    cliffs = dict(mnist_width=cliff, e2e=cliff_e2e)
+    return launches, runs, stage_s, cliffs, per_batch, stages
 
 
 def main() -> int:
@@ -570,7 +765,7 @@ def main() -> int:
     print(json.dumps({"bcpnn_phase_profile": profile}))
 
     # Phase 4: the main paths, launches counted from zero on each.
-    launches, runs, stage_s = main_path(torch, ops, core, data, policy)
+    launches, runs, stage_s, cliffs, per_batch, stages = main_path(torch, ops, core, data, policy)
 
     # Phase 5: the records.
     for rec in records:
@@ -587,6 +782,9 @@ def main() -> int:
     print(json.dumps({
         "main_path": {d: {k: v for k, v in r.items() if k != "history"} for d, r in runs.items()},
         "epoch_staging_s": stage_s,
+        "precision_cliff_card": cliffs,
+        "datapath_stages_card_vs_cpu": stages,
+        "batch_device_ms": per_batch,
     }))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

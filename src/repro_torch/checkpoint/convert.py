@@ -5,6 +5,7 @@ The keys are those of the reference's whole-network checkpoint
 
     layers/<i>/marginals/{ci,cj,cij}   layers/<i>/{w,b,step}
     layers/<i>/plast/hcu_mask          (hidden layers only)
+    readout/{w,b}                      (the SGD readout head, when present)
 
 so a state trained by either package, or read from such a checkpoint,
 loads into the other.  Arrays keep their dtype: bf16 traces of the
@@ -18,9 +19,10 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.network import readout_head
 from repro_torch.checkpoint.store import decode_array
 from repro_torch.core.compiled import NetworkState
-from repro_torch.core.layers import LayerState
+from repro_torch.core.layers import LayerState, StructuralPlasticityLayer
 from repro_torch.core.learning import MarginalState
 from repro_torch.core.plasticity import PlasticityState
 
@@ -28,9 +30,12 @@ from repro_torch.core.plasticity import PlasticityState
 def network_state_from_flat(
     flat: Dict[str, np.ndarray], layers: Sequence, device="cpu"
 ) -> NetworkState:
-    """A NetworkState for ``layers`` on ``device`` from flat arrays."""
-    if any(k.startswith("readout/") for k in flat):
-        raise ValueError("readout/*: the SGD readout head is not ported yet")
+    """A NetworkState for ``layers`` on ``device`` from flat arrays, the
+    SGD readout head included when ``readout/w`` and ``readout/b`` are
+    there.  Continual-learning adapters (``adapters/*``) are not ported
+    and are refused."""
+    if any(k.startswith("adapters/") for k in flat):
+        raise ValueError("adapters/*: continual-learning adapters are not ported yet")
 
     def get(key: str, shape) -> torch.Tensor:
         if key not in flat:
@@ -60,7 +65,16 @@ def network_state_from_flat(
             step=torch.tensor(step, dtype=torch.int32, device=device),
             host_step=step,
         ))
-    return NetworkState(layers=tuple(states))
+    readout = None
+    if any(k.startswith("readout/") for k in flat):
+        hidden = [la for la in layers if isinstance(la, StructuralPlasticityLayer)]
+        readout = readout_head(
+            {k.split("/", 1)[1]: decode_array(np.asarray(v))
+             for k, v in flat.items() if k.startswith("readout/")},
+            hidden[-1].spec.n_post if hidden else None, "flat arrays",
+        )
+        readout = {k: v.to(device) for k, v in readout.items()}
+    return NetworkState(layers=tuple(states), readout=readout)
 
 
 def flat_from_network_state(state: NetworkState) -> Dict[str, np.ndarray]:
@@ -77,4 +91,7 @@ def flat_from_network_state(state: NetworkState) -> Dict[str, np.ndarray]:
             flat[p + name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
         if s.plast is not None:
             flat[p + "plast/hcu_mask"] = s.plast.hcu_mask.detach().cpu().numpy()
+    if state.readout is not None:
+        for name, t in state.readout.items():
+            flat["readout/" + name] = t.detach().cpu().numpy()
     return flat

@@ -11,7 +11,10 @@ On a CUDA device every hot op is a hand-written Hopper kernel; on the CPU
 the same code runs the kernels' plain versions (the tests use this).
 ``fused_phase=True`` trains each hidden batch in one ``bcpnn_phase``
 launch; ``precision=PrecisionPolicy.named("fp32", state_format="bf16")``
-keeps the traces in bf16.  Options of the reference that are not ported yet
+keeps the traces in bf16; ``precision="bf20"`` (any of bf14 ... bf28)
+rounds every algebraic stage of the datapath, the paper's FPGA study.
+``fit(readout="sgd")`` trains the hybrid AdamW readout head on the frozen
+hidden codes.  Options of the reference that are not ported yet
 (``trainer``, ``use_kernels``, ``strict``, ``trace``, ``profile_dir``) are
 absent, so passing one raises a ``TypeError`` that names it;
 ``streaming``/``serve`` are not methods of this class yet.
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.layers import DenseLayer, LayerState, StructuralPlasticityLayer
-from repro_torch.precision.policy import PrecisionPolicy, quantize_marginals
+from repro_torch.core.learning import full_f32_matmul
 from repro_torch.runtime.activations import store_for
 from repro_torch.runtime.epoch_engine import rows_to
 from repro_torch.runtime.plans import PLANS, ExecutionPlan, make_plan
@@ -36,13 +39,17 @@ MIN_CAPABILITY = (9, 0)  # the kernels are built for sm_90a
 
 
 def build_head(layers) -> Callable:
-    """The readout head ``(states, hb) -> scores`` over level-H hidden codes:
-    the trailing DenseLayer's forward, or the codes themselves when the
-    network has no readout.  Shared by :func:`build_forward` and the
-    project-once predict, so the two cannot diverge."""
+    """The readout head ``(states, readout_params, hb) -> scores`` over
+    level-H hidden codes: the SGD head ``hb @ w + b`` when
+    ``readout_params`` is given (it was trained on the whole hidden stack's
+    output, so only a trailing DenseLayer is skipped), else the DenseLayer's
+    forward, else the codes themselves.  Shared by :func:`build_forward` and
+    the project-once predict, so the two cannot diverge."""
     n_hidden = len(layers) - 1 if isinstance(layers[-1], DenseLayer) else len(layers)
 
-    def head(states, hb):
+    def head(states, readout_params, hb):
+        if readout_params is not None:
+            return full_f32_matmul(hb, readout_params["w"]) + readout_params["b"]
         if n_hidden < len(layers):
             return layers[-1].forward(states[-1], hb)
         return hb
@@ -51,23 +58,26 @@ def build_head(layers) -> Callable:
 
 
 def build_forward(layers) -> Callable:
-    """The full-network forward ``(states, xb) -> scores``."""
+    """The full-network forward ``(states, readout_params, xb) -> scores``."""
     n_hidden = len(layers) - 1 if isinstance(layers[-1], DenseLayer) else len(layers)
     head = build_head(layers)
 
-    def fwd(states, xb):
+    def fwd(states, readout_params, xb):
         h = xb
         for layer, state in zip(layers[:n_hidden], states[:n_hidden]):
             h = layer.forward(state, h)
-        return head(states, h)
+        return head(states, readout_params, h)
 
     return fwd
 
 
 class NetworkState(NamedTuple):
-    """The whole network's learnable state: one LayerState per layer."""
+    """The whole network's learnable state: one LayerState per layer, and
+    the hybrid readout's head ``{"w", "b"}`` (None while the BCPNN
+    DenseLayer is the readout)."""
 
     layers: Tuple[LayerState, ...]
+    readout: Optional[dict] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,9 +97,10 @@ class ExecutionConfig:
     activation_budget_mb: device-memory budget for cached levels; beyond it
                  levels spill to pinned host memory.
     precision:   a PrecisionPolicy (or a format name) bound into every
-                 layer.  Only the quantized state tier is ported:
-                 ``PrecisionPolicy.named("fp32", state_format="bf16")``; a
-                 reduced datapath (e.g. "bf20") raises.
+                 layer, the readout included: a reduced datapath ("bf14"
+                 ... "bf28", every algebraic stage rounded) and/or the
+                 quantized state tier (``PrecisionPolicy.named("fp32",
+                 state_format="bf16")``).
     fused_phase: train each hidden batch in one ``bcpnn_phase`` launch
                  (forward, softmax and update); composes with the state
                  tier.
@@ -109,18 +120,14 @@ class ExecutionConfig:
         if self.activation_budget_mb <= 0:
             raise ValueError("activation_budget_mb must be positive")
         if isinstance(self.precision, str):
+            from repro_torch.precision.policy import PrecisionPolicy
+
             object.__setattr__(self, "precision", PrecisionPolicy.named(self.precision))
-        if self.precision is not None and not self.precision.fmt.is_identity:
-            name = self.precision.fmt.name
-            if self.fused_phase:
-                raise ValueError(
-                    "fused_phase is incompatible with a reduced-precision datapath "
-                    f"(precision fmt {name!r}); use PrecisionPolicy.named('fp32', "
-                    "state_format=...) for the quantized state tier, which does compose"
-                )
-            raise NotImplementedError(
-                f"precision {name!r}: the reduced-precision datapath is not ported "
-                "yet; PrecisionPolicy.named('fp32', state_format=...) is"
+        if self.fused_phase and self.precision is not None and not self.precision.fmt.is_identity:
+            raise ValueError(
+                "fused_phase is incompatible with a reduced-precision datapath "
+                f"(precision fmt {self.precision.fmt.name!r}); use PrecisionPolicy.named("
+                "'fp32', state_format=...) for the quantized state tier, which does compose"
             )
 
     def bind_layer(self, layer):
@@ -176,6 +183,8 @@ class CompiledNetwork:
         # The state tier rounds and casts the initial traces here, so every
         # epoch starts in the storage dtype (one bf_round launch per trace
         # on the card).
+        from repro_torch.precision.policy import quantize_marginals
+
         states = [s.to(self.device) for s in network.states]
         self.state = NetworkState(layers=tuple(
             s._replace(marginals=quantize_marginals(s.marginals, layer.spec.precision))
@@ -186,6 +195,10 @@ class CompiledNetwork:
         )
         self.activations = store_for(self.layers, self.config, self.device)
         self._rng = np.random.default_rng(network.seed)
+        # The hybrid readout's optimizer and epoch runner per (n_hidden,
+        # n_classes, lr), and the moments a partial_fit resumes.
+        self._sgd_cache: dict = {}
+        self._sgd_opt_state = None
 
     @property
     def hidden_layers(self) -> List[StructuralPlasticityLayer]:
@@ -200,17 +213,17 @@ class CompiledNetwork:
         """Class scores on the compiled device.  With the activation store
         the hidden stack runs through the same level-H projection training
         used, so only the readout head runs per call."""
-        states = self.state.layers
+        states, readout = self.state.layers, self.state.readout
         outs = []
         if self.activations is not None and self.hidden_layers:
             h = self.activations.level(len(self.hidden_layers), list(states), x, chunk=batch_size)
             head = build_head(self.layers)
             for i in range(0, h.shape[0], batch_size):
-                outs.append(head(states, rows_to(h, i, i + batch_size, self.device)))
+                outs.append(head(states, readout, rows_to(h, i, i + batch_size, self.device)))
         else:
             fwd = build_forward(self.layers)
             for i in range(0, x.shape[0], batch_size):
-                outs.append(fwd(states, rows_to(x, i, i + batch_size, self.device)))
+                outs.append(fwd(states, readout, rows_to(x, i, i + batch_size, self.device)))
         return torch.cat(outs)
 
     def evaluate(self, dataset, batch_size: int = 1024) -> float:
@@ -227,17 +240,20 @@ class CompiledNetwork:
         epochs_readout: int = 10,
         batch_size: int = 128,
         readout: str = "bcpnn",
+        readout_lr: float = 1e-3,
         shuffle: bool = True,
         verbose: bool = False,
     ):
-        """Phase-program BCPNN training (Alg. 1 + supervised readout)."""
+        """Phase-program BCPNN training (Alg. 1 + supervised readout).
+        ``readout="sgd"`` trains a fresh hybrid AdamW head (``readout_lr``)
+        in place of the BCPNN readout."""
         from repro_torch.core.network import FitResult
 
         t0 = time.perf_counter()
         history: List[dict] = []
         self._run(
-            dataset, epochs_hidden, epochs_readout, batch_size, readout, shuffle,
-            verbose, history, partial=False,
+            dataset, epochs_hidden, epochs_readout, batch_size, readout, readout_lr,
+            shuffle, verbose, history, reset_readout=True,
         )
         return FitResult(
             epochs_hidden=epochs_hidden,
@@ -252,11 +268,13 @@ class CompiledNetwork:
         dataset,
         batch_size: int = 128,
         readout: Optional[str] = None,
+        readout_lr: float = 1e-3,
         shuffle: bool = False,
         verbose: bool = False,
     ):
         """One incremental pass over a chunk: one Hebbian epoch per hidden
-        layer, plus one readout epoch when ``readout`` is given.  A ragged
+        layer, plus one readout epoch when ``readout`` is given.  The SGD
+        head and its optimizer moments carry over between calls.  A ragged
         tail is dropped and reported as a ``ragged_tail_dropped`` entry."""
         from repro_torch.core.network import FitResult
 
@@ -264,7 +282,7 @@ class CompiledNetwork:
         history: List[dict] = []
         self._run(
             dataset, 1, 1 if readout is not None else 0, batch_size,
-            readout or "bcpnn", shuffle, verbose, history, partial=True,
+            readout or "bcpnn", readout_lr, shuffle, verbose, history, reset_readout=False,
         )
         return FitResult(
             epochs_hidden=1,
@@ -276,7 +294,7 @@ class CompiledNetwork:
 
     def _run(
         self, dataset, epochs_hidden, epochs_readout, batch_size, readout,
-        shuffle, verbose, history, partial,
+        readout_lr, shuffle, verbose, history, reset_readout,
     ) -> None:
         from repro_torch.runtime.program import HiddenPhase, compile_program, run_program
 
@@ -288,10 +306,11 @@ class CompiledNetwork:
         # B) from a full-dataset permutation, so the ragged tail rotates.
         batch_size = min(batch_size, n_total)
         n = (n_total // batch_size) * batch_size
-        if partial and n < n_total:
+        if not reset_readout and n < n_total:
             history.append({"phase": "ragged_tail_dropped", "samples": n_total - n})
         program = compile_program(
-            len(self.hidden_layers), epochs_hidden, epochs_readout, readout
+            len(self.hidden_layers), epochs_hidden, epochs_readout, readout,
+            readout_lr=readout_lr, reset_readout=reset_readout,
         )
         if y is None and any(not isinstance(p, HiddenPhase) for p in program.phases):
             raise ValueError(
@@ -300,12 +319,75 @@ class CompiledNetwork:
             )
         if verbose:
             print(f"[fit/{self.plan.name}] program: {program.describe()}")
-        run_program(self, program, x, y, n, n_total, batch_size, shuffle, verbose, history)
+        result = run_program(self, program, x, y, n, n_total, batch_size, shuffle, verbose, history)
+        # A stale SGD head is dropped only once a BCPNN readout has trained
+        # a replacement, so a network never ends up without a classifier.
+        readout_params = self.state.readout
+        if result.bcpnn_trained and self.readout_layer is not None:
+            readout_params = None
+        if result.sgd_ran:
+            readout_params = result.sgd_params
+        self.state = self.state._replace(readout=readout_params)
+
+    def _sgd_setup(self, y, lr: float, reset: bool):
+        """(params, opt_state, epoch runner) for one SgdReadoutPhase: AdamW
+        and cross-entropy on the frozen hidden codes.  The runner matches
+        the execution mode (cached level-H codes with the activation store,
+        the frozen stack per batch without) and is cached across fit and
+        partial_fit calls."""
+        from repro_torch.core.network import sgd_readout_setup
+
+        if not self.hidden_layers:
+            raise ValueError("readout='sgd' needs at least one hidden layer")
+        n_hidden = self.hidden_layers[-1].spec.n_post
+        # The head's width comes from the declared output layout, not from
+        # this batch's labels (a partial_fit chunk may miss classes).
+        if self.readout_layer is not None:
+            n_classes = self.readout_layer.spec.n_post
+        elif not reset and self.state.readout is not None:
+            n_classes = int(self.state.readout["w"].shape[1])
+            y_max = int(np.max(y))
+            if y_max >= n_classes:
+                raise ValueError(
+                    f"label {y_max} exceeds the SGD head's {n_classes} classes (a "
+                    "headless network's head is sized by its first fit); declare a "
+                    "DenseLayer readout or run a full fit() covering the label range"
+                )
+        else:
+            n_classes = int(np.max(y)) + 1
+        key = (n_hidden, n_classes, lr)
+        resume = not reset and self.state.readout is not None
+        cached = self._sgd_cache.get(key)
+        if cached is None:
+            params, opt, opt_state, loss_fn = sgd_readout_setup(
+                self.network.seed, n_hidden, y, lr, n_classes=n_classes,
+                init_params=not resume, device=self.device,
+            )
+            run_epoch = (
+                self.plan.sgd_epoch_cached(opt, loss_fn)
+                if self.activations is not None
+                else self.plan.sgd_epoch(opt, loss_fn)
+            )
+            self._sgd_cache[key] = (opt, loss_fn, run_epoch)
+        else:
+            opt, loss_fn, run_epoch = cached
+            params = opt_state = None
+        if resume:
+            # The stored head, with fresh moments if none survive (e.g.
+            # right after a checkpoint load).  Updates make new tensors, so
+            # the stored head is never written.
+            params = self.state.readout
+            opt_state = self._sgd_opt_state if self._sgd_opt_state is not None else opt.init(params)
+        elif params is None:
+            params, _, opt_state, _ = sgd_readout_setup(
+                self.network.seed, n_hidden, y, lr, n_classes=n_classes, device=self.device,
+            )
+        return params, opt_state, run_epoch
 
     # ----------------------------------------------------------- checkpoint
     def save(self, directory: str, step: int = 0, retain: int = 3) -> str:
-        """Whole-network checkpoint, written atomically: every layer's state
-        plus the host shuffle RNG, in the reference's layout
+        """Whole-network checkpoint, written atomically: every layer's state,
+        the SGD head if any, and the host shuffle RNG, in the reference's layout
         (``repro_torch.checkpoint``).  Returns the checkpoint's path."""
         from repro_torch.checkpoint.network import save_network
 
@@ -320,8 +402,15 @@ class CompiledNetwork:
         the same shuffles."""
         from repro_torch.checkpoint.network import load_network
 
-        layer_states, rng_state = load_network(path, list(self.state.layers), self.device)
-        self.state = NetworkState(layers=tuple(layer_states))
+        layer_states, readout, rng_state = load_network(
+            path, list(self.state.layers), self.device,
+            readout_in_features=(
+                self.hidden_layers[-1].spec.n_post if self.hidden_layers else None
+            ),
+        )
+        self.state = NetworkState(layers=tuple(layer_states), readout=readout)
+        # The optimizer moments belong to the trajectory before the load.
+        self._sgd_opt_state = None
         if rng_state is not None:
             self._rng.bit_generator.state = rng_state
         return self

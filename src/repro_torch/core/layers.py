@@ -15,7 +15,9 @@ The hot ops go through ``repro_torch.kernels.ops``, which picks the Hopper
 kernels for CUDA tensors and their plain versions for CPU tensors.  A spec
 with ``fused_phase`` trains each hidden batch in the one-launch
 ``bcpnn_phase`` kernel; a ``precision`` policy with a ``state_format``
-keeps the traces in the quantized state tier.
+keeps the traces in the quantized state tier; a policy with a reduced
+datapath format (``PrecisionPolicy.named("bf20")``) rounds every stage of
+the forward and of each learning cycle (``repro_torch.precision.policy``).
 """
 from __future__ import annotations
 
@@ -70,24 +72,18 @@ class BCPNNLayerSpec:
     k_b: float = 1.0
     n_cycles: int = 1
     gain: float = 1.0  # softmax inverse temperature (soft-WTA sharpness)
-    # A PrecisionPolicy; only its state tier is ported (fmt must be fp32).
+    # A PrecisionPolicy: a reduced datapath format and/or a state tier.
     precision: object = None
     # One-launch training: forward + softmax + EWMA + weights in the
     # bcpnn_phase kernel.  Composes with the quantized state tier.
     fused_phase: bool = False
 
     def __post_init__(self):
-        fmt = getattr(self.precision, "fmt", None)
-        if fmt is not None and not fmt.is_identity:
-            if self.fused_phase:
-                raise ValueError(
-                    "fused_phase is incompatible with a reduced-precision datapath "
-                    f"(precision fmt {fmt.name!r}); only the quantized state tier "
-                    "(state_format=) composes with the fused kernel"
-                )
-            raise NotImplementedError(
-                f"the reduced-precision datapath (precision fmt {fmt.name!r}) is not "
-                "ported yet; PrecisionPolicy.named('fp32', state_format=...) is"
+        if self.fused_phase and _datapath_policy(self) is not None:
+            raise ValueError(
+                "fused_phase is incompatible with a reduced-precision datapath "
+                f"(precision fmt {self.precision.fmt.name!r}); only the quantized "
+                "state tier (state_format=) composes with the fused kernel"
             )
 
     @property
@@ -97,6 +93,15 @@ class BCPNNLayerSpec:
     @property
     def n_post(self) -> int:
         return self.post.n_units
+
+
+def _datapath_policy(spec: BCPNNLayerSpec):
+    """The PrecisionPolicy if it reduces the datapath (a fmt other than
+    fp32); a policy with only a state tier is not a datapath."""
+    p = spec.precision
+    if p is None or p.fmt.is_identity:
+        return None
+    return p
 
 
 def _state_format(spec: BCPNNLayerSpec):
@@ -118,7 +123,14 @@ def _forward(
     mask: Optional[torch.Tensor],
 ) -> torch.Tensor:
     """s = x @ (w o mask) + b, times the gain, then softmax per HCU.  The
-    gain multiply between the two kernels stays a plain elementwise op."""
+    gain multiply between the two kernels stays a plain elementwise op.  A
+    reduced datapath rounds every stage (``quantized_forward``)."""
+    if _datapath_policy(spec) is not None:
+        from repro_torch.precision.policy import quantized_forward
+
+        return quantized_forward(
+            x, state.w, state.b, spec.post, spec.precision, mask, gain=spec.gain
+        )
     s = ops.masked_matmul(x, state.w, state.b, mask=mask)
     if spec.gain != 1.0:
         s = s * spec.gain
@@ -129,13 +141,23 @@ def _learn(
     spec: BCPNNLayerSpec, state: LayerState, ai: torch.Tensor, aj: torch.Tensor,
     mask: Optional[torch.Tensor],
 ) -> LayerState:
-    """n_cycles of the EWMA marginal -> weight update (Alg.1 L10-16)."""
+    """n_cycles of the EWMA marginal -> weight update (Alg.1 L10-16): the
+    ``bcpnn_update`` kernel, or the rounded stages of a reduced datapath
+    (``quantized_learning_cycle``; the kernel would round m_ij after its
+    EWMA, another function)."""
     marg, w, b = state.marginals, state.w, state.b
-    sfmt = _state_format(spec)
+    datapath, sfmt = _datapath_policy(spec), _state_format(spec)
     for _ in range(spec.n_cycles):
-        marg, w, b = ops.bcpnn_update(
-            marg, ai, aj, lam=spec.lam, k_b=spec.k_b, mask=mask, state_format=sfmt
-        )
+        if datapath is not None:
+            from repro_torch.precision.policy import quantized_learning_cycle
+
+            marg, w, b = quantized_learning_cycle(
+                marg, ai, aj, spec.lam, datapath, spec.k_b, mask=mask
+            )
+        else:
+            marg, w, b = ops.bcpnn_update(
+                marg, ai, aj, lam=spec.lam, k_b=spec.k_b, mask=mask, state_format=sfmt
+            )
     return LayerState(
         marginals=marg, w=w, b=b, plast=state.plast, step=state.step + 1,
         host_step=state.host_step + 1,

@@ -71,6 +71,20 @@ def init_marginals(
     return MarginalState(ci=ci, cj=cj, cij=cij)
 
 
+def full_f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in full f32, as the reference's products run
+    (``preferred_element_type=float32``).  Raises while TF32 or a lower
+    matmul precision is switched on (``torch.backends.cuda.matmul.allow_tf32``,
+    ``torch.set_float32_matmul_precision``): such a product would be a
+    different function, about 1e-3 off."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "this product runs in full f32: switch TF32 off "
+            "(torch.set_float32_matmul_precision('highest'))"
+        )
+    return a @ b
+
+
 def batch_means(ai: torch.Tensor, aj: torch.Tensor):
     """Per-batch means (mi, mj, mij) with mij = ai^T aj / B."""
     return ai.mean(dim=0), aj.mean(dim=0), (ai.T @ aj) / ai.shape[0]

@@ -2,10 +2,11 @@
 
 A BF<n> format keeps the f32 sign and 8-bit exponent and n-9 bits of
 mantissa: BF16 (7 bits) is bfloat16, BF14/BF15 are below it, BF20/24/28
-above.  The port carries the *state tier* of the reference
-(``repro/precision``): MarginalState traces rounded (RNE) to a format
-between batches.  The rounding runs in the ``bf_round`` kernel on the card
-and in its plain version on the CPU.
+above.  A format serves two tiers (``repro_torch.precision.policy``): the
+reduced *datapath*, every algebraic stage of Alg. 1 rounded (RNE) to it,
+and the *state tier*, MarginalState traces rounded to it between batches.
+The rounding runs in the ``bf_round`` kernel on the card and in its plain
+version on the CPU.
 """
 from __future__ import annotations
 
@@ -68,9 +69,12 @@ def state_spec(fmt: Optional[BFFormat]) -> Tuple[Optional[int], Optional[torch.d
 
 def round_to(x: torch.Tensor, fmt: BFFormat) -> torch.Tensor:
     """``x`` rounded (RNE) to the format's mantissa width, as f32.  CPU
-    tensors take the plain version, CUDA tensors the ``bf_round`` kernel."""
+    tensors take the plain version, CUDA tensors the ``bf_round`` kernel.
+
+    ``x`` is cast to a contiguous f32 tensor first, as the reference's
+    ``astype`` does: datapath operands include bf16 traces and views."""
     if fmt.is_identity:
         return x.to(torch.float32)
     from repro_torch.kernels import ops
 
-    return ops.bf_round(x, fmt.mantissa_bits)
+    return ops.bf_round(x.to(torch.float32).contiguous(), fmt.mantissa_bits)

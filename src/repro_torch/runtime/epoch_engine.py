@@ -8,7 +8,9 @@ stream, so the host only enqueues and never waits inside an epoch.
   tensor on the device: one host->device copy per epoch for host data, an
   on-device ``index_select`` for data already on the device;
 * the ``*_epoch_fn`` builders run the per-batch transition over the stack,
-  recomputing the frozen layers below (the parity reference);
+  recomputing the frozen layers below (the parity reference): the hidden
+  Hebbian phase, the BCPNN readout phase and the hybrid SGD readout phase
+  each get one;
 * the ``*_epoch_cached_fn`` builders take inputs already projected through
   the frozen prefix by the activation store, so the loop holds no frozen
   forward at all.
@@ -22,6 +24,8 @@ from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.optim import apply_updates, tree_flatten
 
 
 def _as_index(idx: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -129,5 +133,52 @@ def readout_epoch_cached_fn(layer) -> Callable:
         for hb, yb in zip(hs, ys):
             state = layer.train_batch(state, hb, yb)[0]
         return state
+
+    return epoch
+
+
+def sgd_step(opt, loss_fn: Callable) -> Callable:
+    """``(params, opt_state, hb, yb) -> (params, opt_state, loss)``: one step
+    of the hybrid readout, the gradients taken by autograd on the head's
+    tensors, then the optimizer's update added to the params (new tensors;
+    the old params are left as they were)."""
+    def step(params, opt_state, hb, yb):
+        leaves, rebuild = tree_flatten(params)
+        with torch.enable_grad():
+            live = [t.detach().requires_grad_(True) for t in leaves]
+            loss = loss_fn(rebuild(live), hb, yb)
+            grads = torch.autograd.grad(loss, live)
+        updates, opt_state = opt.update(rebuild(list(grads)), opt_state, params)
+        return apply_updates(params, updates), opt_state, loss.detach()
+
+    return step
+
+
+def sgd_epoch_fn(opt, hidden_layers: Sequence[Any], loss_fn: Callable) -> Callable:
+    """``(params, opt_state, hidden_states, xs, ys) -> (params, opt_state,
+    loss)`` for one hybrid-readout epoch over the raw input; ``loss`` is
+    the last batch's."""
+    below = forward_stack(hidden_layers)
+    step = sgd_step(opt, loss_fn)
+
+    def epoch(params, opt_state, hidden_states, xs, ys):
+        loss = torch.zeros((), device=xs.device)
+        for xb, yb in zip(xs, ys):
+            params, opt_state, loss = step(params, opt_state, below(hidden_states, xb), yb)
+        return params, opt_state, loss
+
+    return epoch
+
+
+def sgd_epoch_cached_fn(opt, loss_fn: Callable) -> Callable:
+    """``(params, opt_state, hs, ys) -> (params, opt_state, loss)``: one
+    hybrid-readout epoch on pre-projected hidden codes."""
+    step = sgd_step(opt, loss_fn)
+
+    def epoch(params, opt_state, hs, ys):
+        loss = torch.zeros((), device=hs.device)
+        for hb, yb in zip(hs, ys):
+            params, opt_state, loss = step(params, opt_state, hb, yb)
+        return params, opt_state, loss
 
     return epoch

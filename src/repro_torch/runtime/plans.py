@@ -14,6 +14,10 @@ Epoch-runner calling convention (host-side data in, new state out):
     readout_epoch()(state, hidden_states, x, y, idx, batch_size) -> state
     hidden_epoch_cached(li)(state, xk, idx, batch_size) -> state
     readout_epoch_cached()(state, hk, y, idx, batch_size) -> state
+    sgd_epoch(opt, loss_fn)(params, opt_state, hidden_states, x, y, idx,
+                            batch_size) -> (params, opt_state, last_loss)
+    sgd_epoch_cached(opt, loss_fn)(params, opt_state, hk, y, idx,
+                                   batch_size) -> (params, opt_state, last_loss)
 
 ``x``/``y`` are the full datasets (numpy) or cached levels (tensors);
 ``idx`` is the already length-trimmed shuffled index vector of the epoch.
@@ -31,6 +35,9 @@ from repro_torch.runtime.epoch_engine import (
     hidden_epoch_fn,
     readout_epoch_cached_fn,
     readout_epoch_fn,
+    sgd_epoch_cached_fn,
+    sgd_epoch_fn,
+    sgd_step,
     stack_epoch,
 )
 
@@ -70,6 +77,12 @@ class ExecutionPlan:
         raise NotImplementedError
 
     def readout_epoch_cached(self) -> Callable:
+        raise NotImplementedError
+
+    def sgd_epoch(self, opt, loss_fn: Callable) -> Callable:
+        raise NotImplementedError
+
+    def sgd_epoch_cached(self, opt, loss_fn: Callable) -> Callable:
         raise NotImplementedError
 
 
@@ -129,6 +142,26 @@ class ScanPlan(ExecutionPlan):
 
         return run
 
+    def sgd_epoch(self, opt, loss_fn: Callable) -> Callable:
+        epoch_fn = sgd_epoch_fn(opt, self.hidden_layers, loss_fn)
+
+        def run(params, opt_state, hidden_states, x, y, idx, batch_size):
+            xs = self._stack(x, idx, batch_size, "x")
+            ys = self._stack(y, idx, batch_size, "y")
+            return epoch_fn(params, opt_state, hidden_states, xs, ys)
+
+        return run
+
+    def sgd_epoch_cached(self, opt, loss_fn: Callable) -> Callable:
+        epoch_fn = sgd_epoch_cached_fn(opt, loss_fn)
+
+        def run(params, opt_state, hk, y, idx, batch_size):
+            hs = self._stack(hk, idx, batch_size, "x")
+            ys = self._stack(y, idx, batch_size, "y")
+            return epoch_fn(params, opt_state, hs, ys)
+
+        return run
+
 
 class BatchPlan(ExecutionPlan):
     """Per-batch reference loop: one gather and one copy per batch."""
@@ -179,6 +212,29 @@ class BatchPlan(ExecutionPlan):
             for hb, yb in self._batches([hk, y], idx, batch_size):
                 state = layer.train_batch(state, hb, yb)[0]
             return state
+
+        return run
+
+    def sgd_epoch(self, opt, loss_fn: Callable) -> Callable:
+        below = forward_stack(self.hidden_layers)
+        step = sgd_step(opt, loss_fn)
+
+        def run(params, opt_state, hidden_states, x, y, idx, batch_size):
+            loss = torch.zeros((), device=self.device)
+            for xb, yb in self._batches([x, y], idx, batch_size):
+                params, opt_state, loss = step(params, opt_state, below(hidden_states, xb), yb)
+            return params, opt_state, loss
+
+        return run
+
+    def sgd_epoch_cached(self, opt, loss_fn: Callable) -> Callable:
+        step = sgd_step(opt, loss_fn)
+
+        def run(params, opt_state, hk, y, idx, batch_size):
+            loss = torch.zeros((), device=self.device)
+            for hb, yb in self._batches([hk, y], idx, batch_size):
+                params, opt_state, loss = step(params, opt_state, hb, yb)
+            return params, opt_state, loss
 
         return run
 

@@ -1,20 +1,20 @@
 """Phase programs: training as an explicit, inspectable schedule.
 
 ``CompiledNetwork.fit``/``partial_fit`` compile their arguments into a
-:class:`TrainProgram`, an ordered tuple of :class:`HiddenPhase` and
-:class:`BcpnnReadoutPhase`, and one driver (:func:`run_program`) executes
-it.  Each phase boundary is where a layer freezes, so the driver projects
-the dataset once through the newly frozen prefix (the activation store) and
-every epoch of the phase gathers from that level.  Every epoch's history
-entry splits its wall time into the host's enqueue span (``host_s``) and the
-wait for the device at the one synchronisation that ends the epoch
-(``device_wait_s``).
+:class:`TrainProgram`, an ordered tuple of :class:`HiddenPhase`,
+:class:`BcpnnReadoutPhase` and :class:`SgdReadoutPhase`, and one driver
+(:func:`run_program`) executes it.  Each phase boundary is where a layer
+freezes, so the driver projects the dataset once through the newly frozen
+prefix (the activation store) and every epoch of the phase gathers from
+that level.  Every epoch's history entry splits its wall time into the
+host's enqueue span (``host_s``) and the wait for the device at the one
+synchronisation that ends the epoch (``device_wait_s``).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Sequence, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,7 +35,21 @@ class BcpnnReadoutPhase:
     epochs: int
 
 
-Phase = Union[HiddenPhase, BcpnnReadoutPhase]
+@dataclasses.dataclass(frozen=True)
+class SgdReadoutPhase:
+    """Hybrid AdamW cross-entropy readout on frozen hidden codes.
+
+    ``reset=False`` resumes the stored head and optimizer moments
+    (partial_fit's streamed readout).  ``epochs=0`` still initializes the
+    head, as the reference does.
+    """
+
+    epochs: int
+    lr: float = 1e-3
+    reset: bool = True
+
+
+Phase = Union[HiddenPhase, BcpnnReadoutPhase, SgdReadoutPhase]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,12 +60,18 @@ class TrainProgram:
 
     def describe(self) -> str:
         """One line, e.g. ``hidden0 x20 -> readout(bcpnn) x10``."""
-        parts = [
-            f"hidden{p.li} x{p.epochs}" if isinstance(p, HiddenPhase)
-            else f"readout(bcpnn) x{p.epochs}"
-            for p in self.phases
-        ]
+        parts = []
+        for p in self.phases:
+            if isinstance(p, HiddenPhase):
+                parts.append(f"hidden{p.li} x{p.epochs}")
+            elif isinstance(p, BcpnnReadoutPhase):
+                parts.append(f"readout(bcpnn) x{p.epochs}")
+            else:
+                parts.append(f"readout(sgd,lr={p.lr:g}) x{p.epochs}")
         return " -> ".join(parts) if parts else "(empty)"
+
+
+READOUTS = ("bcpnn", "sgd")
 
 
 def compile_program(
@@ -59,14 +79,18 @@ def compile_program(
     epochs_hidden: Union[int, Sequence[int]],
     epochs_readout: int,
     readout: str = "bcpnn",
+    readout_lr: float = 1e-3,
+    reset_readout: bool = True,
 ) -> TrainProgram:
     """Compile fit/partial_fit arguments into a :class:`TrainProgram`.
 
     ``epochs_hidden`` is one epoch count for every hidden layer or a
-    per-layer schedule.  Only the BCPNN readout is ported so far.
+    per-layer schedule.  ``readout="sgd"`` appends a
+    :class:`SgdReadoutPhase` even at ``epochs_readout=0`` (the head is
+    still initialized).
     """
-    if readout != "bcpnn":
-        raise ValueError(f"readout={readout!r} is not ported yet (want 'bcpnn')")
+    if readout not in READOUTS:
+        raise ValueError(f"Unknown readout {readout!r} (want one of {READOUTS})")
     if isinstance(epochs_hidden, (int, np.integer)):
         schedule = [int(epochs_hidden)] * n_hidden
     else:
@@ -79,22 +103,43 @@ def compile_program(
     if any(e < 0 for e in schedule) or epochs_readout < 0:
         raise ValueError("epoch counts must be non-negative")
     phases: List[Phase] = [HiddenPhase(li, e) for li, e in enumerate(schedule) if e > 0]
-    if epochs_readout > 0:
-        phases.append(BcpnnReadoutPhase(epochs_readout))
+    if readout == "bcpnn":
+        if epochs_readout > 0:
+            phases.append(BcpnnReadoutPhase(epochs_readout))
+    else:
+        phases.append(SgdReadoutPhase(epochs_readout, lr=readout_lr, reset=reset_readout))
     return TrainProgram(tuple(phases))
+
+
+class ProgramResult(NamedTuple):
+    """What the driver learned beyond the layer states it published."""
+
+    sgd_params: Optional[dict]
+    sgd_ran: bool
+    bcpnn_trained: bool
 
 
 def run_program(
     net, program: TrainProgram, x, y, n: int, n_total: int, batch_size: int,
     shuffle: bool, verbose: bool, history: List[dict],
-) -> None:
+) -> ProgramResult:
     """Execute ``program`` against a CompiledNetwork, publishing each layer's
-    state onto ``net.state`` as its phase completes."""
+    state onto ``net.state`` as its phase completes; the readout head's
+    bookkeeping is returned for the caller to finish."""
+    sgd_params, sgd_ran, bcpnn_trained = None, False, False
     for phase in program.phases:
         if isinstance(phase, HiddenPhase):
             _run_hidden_phase(net, phase, x, n, n_total, batch_size, shuffle, verbose, history)
+        elif isinstance(phase, BcpnnReadoutPhase):
+            bcpnn_trained |= _run_bcpnn_phase(
+                net, phase, x, y, n, n_total, batch_size, shuffle, verbose, history
+            )
         else:
-            _run_bcpnn_phase(net, phase, x, y, n, n_total, batch_size, shuffle, verbose, history)
+            sgd_params = _run_sgd_phase(
+                net, phase, x, y, n, n_total, batch_size, shuffle, verbose, history
+            )
+            sgd_ran = True
+    return ProgramResult(sgd_params, sgd_ran, bcpnn_trained)
 
 
 def _timed(history: List[dict], entry: dict, t0: float, device: torch.device) -> None:
@@ -145,9 +190,9 @@ def _run_hidden_phase(net, phase, x, n, n_total, batch_size, shuffle, verbose, h
     net.state = net.state._replace(layers=tuple(states))
 
 
-def _run_bcpnn_phase(net, phase, x, y, n, n_total, batch_size, shuffle, verbose, history) -> None:
+def _run_bcpnn_phase(net, phase, x, y, n, n_total, batch_size, shuffle, verbose, history) -> bool:
     if net.readout_layer is None:
-        return
+        return False
     li = len(net.layers) - 1
     states = list(net.state.layers)
     state = states[li]
@@ -167,12 +212,37 @@ def _run_bcpnn_phase(net, phase, x, y, n, n_total, batch_size, shuffle, verbose,
             print(f"[fit/{net.plan.name}] readout epoch {epoch + 1}/{phase.epochs}")
     states[li] = state
     net.state = net.state._replace(layers=tuple(states))
+    return True
+
+
+def _run_sgd_phase(net, phase, x, y, n, n_total, batch_size, shuffle, verbose, history) -> dict:
+    params, opt_state, run_epoch = net._sgd_setup(y, phase.lr, phase.reset)
+    states = list(net.state.layers)
+    n_hidden = len(net.hidden_layers)
+    hk = _phase_input(net, n_hidden, states, x, batch_size, history)
+    if hk is not None:
+        step = lambda p, s, idx: run_epoch(p, s, hk, y, idx, batch_size)  # noqa: E731
+    else:
+        hidden_states = states[:n_hidden]
+        step = lambda p, s, idx: run_epoch(p, s, hidden_states, x, y, idx, batch_size)  # noqa: E731
+    for epoch in range(phase.epochs):
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, net._epoch_indices(n, n_total, shuffle))
+        _timed(history, {"phase": "sgd_readout", "epoch": epoch}, t0, net.device)
+        if verbose:
+            print(f"[fit/{net.plan.name}] sgd readout epoch {epoch + 1}/{phase.epochs} "
+                  f"loss={float(loss):.4f}")
+    net._sgd_opt_state = opt_state
+    return params
 
 
 __all__ = [
     "HiddenPhase",
     "BcpnnReadoutPhase",
+    "SgdReadoutPhase",
     "TrainProgram",
+    "ProgramResult",
+    "READOUTS",
     "compile_program",
     "run_program",
 ]

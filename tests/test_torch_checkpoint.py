@@ -3,7 +3,8 @@ crossing between the port and the JAX package in both directions.
 
 Both packages write ``<dir>/step_<n>/{arrays.npz,manifest.json}`` with the
 same keys, shapes and logical dtypes; bf16 traces (the quantized state
-tier) are stored as their uint16 bits.  So every array read back must be
+tier) are stored as their uint16 bits, the SGD readout head as
+``readout/{w,b}``.  So every array read back must be
 bitwise equal to the one written, whichever package wrote it.
 """
 import json
@@ -25,6 +26,8 @@ from repro.core.compiled import ExecutionConfig as JExecutionConfig
 from repro.precision import PrecisionPolicy as JPrecisionPolicy
 from repro_torch.checkpoint import (
     flat_from_network_state,
+    load_network,
+    network_state_from_flat,
     latest_checkpoint,
     list_checkpoints,
     load_flat,
@@ -181,7 +184,7 @@ def test_mismatched_architecture_raises(data, tmp_path):
     manifest["extra"]["has_readout"] = True
     with open(manifest_path, "w") as f:
         json.dump(manifest, f)
-    with pytest.raises(ValueError, match="readout"):
+    with pytest.raises(KeyError, match="readout"):
         port.load(path)
 
 
@@ -202,3 +205,68 @@ def test_store_retention_and_raw_trees(tmp_path):
         restore_into_template(flat, {"other": torch.empty(1)})
     with pytest.raises(TypeError, match="cannot checkpoint"):
         save_checkpoint(d, 10, {"bad": "string"})
+
+
+SGD_FIT = dict(epochs_hidden=1, epochs_readout=2, batch_size=32, readout="sgd")
+
+
+def _flat_with_head(layer_states, readout):
+    flat = _jflat(layer_states)
+    flat.update({f"readout/{k}": np.asarray(v) for k, v in readout.items()})
+    return flat
+
+
+def test_sgd_head_round_trip_in_the_port(data, tmp_path):
+    x, y, xt = data
+    a = _torch_net().compile(ExecutionConfig(device="cpu"))
+    a.fit((x, y), **SGD_FIT)
+    path = a.save(str(tmp_path), step=1)
+    assert load_manifest(path)["extra"]["has_readout"] is True
+    b = _torch_net(seed=3).compile(ExecutionConfig(device="cpu")).load(path)
+    for k in ("w", "b"):
+        assert torch.equal(a.state.readout[k], b.state.readout[k])
+    assert torch.equal(a.predict(xt), b.predict(xt))
+    assert b._sgd_opt_state is None  # moments are not checkpointed
+    b.partial_fit((x, y), batch_size=32, readout="sgd")  # resumes the head, fresh moments
+    assert int(b._sgd_opt_state.step) == 4
+    with pytest.raises(ValueError, match="hidden features"):
+        load_network(path, list(b.state.layers), readout_in_features=5)
+
+
+def test_jax_sgd_checkpoint_loads_into_the_port(data, tmp_path):
+    x, y, xt = data
+    jc = _jax_net().compile(JExecutionConfig(engine="scan"))
+    jc.fit((x, y), **SGD_FIT)
+    path = jc.save(str(tmp_path), step=2)
+    port = _torch_net(seed=5).compile(ExecutionConfig(device="cpu")).load(path)
+    want = _flat_with_head(jc.state.layers, jc.state.readout)
+    _assert_flat_bitwise(port.state, want, torch.float32)
+    np.testing.assert_allclose(port.predict(xt).numpy(), np.asarray(jc.predict(xt)), **PREDICT_TOL)
+
+
+def test_port_sgd_checkpoint_loads_into_jax(data, tmp_path):
+    x, y, xt = data
+    port = _torch_net().compile(ExecutionConfig(device="cpu"))
+    port.fit((x, y), **SGD_FIT)
+    path = port.save(str(tmp_path), step=4)
+    jc = _jax_net(seed=9).compile(JExecutionConfig(engine="scan"))
+    jc.load(path)
+    _assert_flat_bitwise(port.state, _flat_with_head(jc.state.layers, jc.state.readout), torch.float32)
+    np.testing.assert_allclose(np.asarray(jc.predict(xt)), port.predict(xt).numpy(), **PREDICT_TOL)
+
+
+def test_network_state_from_flat_carries_the_head(data):
+    x, y, xt = data
+    jc = _jax_net().compile(JExecutionConfig(engine="scan"))
+    jc.fit((x, y), **SGD_FIT)
+    flat = _flat_with_head(jc.state.layers, jc.state.readout)
+    port = _torch_net().compile(ExecutionConfig(device="cpu"))
+    port.state = network_state_from_flat(flat, port.layers)
+    np.testing.assert_allclose(port.predict(xt).numpy(), np.asarray(jc.predict(xt)), **PREDICT_TOL)
+    assert sorted(flat_from_network_state(port.state)) == sorted(flat)
+    with pytest.raises(ValueError, match="hidden features"):
+        network_state_from_flat(
+            {**flat, "readout/w": np.zeros((5, 10), np.float32)}, port.layers
+        )
+    with pytest.raises(ValueError, match="adapters"):
+        network_state_from_flat({**flat, "adapters/t0/w": np.zeros(1, np.float32)}, port.layers)

@@ -2,8 +2,9 @@
 evaluate against the JAX package's ``ExecutionConfig(engine="scan",
 use_kernels=True)`` from the same (carried-across) init and seed, the
 fused-phase path (f32 and bf16 state) against the JAX package's
-``ExecutionConfig(fused_phase=True, ...)``, plus the port's own engine,
-cache and device contracts."""
+``ExecutionConfig(fused_phase=True, ...)``, the reduced datapath's
+precision cliff (paper Fig. 3), plus the port's own engine, cache and
+device contracts."""
 import jax
 import numpy as np
 import pytest
@@ -30,7 +31,7 @@ from repro_torch.core import (
     onehot_layout,
 )
 from repro_torch.data import complementary_code, mnist_like
-from repro_torch.precision import PrecisionPolicy
+from repro_torch.precision import PrecisionPolicy, quantize_marginals
 from repro_torch.runtime.activations import ActivationStore
 
 FIT_RTOL, FIT_ATOL = 1e-4, 1e-5
@@ -304,9 +305,86 @@ def test_unported_options_raise_by_name(data):
     with pytest.raises(TypeError, match="use_kernels"):
         StructuralPlasticityLayer(UnitLayout(2, 2), UnitLayout(2, 2), use_kernels=True)
     net = _torch_net().compile(ExecutionConfig(device="cpu"))
-    with pytest.raises(ValueError, match="sgd"):
-        net.fit((x, ds.y_train), readout="sgd", **FIT_KW)
+    with pytest.raises(ValueError, match="readout"):
+        net.fit((x, ds.y_train), readout="svm", **FIT_KW)
     for method in ("streaming", "serve"):
         assert not hasattr(net, method)
     with pytest.raises(ValueError, match="engine"):
         ExecutionConfig(engine="pipelined")
+
+
+class TestPrecisionCliff:
+    """Paper Fig. 3 on the port, ``tests/test_network_e2e.py``'s
+    ``TestPrecisionCliff`` configuration (64 features, 16x16 hidden, 4096
+    rows, 6 epochs) and assertions.  Each port fit starts from the JAX
+    package's initial states, carried across, as every whole-fit parity test
+    here does; the port's fits at fp32 and bf20 must land within 0.05 of the
+    JAX package's (rewiring is a discrete choice on rounded traces, so whole
+    fits agree at the accuracy level)."""
+
+    FORMATS = ("fp32", "bf20", "bf16", "bf14")
+
+    @pytest.fixture(scope="class")
+    def cliff(self):
+        ds = mnist_like(n_train=4096, n_test=512, n_features=64, seed=0)
+        x, layout = complementary_code(ds.x_train)
+        xt, _ = complementary_code(ds.x_test)
+        hidden_kw = dict(fan_in=32, lam=0.02, init_jitter=1.0, gain=4.0)
+        fit_kw = dict(epochs_hidden=6, epochs_readout=6, batch_size=128)
+        jnet = JNetwork(seed=0)
+        jnet.add(JPlastic(JUnitLayout(64, 2), JUnitLayout(16, 16), **hidden_kw))
+        jnet.add(JDense(JUnitLayout(16, 16), jonehot(10), lam=0.02))
+        jax_acc, init = {}, None
+        for name in ("fp32", "bf20"):
+            jc = jnet.compile(JExecutionConfig(precision=JPrecisionPolicy.named(name)))
+            init = _jflat(jc.state.layers)
+            jc.fit((x, ds.y_train), **fit_kw)
+            jax_acc[name] = jc.evaluate((xt, ds.y_test))
+
+        def port_fit(policy):
+            net = Network(seed=0)
+            net.add(StructuralPlasticityLayer(layout, UnitLayout(16, 16), **hidden_kw))
+            net.add(DenseLayer(UnitLayout(16, 16), onehot_layout(10), lam=0.02))
+            compiled = net.compile(ExecutionConfig(device="cpu", precision=policy))
+            state = network_state_from_flat(init, compiled.layers)
+            compiled.state = state._replace(layers=tuple(
+                s._replace(marginals=quantize_marginals(s.marginals, policy))
+                for s in state.layers
+            ))
+            compiled.fit((x, ds.y_train), **fit_kw)
+            return compiled, compiled.evaluate((xt, ds.y_test))
+
+        accs = {name: port_fit(PrecisionPolicy.named(name))[1] for name in self.FORMATS}
+        tier, accs["bf20+bf16"] = port_fit(PrecisionPolicy.named("bf20", state_format="bf16"))
+        return accs, jax_acc, tier
+
+    def test_bf20_matches_fp32(self, cliff):
+        accs = cliff[0]
+        assert abs(accs["bf20"] - accs["fp32"]) < 0.05, accs
+
+    def test_bf16_minor_degradation(self, cliff):
+        accs = cliff[0]
+        assert accs["bf16"] > accs["fp32"] - 0.15, accs
+
+    def test_bf14_collapses(self, cliff):
+        accs = cliff[0]
+        assert accs["bf14"] < accs["fp32"] - 0.15, accs
+        assert accs["bf14"] < accs["bf16"] - 0.10, accs
+
+    def test_ordering(self, cliff):
+        accs = cliff[0]
+        assert accs["bf14"] <= accs["bf16"] + 0.05 <= accs["bf20"] + 0.10
+
+    @pytest.mark.parametrize("name", ["fp32", "bf20"])
+    def test_matches_jax(self, cliff, name):
+        accs, jax_acc, _ = cliff
+        assert abs(accs[name] - jax_acc[name]) <= 0.05, (accs, jax_acc)
+
+    def test_datapath_with_state_tier(self, cliff):
+        """bf20 arithmetic with bf16 traces: the traces stay bf16 through
+        the fit, and the accuracy stays with bf20's."""
+        accs, _, tier = cliff
+        for s in tier.state.layers:
+            assert {t.dtype for t in s.marginals} == {torch.bfloat16}
+            assert s.w.dtype == s.b.dtype == torch.float32
+        assert abs(accs["bf20+bf16"] - accs["bf20"]) < 0.05, accs

@@ -6,7 +6,7 @@ mode, over random values of every magnitude and the special values:
 signed zeros, subnormals, infinities, NaN, values whose rounding carries
 into the next binade, and the largest finite f32 (which rounds to inf).
 The policy helpers are held against ``repro.precision`` on the same
-inputs; the reduced *datapath* is not ported and must say so.
+inputs; the reduced datapath's parity is in ``test_torch_datapath.py``.
 """
 import jax.numpy as jnp
 import ml_dtypes
@@ -19,7 +19,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.precision import formats as jformats
 from repro.precision import policy as jpolicy
-from repro_torch.core import ExecutionConfig, StructuralPlasticityLayer, UnitLayout
+from repro_torch.core import DenseLayer, ExecutionConfig, StructuralPlasticityLayer, UnitLayout
 from repro_torch.core.learning import MarginalState
 from repro_torch.kernels import ops
 from repro_torch.precision import formats, policy
@@ -138,14 +138,19 @@ def test_use_kernel_is_gone():
         formats.round_to(torch.ones(2), formats.get_format("bf16"), use_kernel=False)
 
 
-def test_reduced_datapath_is_not_ported():
-    with pytest.raises(NotImplementedError, match="datapath is not ported"):
-        ExecutionConfig(device="cpu", precision="bf20")
-    with pytest.raises(NotImplementedError, match="datapath"):
-        StructuralPlasticityLayer(
-            UnitLayout(2, 2), UnitLayout(2, 2), precision=PrecisionPolicy.named("bf16")
-        )
+@pytest.mark.parametrize("name", ["bf14", "bf15", "bf16", "bf20", "bf24", "bf28"])
+def test_reduced_datapath_configs_are_accepted(name):
+    """Every datapath format is accepted by name or by policy, with and
+    without a state tier, and bound into every layer, the readout too."""
+    assert ExecutionConfig(device="cpu", precision=name).precision.fmt.name == name
+    cfg = ExecutionConfig(device="cpu", precision=PrecisionPolicy.named(name, state_format="bf16"))
+    assert cfg.precision.fmt.name == name and cfg.precision.has_state_tier
+    hidden = StructuralPlasticityLayer(
+        UnitLayout(2, 2), UnitLayout(2, 2), precision=PrecisionPolicy.named(name)
+    )
+    assert hidden.spec.precision.fmt.name == name
+    readout = DenseLayer(UnitLayout(2, 2), UnitLayout(1, 3))
+    assert cfg.bind_layer(readout).spec.precision is cfg.precision
+    assert readout.spec.precision is None  # the declarative layer is untouched
     # The pure state tier is accepted, from a policy or a format name.
     assert ExecutionConfig(device="cpu", precision="fp32").precision.fmt.name == "fp32"
-    cfg = ExecutionConfig(device="cpu", precision=PrecisionPolicy.named("fp32", state_format="bf16"))
-    assert cfg.precision.has_state_tier
