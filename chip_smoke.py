@@ -17,10 +17,15 @@ the run with a non-zero exit:
    kernel, the plain version and, where one exists, a single PyTorch
    library call computing the same function (the forward pair at each of
    its main-path shapes: a training batch or projection chunk of B rows,
-   and predict's chunk of P rows through the hidden layer and the head;
-   ``bcpnn_update`` at the hidden and the readout shape, each labelled with
-   its launch plan); then print where ``bcpnn_phase``'s time goes, phase
-   by phase (``tools/bcpnn_phase_profile.py``);
+   predict's chunk of P rows through the hidden layer and the head, and
+   every row count phase 5 gives a kernel (``serving_rows``: the batched
+   plan's padded chunks, single rows, the streaming flushes of 16 rows and
+   the 10-row tail); ``bcpnn_update`` at the hidden and the readout shape,
+   each labelled with its launch plan, and at the streaming flushes;
+   ``bcpnn_phase`` also at the flushes with bf16 state; ``bf_round`` also
+   at the served chunks through both layers); then print where
+   ``bcpnn_phase``'s time goes, phase by phase
+   (``tools/bcpnn_phase_profile.py``);
 4. drive the main paths, the paper's Listing 1 at MNIST width (784
    complementary-coded features -> 30x100 hidden -> 10 classes), through
    ``Network`` -> ``compile`` -> ``fit`` -> ``evaluate``: the unfused f32
@@ -45,7 +50,24 @@ the run with a non-zero exit:
    the same state, stage by stage, each stage within one format ulp of the
    CPU's and at most 1% of its elements that far; and the staging of one
    hidden epoch's input is timed alone, the host time every path shares;
-5. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
+5. serve the networks phase 4 trained on the card, at full width: the
+   batched plan (``compiled.serve(ServiceConfig(plan="batched",
+   buckets=(4, 16, 64)))``) on all four, each request size of ``SERVE_NS``
+   held against ``compiled.predict`` (the GEMM tolerance of phase 3, argmax
+   equal on every row not near a tie), a repeated 32-row batch leaving the
+   store's projections unchanged; the async batched service on the unfused
+   network, four client threads submitting the 2,048 test rows, every
+   future resolved, the served accuracy equal to ``evaluate``'s; the
+   streaming plan on the unfused and the fused bf16-state networks, 378
+   training rows in flushes of 16 (the last 10 on close) across a rewiring
+   step, then 64 single-row inferences through the async engine, the state
+   adopted and held against a CPU twin fed the same rows (masks equal but
+   for one hidden HCU on the bf16-state network, the unfused traces within
+   1e-3 relative and w and b within 3e-3, accuracy >= 0.5 and within
+   0.03).  Every serving
+   run counts its launches from zero and checks them exactly once its
+   engine has stopped;
+6. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
    ...}`` line.
 
 Without a CUDA device, or away from the rest of the repository, it exits
@@ -78,6 +100,34 @@ DATAPATH_MANTISSA = 11  # bf20, the gated datapath of phase 4
 # m_j, m_ij, c_i, c_j, c_ij, w and the bias.
 Q_FORWARD, Q_GAIN, Q_CYCLE = 5, 1, 10
 REPS = 20
+# The serving phase (phase 5): request sizes of the batched plan, through
+# padding buckets of 4/16/64 rows; the async clients; the streaming plan's
+# micro-batch and feed.  Phase 3 checks each kernel at every row count these
+# give it (``serving_rows``); the async engine's micro-batches, whose sizes
+# depend on timing, are checked after its run.  The feed starts at the
+# trained step 128: 23 full flushes reach step 150, a rewiring step (every
+# 30 batches), and 10 rows are left for the flush on close.
+SERVE_NS = (1, 2, 3, 4, 5, 15, 16, 17, 33, 64, 100, 128)
+SERVE_BUCKETS = (4, 16, 64)
+ASYNC_CLIENTS = 4
+STREAM_BATCH, STREAM_ROWS, STREAM_INFERS = 16, 23 * 16 + 10, 64
+GEMM_TOL = (1e-4, 1e-5)  # phase 3's tolerance of the forward pair
+SOFTMAX_TOL = (1e-5, 1e-6)  # ... and of hcu_softmax
+# The unfused streamed state against its CPU twin.  Each flush's a_j may be
+# 1e-3 apart, relative, on the two devices (phase 3's rule for a_j after
+# the gain, ``bcpnn_phase`` against the three kernels); an EWMA of
+# non-negative terms each that close stays that close, so the traces are
+# held to 1e-3 relative (above the logs' floor EPS), and w and b, sums of
+# up to three logs of them, to 3e-3.  Read on an H100 at 700 W: w 1.6e-5
+# apart after 16 flushes, 1.0e-4 after 24 across a rewiring step.
+STREAM_EPS = 1e-8  # core/learning.py EPS
+STREAM_TRACE_RTOL, STREAM_W_TOL = 1e-3, 3e-3
+# The rewiring is a discrete argmax over mutual-information scores.  With
+# f32 state the card's masks must equal the twin's; with bf16 state a
+# trace one bf16 ulp apart can flip the choice between two near-tied input
+# HCUs, so one hidden HCU of the fused network may rewire otherwise (read
+# on an H100 at 700 W: 2 entries of one hidden HCU's column).
+STREAM_MASK_COLUMNS = dict(unfused_f32=0, fused_bf16=1)
 
 
 class SmokeFailure(RuntimeError):
@@ -231,6 +281,14 @@ def kernel_checks(torch, ops, ref, dev):
         device=dev,
     )
     a_r = codes(B, 1, N_CLASSES)  # the readout's a_j at a training batch
+    # The serving path's rows (phase 5): bucket-padded chunks, single rows
+    # and streaming flushes, each a view at an odd row offset of a larger
+    # block.
+    rows = serving_rows()
+    most = max(rows["hidden"])
+    x_s = uniform(most + 1, F)[1:]
+    h_s = codes(most, n_hcu, n_mcu)
+    s_sh, s_sr = 4 * normal(most, H), 4 * normal(most, N_CLASSES)
 
     def mm_case(a, w, b, m):
         (rows, k), n = a.shape, w.shape[1]
@@ -260,8 +318,8 @@ def kernel_checks(torch, ops, ref, dev):
         p = bk.plan(ai.shape[0], ai.shape[1], aj.shape[1], mk.n_sm(dev))
         return f" [plan {p.config} CL={p.cl} {p.ctas} CTAs]"
 
-    def phase(fn, state, **kw):
-        return lambda: fn(x, w_hm, b_h, *state, lam, n_hcu, n_mcu, k_b=k_b, gain=gain,
+    def phase(fn, state, xb=x, **kw):
+        return lambda: fn(xb, w_hm, b_h, *state, lam, n_hcu, n_mcu, k_b=k_b, gain=gain,
                           mask=mask, **kw)
 
     def composition():  # the unfused path: three kernels and the gain multiply
@@ -286,9 +344,30 @@ def kernel_checks(torch, ops, ref, dev):
     # traces, so one ulp moves them by at most ~2^-7 each.
     trace_tol = (2.0**-7, 0.0)
     log_tol = (0.0, 0.0, 2.0**-5)
-    phase_bytes = f32 * (B * F + B * H + 5 * F * H + 2 * F + 4 * H)
-    phase_bytes_bf16 = f32 * (B * F + B * H + 3 * F * H + 2 * H) + 2 * (2 * F * H + 2 * F + 2 * H)
-    phase_flops = 4 * B * F * H + 8 * F * H + 5 * B * H
+    def phase_bytes(rows=B):
+        return f32 * (rows * F + rows * H + 5 * F * H + 2 * F + 4 * H)
+
+    def phase_bytes_bf16(rows=B):
+        return f32 * (rows * F + rows * H + 3 * F * H + 2 * H) + 2 * (2 * F * H + 2 * F + 2 * H)
+
+    def phase_flops(rows=B):
+        return 4 * rows * F * H + 8 * F * H + 5 * rows * H
+
+    def update_case(rows, tail=""):  # the hidden update of `rows` rows, f32
+        return (f"ai({rows},{F}) aj({rows},{H}) cij({F},{H}) masked{tail}" + up_plan(x[:rows], h),
+                update(bk.bcpnn_update, x[:rows], h[:rows], ci_h, cj_h, cij_h, mask),
+                update(ref.bcpnn_update, x[:rows], h[:rows], ci_h, cj_h, cij_h, mask),
+                None,
+                4 * (rows * F + rows * H + 2 * F + 3 * H + 4 * F * H),
+                2 * rows * F * H + 7 * F * H)
+
+    def phase_bf16_case(rows, tail=""):
+        return (f"x({rows},{F}) {n_hcu}x{n_mcu}, bf16 state, mantissa 7{tail}",
+                phase(pk.bcpnn_phase, bf, xb=x[:rows], state_mantissa=7,
+                      state_dtype=torch.bfloat16),
+                phase(ref.bcpnn_phase, bf, xb=x[:rows], state_mantissa=7),
+                None, phase_bytes_bf16(rows), phase_flops(rows),
+                [(1e-4, 1e-5)] + [trace_tol] * 3 + [log_tol] * 2, "bf16")
     from repro_torch.kernels import bcpnn_phase as pk
     from repro_torch.kernels import bcpnn_update as bk
     from repro_torch.kernels import bf_round as bfk
@@ -303,15 +382,19 @@ def kernel_checks(torch, ops, ref, dev):
             replaces="src/repro/kernels/masked_matmul.py:47 (masked_matmul; pallas_call :80)",
             tol=(1e-4, 1e-5),
             cases=[mm_case(*c) for c in (
-                (x, w_h, b_h, mask), (x_p, w_h, b_h, mask), (h_p, w_r, b_r, None))],
+                (x, w_h, b_h, mask), (x_p, w_h, b_h, mask), (h_p, w_r, b_r, None),
+                *((x_s[:m], w_h, b_h, mask) for m in rows["hidden"]),
+                *((h_s[:m], w_r, b_r, None) for m in rows["head"]))],
         ),
         dict(
             name="hcu_softmax",
             source="src/repro_torch/kernels/csrc/hcu_softmax.cu",
             replaces="src/repro/kernels/hcu_softmax.py:34 (hcu_softmax; pallas_call :62)",
-            tol=(1e-5, 1e-6),
+            tol=SOFTMAX_TOL,
             cases=[sm_case(*c) for c in (
-                (s_h, n_hcu, n_mcu), (s_p, n_hcu, n_mcu), (s_r, 1, N_CLASSES))],
+                (s_h, n_hcu, n_mcu), (s_p, n_hcu, n_mcu), (s_r, 1, N_CLASSES),
+                *((s_sh[:m], n_hcu, n_mcu) for m in rows["hidden"]),
+                *((s_sr[:m], 1, N_CLASSES) for m in rows["head"]))],
         ),
         dict(
             name="bcpnn_update",
@@ -319,12 +402,7 @@ def kernel_checks(torch, ops, ref, dev):
             replaces="src/repro/kernels/bcpnn_update.py:138 (bcpnn_update_fused; pallas_call :192)",
             tol=(1e-4, 1e-5),
             cases=[
-                (f"ai({B},{F}) aj({B},{H}) cij({F},{H}) masked" + up_plan(x, h),
-                 update(bk.bcpnn_update, x, h, ci_h, cj_h, cij_h, mask),
-                 update(ref.bcpnn_update, x, h, ci_h, cj_h, cij_h, mask),
-                 None,
-                 4 * (B * F + B * H + 2 * F + 3 * H + 4 * F * H),
-                 2 * B * F * H + 7 * F * H),
+                update_case(B),
                 (f"ai({B},{H}) aj({B},{N_CLASSES}) cij({H},{N_CLASSES})" + up_plan(h, onehot),
                  update(bk.bcpnn_update, h, onehot, ci_r, cj_r, cij_r, None),
                  update(ref.bcpnn_update, h, onehot, ci_r, cj_r, cij_r, None),
@@ -350,6 +428,8 @@ def kernel_checks(torch, ops, ref, dev):
                  + 2 * (2 * H * N_CLASSES + 2 * H + 2 * N_CLASSES),
                  2 * B * H * N_CLASSES + 6 * H * N_CLASSES,
                  [trace_tol] * 3 + [log_tol] * 2, "bf16"),
+                # streaming flushes of the unfused path (phase 5)
+                *(update_case(m, ", streaming flush") for m in rows["update"]),
             ],
         ),
         dict(
@@ -362,19 +442,17 @@ def kernel_checks(torch, ops, ref, dev):
                  f"CL={pp.cl} FS={pp.fslice} {pp.ctas} CTAs]",
                  phase(pk.bcpnn_phase, (ci_h, cj_h, cij_h)),
                  phase(ref.bcpnn_phase, (ci_h, cj_h, cij_h)),
-                 None, phase_bytes, phase_flops),
-                (f"x({B},{F}) {n_hcu}x{n_mcu}, bf16 state, mantissa 7",
-                 phase(pk.bcpnn_phase, bf, state_mantissa=7, state_dtype=torch.bfloat16),
-                 phase(ref.bcpnn_phase, bf, state_mantissa=7),
-                 None, phase_bytes_bf16, phase_flops,
-                 [(1e-4, 1e-5)] + [trace_tol] * 3 + [log_tol] * 2, "bf16"),
+                 None, phase_bytes(), phase_flops()),
+                phase_bf16_case(B),
                 # a_j = softmax(gain * s): the two paths sum s (|s| ~ 100,
                 # 1568 terms) in other orders, ~1e-4 apart, and the gain
                 # carries that into a_j as a relative error of ~4e-4.
                 (f"x({B},{F}) {n_hcu}x{n_mcu} against the three-kernel composition",
                  phase(pk.bcpnn_phase, (ci_h, cj_h, cij_h)), composition,
-                 None, phase_bytes, phase_flops, [(1e-3, 1e-5)] + [(1e-4, 1e-5)] * 5,
+                 None, phase_bytes(), phase_flops(), [(1e-3, 1e-5)] + [(1e-4, 1e-5)] * 5,
                  "three_kernels"),
+                # streaming flushes of the fused path (phase 5)
+                *(phase_bf16_case(m, ", streaming flush") for m in rows["flush"]),
             ],
         ),
         dict(
@@ -397,7 +475,13 @@ def kernel_checks(torch, ops, ref, dev):
                     ("a_i", x), ("s, a_j", s_h), ("m_i, c_i", ci_h), ("b, m_j, c_j, bias", cj_h),
                     ("readout w, m_ij, c_ij", w_r), ("readout b, m_j, c_j, bias", b_r),
                     ("readout a_j", a_r), ("predict a_i", x_p),
-                    ("predict s, a_j; head a_i", s_p), ("predict head s, a_j", s_r))),
+                    ("predict s, a_j; head a_i", s_p), ("predict head s, a_j", s_r),
+                    ("served a_i", x_s[:1]))),
+                # ... and at every chunk the batched plan serves the
+                # datapath network at.
+                *(datapath_round(*c) for m in rows["datapath"] for c in (
+                    ("served a_i", x_s[:m]), ("served s, a_j; head a_i", s_sh[:m]),
+                    ("served head s, a_j", s_sr[:m]))),
             ],
         ),
     ]
@@ -717,7 +801,343 @@ def main_path(torch, ops, core, data, policy, devices=("cuda", "cpu")):
           f"{batches * B * x.shape[1] * 4 / 1e6:.1f} MB, part of each hidden epoch's host_s): "
           f"{stage_s:.4f} s")
     cliffs = dict(mnist_width=cliff, e2e=cliff_e2e)
-    return launches, runs, stage_s, cliffs, per_batch, stages
+    trained = dict(net=net, split=split, nets=card_nets, configs={p: c for p, (c, _) in paths.items()})
+    return launches, runs, stage_s, cliffs, per_batch, stages, trained
+
+
+def serving_rows():
+    """The row counts phase 5 gives each kernel, by use: the batched plan's
+    padded chunks (through the hidden layer and the head, and on the
+    datapath network through ``bf_round``), single-row inference and the
+    streaming flushes, full and the tail on close (through the hidden
+    layer; ``bcpnn_update`` on the unfused network, ``bcpnn_phase`` on the
+    fused one).  One row is also taken through the head and the update: the
+    smallest micro-batch the async engine forms and the smallest flush."""
+    chunks = {padded for _, _, padded in served_chunks(SERVE_NS + (32, 32), SERVE_BUCKETS)}
+    tail = STREAM_ROWS % STREAM_BATCH
+    flushes = {STREAM_BATCH} | ({tail} if tail else set())
+    return dict(hidden=sorted(chunks | flushes | {1}), head=sorted(chunks | {1}),
+                datapath=sorted(chunks), update=sorted(flushes | {1}), flush=sorted(flushes))
+
+
+def served_chunks(ns, buckets):
+    """Each chunk the batched plan serves for requests of ``ns`` rows (the
+    first rows of one array), as (start, stop, padded rows).  Chunks with
+    equal keys hold equal bytes: the first projects through the hidden
+    layer, a repeat hits the canonical anchor's cached projection."""
+    cap, chunks = buckets[-1], []
+    for n in ns:
+        for i in range(0, n, cap):
+            rows = min(cap, n - i)
+            chunks.append((i, i + rows, next(b for b in buckets if b >= rows)))
+    return chunks
+
+
+def forward_launches(path, projections, heads):
+    """Launches of ``projections`` hidden forwards and ``heads`` readout-head
+    calls on ``path``: one forward pair each (the SGD head is one plain
+    product), and on the datapath one bf_round per rounded stage."""
+    head_pairs = heads if path != "sgd_readout" else 0
+    pairs = projections + head_pairs
+    rounds = 0
+    if path == "datapath_bf20":
+        rounds = projections * (Q_FORWARD + Q_GAIN) + head_pairs * Q_FORWARD
+    return dict(masked_matmul=pairs, hcu_softmax=pairs, bcpnn_update=0, bcpnn_phase=0,
+                bf_round=rounds)
+
+
+def scores_agree(torch, label, got, want, tol=GEMM_TOL):
+    """Served scores against ``compiled.predict``'s: every element within
+    ``compare``'s tolerance, and the same argmax on every row whose top-two
+    margin is above twice that tolerance.  Returns the rows left out."""
+    compare(torch, [got.float()], [want.float()], tol)
+    rtol, atol_rel = tol
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * (rtol * top2[:, 0].abs() + atol_rel * float(want.abs().max()))
+    check(torch.equal(got.argmax(-1)[clear], want.argmax(-1)[clear]),
+          f"{label}: served argmax differs from predict's")
+    return int((~clear).sum())
+
+
+def percentiles(snap, *names):
+    return {n: {q: snap[n][q] for q in ("p50", "p99")} for n in names}
+
+
+def serve_batched(torch, ops, ServiceConfig, path, compiled, x, card):
+    """The batched plan over one trained card network: every request size
+    of SERVE_NS through padding buckets, then a repeated 32-row batch; launch
+    counts exact from the served chunks; scores against ``predict``."""
+    import numpy as np
+
+    store = compiled.activations
+    ops.reset_launches()
+    svc = compiled.serve(ServiceConfig(plan="batched", buckets=SERVE_BUCKETS))
+    t0 = time.perf_counter()
+    served = [svc.predict(x[:n]) for n in SERVE_NS]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    p0 = store.stats["projections"]
+    first = svc.predict(x[:32])
+    p1, hits1 = store.stats["projections"], svc.plan.stats["projection_reuse_hits"]
+    again = svc.predict(np.array(x[:32]))  # a fresh array, the same bytes
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    stats = svc.plan.stats
+    check(p1 == p0 + 1 and store.stats["projections"] == p1,
+          f"serve {path}: the repeated batch projected again ({p0}, {p1}, {store.stats})")
+    check(stats["projection_reuse_hits"] == hits1 + 1, f"serve {path}: no projection reuse hit")
+    check(torch.equal(first, again), f"serve {path}: the repeated batch scored differently")
+    chunks = served_chunks(SERVE_NS + (32, 32), SERVE_BUCKETS)
+    want = forward_launches(path, len(set(chunks)), len(chunks))
+    check(counts == want, f"serve {path}: launches {counts}, want {want}")
+    check(stats["padded_rows"] > 0, f"serve {path}: no padded rows")
+    check(stats["projection_reuse_hits"] == len(chunks) - len(set(chunks)),
+          f"serve {path}: {stats['projection_reuse_hits']} reuse hits, want "
+          f"{len(chunks) - len(set(chunks))}")
+    unclear = 0
+    for n, got in zip(SERVE_NS, served):
+        check(tuple(got.shape) == (n, N_CLASSES) and got.device == compiled.device,
+              f"serve {path}: scores of {n} rows {tuple(got.shape)} on {got.device}")
+        unclear += scores_agree(torch, f"serve {path} n={n}", got, compiled.predict(x[:n]))
+    rows = sum(SERVE_NS)
+    print(f"serve batched {path} [{card}]: {len(SERVE_NS)} requests, {rows} rows in "
+          f"{serve_s:.4f} s ({rows / serve_s:.1f} rows/s), chunks {len(chunks)} "
+          f"(projected {len(set(chunks))}), padded_rows={stats['padded_rows']}, "
+          f"reuse hits={stats['projection_reuse_hits']}, rows near a tie={unclear}, "
+          f"launches {json.dumps(counts)}")
+    return counts, dict(rows_per_s=rows / serve_s, serve_s=serve_s, chunks=len(chunks),
+                        projections=len(set(chunks)), near_ties=unclear, **stats)
+
+
+def forward_pair_at(torch, ops, ref, compiled, x, sizes):
+    """The forward pair at ``sizes`` rows through both layers of the served
+    network, on its own weights and the first rows of ``x``, held against
+    the plain version at phase 3's tolerances; returns each kernel's worst
+    absolute error."""
+    worst = dict(masked_matmul=0.0, hcu_softmax=0.0)
+    for k in sizes:
+        a = torch.as_tensor(x[:k], device=compiled.device)
+        for layer, st in zip(compiled.layers, compiled.state.layers):
+            spec = layer.spec
+            mask = None if st.plast is None else st.plast.unit_mask(spec.pre, spec.post)
+            s = ref.masked_matmul(a, st.w, st.b, mask=mask)
+            err, _ = compare(torch, [ops.masked_matmul(a, st.w, st.b, mask=mask)], [s], GEMM_TOL)
+            worst["masked_matmul"] = max(worst["masked_matmul"], err)
+            s = s * spec.gain
+            a = ref.hcu_softmax(s, spec.post.n_hcu, spec.post.n_mcu)
+            err, _ = compare(torch, [ops.hcu_softmax(s, spec.post.n_hcu, spec.post.n_mcu)], [a],
+                             SOFTMAX_TOL)
+            worst["hcu_softmax"] = max(worst["hcu_softmax"], err)
+    return worst
+
+
+def serve_async(torch, ops, ref, ServiceConfig, compiled, xt, yt, card):
+    """The async batched service over the unfused card network: ASYNC_CLIENTS
+    threads submit the test rows; every future must resolve to a value.
+    The engine's micro-batches form at sizes that depend on timing: each
+    size phase 3 did not take is checked against the plain version after
+    the run."""
+    import threading
+
+    import numpy as np
+
+    ops.reset_launches()
+    svc = compiled.serve(ServiceConfig(plan="batched", max_batch=64, max_wait_s=0.002,
+                                       max_queue=4096, async_mode=True))
+    sizes, plan_predict = [], svc.plan.predict
+
+    def recorded(xb):  # the engine's micro-batches, by size
+        sizes.append(len(xb))
+        return plan_predict(xb)
+
+    svc.plan.predict = recorded
+    n = len(xt)
+    per = n // ASYNC_CLIENTS
+    results, errors = [None] * n, []
+
+    def client(t):
+        try:
+            futs = [(i, svc.submit(xt[i])) for i in range(t * per, (t + 1) * per)]
+            for i, f in futs:
+                results[i] = f.result(timeout=60)
+        except BaseException as e:  # reported below: the run fails on it
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(ASYNC_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    wall = time.perf_counter() - t0
+    svc.drain_and_stop()
+    counts = ops.launch_counts()
+    check(not any(t.is_alive() for t in threads), "serve async: a client thread hangs")
+    check(not errors, f"serve async: a future failed: {errors[:1]!r}")
+    check(all(r is not None for r in results[: per * ASYNC_CLIENTS]), "serve async: a row unserved")
+    scores = np.stack(results[: per * ASYNC_CLIENTS])
+    check(bool(np.isfinite(scores).all()), "serve async: non-finite scores")
+    served_acc = float(np.mean(scores.argmax(-1) == np.asarray(yt[: len(scores)])))
+    eval_acc = compiled.evaluate((xt, yt))
+    check(served_acc == eval_acc, f"serve async: accuracy {served_acc} != evaluate's {eval_acc}")
+    batches, tele = svc.engine.batches, svc.stats["telemetry"]
+    hits = svc.plan.stats["projection_reuse_hits"]
+    check(batches >= 32, f"serve async: {batches} micro-batches, want >= 32")
+    check(tele["completed"] == len(scores), f"serve async: completed {tele['completed']}")
+    want = forward_launches("unfused_f32", batches - hits, batches)
+    check(counts == want, f"serve async: launches {counts}, want {want}")
+    check(len(sizes) == batches, f"serve async: {len(sizes)} micro-batches seen, {batches} counted")
+    rows = serving_rows()
+    unseen = sorted(set(sizes) - (set(rows["hidden"]) & set(rows["head"])))
+    worst = forward_pair_at(torch, ops, ref, compiled, xt, unseen)
+    lat = percentiles(tele, "queue_wait_s", "batch_s", "e2e_s")
+    print(f"serve async batched unfused_f32 [{card}]: {len(scores)} rows from {ASYNC_CLIENTS} "
+          f"clients in {wall:.4f} s ({len(scores) / wall:.1f} rows/s), {batches} micro-batches "
+          f"of {json.dumps(sorted(set(sizes)))} rows (checked against the plain version after "
+          f"the run: {json.dumps(unseen)}, max_abs_err {json.dumps(worst)}), "
+          f"accuracy={served_acc:.4f} (evaluate {eval_acc:.4f}), latency s {json.dumps(lat)}, "
+          f"launches {json.dumps(counts)}")
+    return counts, dict(rows=len(scores), wall_s=wall, rows_per_s=len(scores) / wall,
+                        batches=batches, batch_rows=sorted(set(sizes)), checked_after=unseen,
+                        checked_after_max_abs_err=worst, accuracy=served_acc, evaluate=eval_acc,
+                        latency_s=lat)
+
+
+def serve_streaming(torch, ops, core, ServiceConfig, trained, path, card):
+    """The streaming plan over one trained card network: STREAM_ROWS training
+    rows in flushes of STREAM_BATCH (the tail on close), across a rewiring
+    step, then STREAM_INFERS single-row inferences through the async engine;
+    a CPU twin from the same pre-stream state takes the same feed, and the
+    masks must come out equal (on the fused network, but for
+    STREAM_MASK_COLUMNS hidden HCUs; on the unfused network the traces
+    within STREAM_TRACE_RTOL, w and b within STREAM_W_TOL)."""
+    import numpy as np
+
+    compiled = trained["nets"][path]
+    x, _, xt, yt = trained["split"]
+    dev = compiled.device
+    pre = compiled.state
+    twin = trained["net"].compile(core.ExecutionConfig(engine="scan", device="cpu",
+                                                       **trained["configs"][path]))
+    twin.state = pre._replace(layers=tuple(s.to("cpu") for s in pre.layers))
+    rows = x[:STREAM_ROWS]
+    full, tail = divmod(STREAM_ROWS, STREAM_BATCH)
+    flushes = full + (tail > 0)
+    step0 = pre.layers[0].host_step
+    every = compiled.layers[0].mask_update_every
+    rewires = [step for step in range(step0, step0 + flushes) if step % every == 0]
+    check(bool(rewires), f"stream {path}: steps {step0}..{step0 + flushes - 1} cross no "
+                         f"rewiring step (every {every})")
+    mask0 = twin.state.layers[0].plast.hcu_mask.clone()
+
+    ops.reset_launches()
+    svc = compiled.serve(ServiceConfig(plan="streaming", max_batch=STREAM_BATCH, cache_size=4))
+    t0 = time.perf_counter()
+    for r in rows:
+        svc.feed(r)
+    fed = svc.stats["flushes"]
+    svc.close()
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    train_counts = ops.launch_counts()
+    st = compiled.state.layers[0]
+    check(fed == full and svc.stats["flushes"] == flushes,
+          f"stream {path}: {fed} then {svc.stats['flushes']} flushes, want {full} then {flushes}")
+    check(st is svc.plan.session.state, f"stream {path}: the session's state was not adopted")
+    check(st.host_step == step0 + flushes and int(st.step) == step0 + flushes,
+          f"stream {path}: step {int(st.step)}/{st.host_step}, want {step0 + flushes}")
+    fused = path == "fused_bf16"
+    want = dict(masked_matmul=0 if fused else flushes, hcu_softmax=0 if fused else flushes,
+                bcpnn_update=0 if fused else flushes, bcpnn_phase=flushes if fused else 0,
+                bf_round=0)
+    check(train_counts == want, f"stream {path}: launches {train_counts}, want {want}")
+
+    ops.reset_launches()
+    isvc = compiled.serve(ServiceConfig(plan="streaming", max_batch=STREAM_BATCH, cache_size=4,
+                                        async_mode=True))
+    t0 = time.perf_counter()
+    futs = [isvc.submit(r) for r in xt[:STREAM_INFERS]]
+    outs = [f.result(timeout=60) for f in futs]
+    infer_s = time.perf_counter() - t0
+    isvc.close()
+    torch.cuda.synchronize()
+    infer_counts = ops.launch_counts()
+    tele = isvc.stats["telemetry"]
+    want = dict(masked_matmul=STREAM_INFERS, hcu_softmax=STREAM_INFERS, bcpnn_update=0,
+                bcpnn_phase=0, bf_round=0)
+    check(infer_counts == want, f"stream {path} infer: launches {infer_counts}, want {want}")
+    layer = compiled.layers[0]
+    batch = layer.forward(compiled.state.layers[0], torch.as_tensor(xt[:STREAM_INFERS], device=dev))
+    got = torch.from_numpy(np.stack(outs))
+    compare(torch, [got], [batch.cpu()], GEMM_TOL)
+    sums = got.view(STREAM_INFERS, *HIDDEN).sum(-1)
+    check(bool(((sums - 1).abs() <= 1e-4).all()), f"stream {path}: an HCU does not sum to 1")
+
+    tsvc = twin.serve(ServiceConfig(plan="streaming", max_batch=STREAM_BATCH, cache_size=4))
+    for r in rows:
+        tsvc.feed(r)
+    tsvc.close()
+    tw = twin.state.layers[0]
+    mask_ne = st.plast.hcu_mask.cpu() != tw.plast.hcu_mask
+    mask_diff, mask_cols = int(mask_ne.sum()), int(mask_ne.any(0).sum())
+    rewired = int((tw.plast.hcu_mask != mask0).sum())
+    w_err = (st.w.cpu() - tw.w).abs()
+    w_diff, b_diff = float(w_err.max()), float((st.b.cpu() - tw.b).abs().max())
+    w_far = float((w_err > 2.0**-5).float().mean())  # one bf16 ulp of a log, as in phase 3
+    trace_rel = max(  # the traces' largest relative difference, above the logs' floor
+        float(((g.cpu().float() - t.float()).abs() / t.float().abs().clamp_min(STREAM_EPS)).max())
+        for g, t in zip(st.marginals, tw.marginals))
+    card_acc, twin_acc = compiled.evaluate((xt, yt)), twin.evaluate((xt, yt))
+    lat = percentiles(tele, "queue_wait_s", "batch_s", "e2e_s")
+    print(f"serve streaming {path} [{card}]: fed {STREAM_ROWS} rows in {flushes} flushes, "
+          f"{feed_s:.4f} s (steps {step0}..{step0 + flushes - 1}, rewiring at {rewires}, "
+          f"{rewired} mask entries rewired); {STREAM_INFERS} single-row inferences "
+          f"{infer_s:.4f} s, latency s {json.dumps(lat)}; accuracy after close={card_acc:.4f} "
+          f"(CPU twin {twin_acc:.4f}), mask entries differing from the twin={mask_diff} "
+          f"(in {mask_cols} hidden HCUs), "
+          f"max |w - w_twin|={w_diff:.3e} (share above 2^-5: {w_far:.3e}), "
+          f"max |b - b_twin|={b_diff:.3e}, traces' max relative difference={trace_rel:.3e}; "
+          f"launches train {json.dumps(train_counts)} infer {json.dumps(infer_counts)}")
+    check(mask_cols <= STREAM_MASK_COLUMNS[path],
+          f"stream {path}: {mask_diff} mask entries in {mask_cols} hidden HCUs differ from the "
+          f"CPU twin's (at most {STREAM_MASK_COLUMNS[path]} HCUs allowed)")
+    if not fused:
+        check(trace_rel <= STREAM_TRACE_RTOL,
+              f"stream {path}: traces {trace_rel:.3e} apart, relative, > {STREAM_TRACE_RTOL:.0e}")
+        check(w_diff <= STREAM_W_TOL and b_diff <= STREAM_W_TOL,
+              f"stream {path}: max |w - w_twin| {w_diff:.3e}, |b - b_twin| {b_diff:.3e} "
+              f"> {STREAM_W_TOL:.0e}")
+    check(card_acc >= 0.5, f"stream {path}: accuracy on the card {card_acc} < 0.5")
+    check(abs(card_acc - twin_acc) <= 0.03,
+          f"stream {path}: card {card_acc} vs CPU twin {twin_acc}: off by more than 0.03")
+    return train_counts, infer_counts, dict(
+        feed_s=feed_s, flushes=flushes, rewiring_steps=rewires, mask_entries_rewired=rewired,
+        infer_s=infer_s, latency_s=lat, accuracy=card_acc, twin_accuracy=twin_acc,
+        mask_entries_differing=mask_diff, mask_hcus_differing=mask_cols, max_w_diff=w_diff, w_share_above_2e_5=w_far,
+        max_b_diff=b_diff, trace_max_rel_diff=trace_rel,
+    )
+
+
+def serving(torch, ops, ref, core, trained, card):
+    """Phase 5: serve the networks phase 4 trained on the card, launches
+    counted from zero for each run and checked exactly once its engine has
+    stopped."""
+    from repro_torch.runtime import ServiceConfig
+
+    _, _, xt, yt = trained["split"]
+    launches, report = {}, {}
+    for path, compiled in trained["nets"].items():
+        launches[f"serve_batched/{path}"], report[f"batched/{path}"] = serve_batched(
+            torch, ops, ServiceConfig, path, compiled, xt, card)
+    launches["serve_async/unfused_f32"], report["async/unfused_f32"] = serve_async(
+        torch, ops, ref, ServiceConfig, trained["nets"]["unfused_f32"], xt, yt, card)
+    for path in ("unfused_f32", "fused_bf16"):
+        train, infer, report[f"streaming/{path}"] = serve_streaming(
+            torch, ops, core, ServiceConfig, trained, path, card)
+        launches[f"serve_stream/{path}"], launches[f"serve_infer/{path}"] = train, infer
+    for name in ops.KERNELS:
+        check(any(c[name] > 0 for c in launches.values()), f"{name} not launched by the serving phase")
+    return launches, report
 
 
 def main() -> int:
@@ -765,9 +1185,15 @@ def main() -> int:
     print(json.dumps({"bcpnn_phase_profile": profile}))
 
     # Phase 4: the main paths, launches counted from zero on each.
-    launches, runs, stage_s, cliffs, per_batch, stages = main_path(torch, ops, core, data, policy)
+    launches, runs, stage_s, cliffs, per_batch, stages, trained = main_path(
+        torch, ops, core, data, policy)
 
-    # Phase 5: the records.
+    # Phase 5: serve the networks phase 4 trained, launches counted from
+    # zero on each serving run.
+    serve_launches, served = serving(torch, ops, ref, core, trained, card)
+    launches.update(serve_launches)
+
+    # Phase 6: the records.
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in launches.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -785,6 +1211,7 @@ def main() -> int:
         "precision_cliff_card": cliffs,
         "datapath_stages_card_vs_cpu": stages,
         "batch_device_ms": per_batch,
+        "serving": served,
     }))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,8 @@
     compiled = model.compile(ExecutionConfig(engine="scan"))  # device="cuda"
     compiled.fit((x, y), epochs_hidden=5, epochs_readout=5)
     compiled.evaluate((x_test, y_test))
+    sess = compiled.streaming()              # online updates, state adopted on close
+    svc = compiled.serve(ServiceConfig(...)) # serving front door (batched / streaming)
 
 :class:`ExecutionConfig` holds everything about *how* the network runs.
 On a CUDA device every hot op is a hand-written Hopper kernel; on the CPU
@@ -14,10 +16,16 @@ launch; ``precision=PrecisionPolicy.named("fp32", state_format="bf16")``
 keeps the traces in bf16; ``precision="bf20"`` (any of bf14 ... bf28)
 rounds every algebraic stage of the datapath, the paper's FPGA study.
 ``fit(readout="sgd")`` trains the hybrid AdamW readout head on the frozen
-hidden codes.  Options of the reference that are not ported yet
-(``trainer``, ``use_kernels``, ``strict``, ``trace``, ``profile_dir``) are
-absent, so passing one raises a ``TypeError`` that names it;
-``streaming``/``serve`` are not methods of this class yet.
+hidden codes; ``trace=TraceConfig()`` records ``train.<phase>`` spans on
+``compiled.tracer``.  Options of the reference that are not ported yet
+(``trainer``, ``use_kernels``, ``strict``, ``profile_dir``) are absent, so
+passing one raises a ``TypeError`` that names it.
+
+``predict``, the batched serving plan and the streaming sessions share one
+forward (:meth:`CompiledNetwork._forward_fn`) and one readout head
+(:meth:`CompiledNetwork._head_fn`), so service and library calls cannot
+diverge; ``serve`` binds the ``"batched"`` (default) or ``"streaming"``
+plan of :mod:`repro_torch.runtime.service`.
 """
 from __future__ import annotations
 
@@ -104,6 +112,10 @@ class ExecutionConfig:
     fused_phase: train each hidden batch in one ``bcpnn_phase`` launch
                  (forward, softmax and update); composes with the state
                  tier.
+    trace:       a ``repro_torch.runtime.trace.TraceConfig``: the compiled
+                 network owns a Tracer and the phase programs record
+                 ``train.<phase>`` spans (host vs device-wait split) on the
+                 training trace id.  None (default) builds no tracer.
     """
 
     engine: str = "scan"
@@ -113,8 +125,14 @@ class ExecutionConfig:
     activation_budget_mb: float = 512.0
     precision: Any = None
     fused_phase: bool = False
+    trace: Any = None
 
     def __post_init__(self):
+        if self.trace is not None:
+            from repro_torch.runtime.trace import TraceConfig
+
+            if not isinstance(self.trace, TraceConfig):
+                raise TypeError(f"trace must be a TraceConfig, got {type(self.trace).__name__}")
         if self.engine not in PLANS:
             raise ValueError(f"Unknown engine {self.engine!r} (want one of {sorted(PLANS)})")
         if self.activation_budget_mb <= 0:
@@ -199,6 +217,17 @@ class CompiledNetwork:
         # n_classes, lr), and the moments a partial_fit resumes.
         self._sgd_cache: dict = {}
         self._sgd_opt_state = None
+        # The forward and the head, built once and shared by predict and
+        # the serving plans.
+        self._fwd: Optional[Callable] = None
+        self._head: Optional[Callable] = None
+        # Per-layer LRU of per-size streaming cells, shared by every session
+        # this compiled network opens (see streaming()).
+        self._stream_train_cells: dict = {}
+        self._stream_infer_cells: dict = {}
+        from repro_torch.runtime.trace import build_tracer
+
+        self.tracer = build_tracer(self.config.trace)
 
     @property
     def hidden_layers(self) -> List[StructuralPlasticityLayer]:
@@ -209,6 +238,21 @@ class CompiledNetwork:
         return self.plan.readout_layer
 
     # -------------------------------------------------------------- forward
+    def _forward_fn(self) -> Callable:
+        """The full-network forward, built once per compile (see
+        :func:`build_forward`)."""
+        if self._fwd is None:
+            self._fwd = build_forward(self.layers)
+        return self._fwd
+
+    def _head_fn(self) -> Callable:
+        """The readout head over level-H hidden codes, built once per
+        compile: the project-once mirror of :meth:`_forward_fn`, sharing
+        the one :func:`build_head` definition."""
+        if self._head is None:
+            self._head = build_head(self.layers)
+        return self._head
+
     def predict(self, x, batch_size: int = 1024) -> torch.Tensor:
         """Class scores on the compiled device.  With the activation store
         the hidden stack runs through the same level-H projection training
@@ -217,11 +261,11 @@ class CompiledNetwork:
         outs = []
         if self.activations is not None and self.hidden_layers:
             h = self.activations.level(len(self.hidden_layers), list(states), x, chunk=batch_size)
-            head = build_head(self.layers)
+            head = self._head_fn()
             for i in range(0, h.shape[0], batch_size):
                 outs.append(head(states, readout, rows_to(h, i, i + batch_size, self.device)))
         else:
-            fwd = build_forward(self.layers)
+            fwd = self._forward_fn()
             for i in range(0, x.shape[0], batch_size):
                 outs.append(fwd(states, readout, rows_to(x, i, i + batch_size, self.device)))
         return torch.cat(outs)
@@ -383,6 +427,82 @@ class CompiledNetwork:
                 self.network.seed, n_hidden, y, lr, n_classes=n_classes, device=self.device,
             )
         return params, opt_state, run_epoch
+
+    # ------------------------------------------------------------ streaming
+    def streaming(
+        self,
+        layer: int = 0,
+        max_batch: int = 16,
+        max_wait_s: float = 0.0,
+        cache_size: int = 8,
+    ):
+        """A StreamingSession over hidden layer ``layer``.  Its per-size
+        cells live in this compiled network's own LRUs (shared by every
+        session over the layer, their bound the latest ``cache_size``), and
+        its learned state is written back into ``self.state`` on close()."""
+        from repro_torch.core.streaming import StreamingSession, _LRUCells
+
+        bound = self.hidden_layers[layer]
+        li = self.layers.index(bound)
+        # The session trains its own copy, so nothing it does touches the
+        # tensors self.state (or a fit running meanwhile) holds.
+        session_state = self.state.layers[li].clone()
+        train_lru = self._stream_train_cells.setdefault(li, _LRUCells(cache_size))
+        infer_lru = self._stream_infer_cells.setdefault(li, _LRUCells(cache_size))
+        train_lru.set_capacity(cache_size)
+        infer_lru.set_capacity(cache_size)
+        # The host mirror of the step counter: no device read to detect a
+        # conflict.
+        base_step = self.state.layers[li].host_step
+
+        def adopt(state):
+            if self.state.layers[li].host_step != base_step:
+                import warnings
+
+                warnings.warn(
+                    "StreamingSession.close(): this layer trained elsewhere "
+                    "(another session or a fit) since the session opened; "
+                    "overwriting those updates with this session's result",
+                    RuntimeWarning,
+                    stacklevel=3,
+                )
+            layers = list(self.state.layers)
+            layers[li] = state
+            self.state = self.state._replace(layers=tuple(layers))
+            # Identity purging would drop the stale levels above this layer
+            # at the next level() call; drop them now, so the adoption frees
+            # their bytes.
+            if self.activations is not None:
+                self.activations.invalidate_above(li)
+
+        return StreamingSession(
+            bound,
+            session_state,
+            max_batch=max_batch,
+            max_wait_s=max_wait_s,
+            cache_size=cache_size,
+            train_cells=train_lru,
+            infer_cells=infer_lru,
+            on_close=adopt,
+        )
+
+    # -------------------------------------------------------------- serving
+    def serve(self, config=None):
+        """Bind this compiled network to an :class:`InferenceService`.
+        ``ServiceConfig(plan=...)`` picks the strategy: "batched" (default:
+        bucket-padded classification through the same projection and head
+        ``predict`` uses) or "streaming" (the latency path, over
+        :meth:`streaming`).  ``ServiceConfig(async_mode=True)`` starts the
+        executor thread at bind time, and ``submit()`` then returns
+        ``concurrent.futures.Future``s (:mod:`repro_torch.runtime.engine`)."""
+        from repro_torch.runtime.service import SERVE_PLANS, InferenceService, ServiceConfig
+
+        config = config if config is not None else ServiceConfig()
+        plan = SERVE_PLANS[config.plan or "batched"](self, config)
+        service = InferenceService(plan, config)
+        if config.async_mode:
+            service.start()
+        return service
 
     # ----------------------------------------------------------- checkpoint
     def save(self, directory: str, step: int = 0, retain: int = 3) -> str:

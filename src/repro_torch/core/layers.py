@@ -50,16 +50,23 @@ class LayerState(NamedTuple):
     step: torch.Tensor  # int32 scalar
     host_step: int = 0
 
-    def to(self, device) -> "LayerState":
-        """This state with every tensor on ``device`` (a new state object)."""
+    def _map(self, fn) -> "LayerState":
         return LayerState(
-            marginals=self.marginals.to(device),
-            w=self.w.to(device),
-            b=self.b.to(device),
-            plast=None if self.plast is None else PlasticityState(self.plast.hcu_mask.to(device)),
-            step=self.step.to(device),
+            marginals=MarginalState(*(fn(t) for t in self.marginals)),
+            w=fn(self.w),
+            b=fn(self.b),
+            plast=None if self.plast is None else PlasticityState(fn(self.plast.hcu_mask)),
+            step=fn(self.step),
             host_step=self.host_step,
         )
+
+    def to(self, device) -> "LayerState":
+        """This state with every tensor on ``device`` (a new state object)."""
+        return self._map(lambda t: t.to(device))
+
+    def clone(self) -> "LayerState":
+        """A copy of this state that shares no tensor with it."""
+        return self._map(torch.clone)
 
 
 @dataclasses.dataclass(frozen=True)

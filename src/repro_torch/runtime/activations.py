@@ -100,6 +100,18 @@ class ActivationStore:
         self._insert(key, value, states, x)
         return self._entries[key].value
 
+    def invalidate_above(self, level: int) -> int:
+        """Drop every cached level strictly above ``level``, for every
+        dataset, and return how many entries went.  Identity purging would
+        drop them lazily at the next :meth:`level` call; a state adoption
+        (a streaming session's close) calls this so the dead projections
+        release their device and host bytes at the adoption itself."""
+        stale = [k for k in self._entries if k[1] > level]
+        for k in stale:
+            del self._entries[k]
+            self.stats["evictions"] += 1
+        return len(stale)
+
     @property
     def device_bytes(self) -> int:
         return sum(e.nbytes for e in self._entries.values() if not e.on_host)

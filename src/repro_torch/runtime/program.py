@@ -8,7 +8,9 @@ freezes, so the driver projects the dataset once through the newly frozen
 prefix (the activation store) and every epoch of the phase gathers from
 that level.  Every epoch's history entry splits its wall time into the
 host's enqueue span (``host_s``) and the wait for the device at the one
-synchronisation that ends the epoch (``device_wait_s``).
+synchronisation that ends the epoch (``device_wait_s``); with
+``ExecutionConfig(trace=...)`` each entry is also a ``train.<phase>`` span
+on ``compiled.tracer``.
 """
 from __future__ import annotations
 
@@ -142,18 +144,24 @@ def run_program(
     return ProgramResult(sgd_params, sgd_ran, bcpnn_trained)
 
 
-def _timed(history: List[dict], entry: dict, t0: float, device: torch.device) -> None:
+def _timed(history: List[dict], entry: dict, t0: float, net) -> None:
     """Record one history entry with its wall time split into the host-side
     enqueue span (``host_s``) and the device wait at the one synchronisation
-    of the boundary (``device_wait_s``); ``seconds`` is the total."""
+    of the boundary (``device_wait_s``); ``seconds`` is the total.  When the
+    network carries a tracer, the entry is also a ``train.<phase>`` span on
+    the training trace."""
     t1 = time.perf_counter()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    if net.device.type == "cuda":
+        torch.cuda.synchronize(net.device)
     t2 = time.perf_counter()
     entry["host_s"] = t1 - t0
     entry["device_wait_s"] = t2 - t1
     entry["seconds"] = t2 - t0
     history.append(entry)
+    tracer = net.tracer
+    if tracer is not None:
+        attrs = {k: v for k, v in entry.items() if k not in ("phase", "seconds")}
+        tracer.record(tracer.TRAIN_TRACE_ID, f"train.{entry['phase']}", t0, t2, **attrs)
 
 
 def _phase_input(net, level: int, states, x, batch_size, history):
@@ -164,7 +172,7 @@ def _phase_input(net, level: int, states, x, batch_size, history):
     t0 = time.perf_counter()
     xk = store.level(level, states, x, chunk=batch_size)
     if level > 0:
-        _timed(history, {"phase": "project", "level": level}, t0, net.device)
+        _timed(history, {"phase": "project", "level": level}, t0, net)
     return xk
 
 
@@ -183,7 +191,7 @@ def _run_hidden_phase(net, phase, x, n, n_total, batch_size, shuffle, verbose, h
     for epoch in range(phase.epochs):
         t0 = time.perf_counter()
         state = step(state, net._epoch_indices(n, n_total, shuffle))
-        _timed(history, {"phase": f"hidden{li}", "epoch": epoch}, t0, net.device)
+        _timed(history, {"phase": f"hidden{li}", "epoch": epoch}, t0, net)
         if verbose:
             print(f"[fit/{net.plan.name}] hidden layer {li} epoch {epoch + 1}/{phase.epochs}")
     states[li] = state
@@ -207,7 +215,7 @@ def _run_bcpnn_phase(net, phase, x, y, n, n_total, batch_size, shuffle, verbose,
     for epoch in range(phase.epochs):
         t0 = time.perf_counter()
         state = step(state, net._epoch_indices(n, n_total, shuffle))
-        _timed(history, {"phase": "readout", "epoch": epoch}, t0, net.device)
+        _timed(history, {"phase": "readout", "epoch": epoch}, t0, net)
         if verbose:
             print(f"[fit/{net.plan.name}] readout epoch {epoch + 1}/{phase.epochs}")
     states[li] = state
@@ -228,7 +236,7 @@ def _run_sgd_phase(net, phase, x, y, n, n_total, batch_size, shuffle, verbose, h
     for epoch in range(phase.epochs):
         t0 = time.perf_counter()
         params, opt_state, loss = step(params, opt_state, net._epoch_indices(n, n_total, shuffle))
-        _timed(history, {"phase": "sgd_readout", "epoch": epoch}, t0, net.device)
+        _timed(history, {"phase": "sgd_readout", "epoch": epoch}, t0, net)
         if verbose:
             print(f"[fit/{net.plan.name}] sgd readout epoch {epoch + 1}/{phase.epochs} "
                   f"loss={float(loss):.4f}")

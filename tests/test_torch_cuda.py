@@ -502,3 +502,103 @@ def test_bcpnn_phase_profile_variant(card):
     assert prof.shape == (pk.plan(128, 1568, 30, 100).ctas, 2 + len(pk.PHASES))
     assert bool((prof[:, 1] >= prof[:, 0]).all()) and bool((prof[:, 0] > 0).all())
     assert ops.launch_counts()["bcpnn_phase"] == before + 1  # the profiled call is not counted
+
+
+# --- the serving path's shapes: bucket-padded chunks and single rows of the
+# forward pair, streaming micro-batches of the training pair ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 10, 16, 64])
+def test_forward_pair_serving_shapes(card, m):
+    """The hidden layer (1568x3000, 30x100) and the head (3000x10, 1x10) at
+    the served row counts and the streaming tail's 10 rows, the rows a view
+    at an odd row offset."""
+    x, w, b, mask = _mm_inputs(m + 1, 1568, 3000, card)
+    rows = x[1:]
+    s = ops.masked_matmul(rows, w, b, mask=mask)
+    torch.testing.assert_close(s, ref.masked_matmul(rows, w, b, mask), **TOL)
+    a = ops.hcu_softmax(4.0 * s, 30, 100)
+    torch.testing.assert_close(a, ref.hcu_softmax(4.0 * s, 30, 100), rtol=1e-5, atol=1e-6)
+    _, w_r, b_r, _ = _mm_inputs(1, 3000, 10, card, use_mask=False)
+    head = ops.masked_matmul(a, w_r, b_r)
+    torch.testing.assert_close(head, ref.masked_matmul(a, w_r, b_r), **TOL)
+    torch.testing.assert_close(ops.hcu_softmax(head, 1, 10), ref.hcu_softmax(head, 1, 10),
+                               rtol=1e-5, atol=1e-6)
+    # Each row alone computes what it computes among the others.
+    assert torch.equal(ops.masked_matmul(rows[-1:], w, b, mask=mask), s[-1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 10, 16])
+def test_bcpnn_update_streaming_batches(card, b):
+    """Streaming flushes of 1..16 rows at the hidden shape, f32: padded batch
+    rows stay out of the sums and the means divide by the true B."""
+    ai, aj, ci, cj, cij, mask = _update_inputs(b, 1568, 3000, card, True)
+    got = bk.bcpnn_update(ai, aj, ci, cj, cij, 0.02, k_b=1.0, mask=mask)
+    want = ref.bcpnn_update(ai, aj, ci, cj, cij, 0.02, k_b=1.0, mask=mask)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [10, 16])
+def test_bcpnn_phase_streaming_batches(card, b):
+    """Fused streaming flushes of 10 and 16 rows, bf16 state: most of the
+    forward tile is padding, kept out of the softmax and the update."""
+    shape = (b, 1568, 30, 100)
+    p = _problem(*shape, True, card)
+    ci, cj, cij = (p[k].to(torch.bfloat16) for k in ("ci", "cj", "cij"))
+    args = _phase_args(p, shape)
+    kw = dict(k_b=1.0, gain=4.0, mask=p["mask"], state_mantissa=7)
+    got = pk.bcpnn_phase(*args[:3], ci, cj, cij, *args[6:], state_dtype=torch.bfloat16, **kw)
+    want = ref.bcpnn_phase(*args[:3], ci, cj, cij, *args[6:], **kw)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    for g, w in zip(got[1:4], want[1:4]):
+        assert g.dtype == torch.bfloat16
+        _state_close(g, w, 7)
+    for g, w in zip(got[4:], want[4:]):
+        torch.testing.assert_close(g, w, rtol=0, atol=2.0**-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1568), (4, 1568), (16, 1568), (64, 1568), (4, 3000),
+                                   (16, 3000), (64, 3000), (4, 10), (16, 10), (64, 10)])
+def test_bf_round_serving_shapes(card, shape):
+    rng = np.random.default_rng(shape[0])
+    x = torch.as_tensor(rng.standard_normal(shape) * 8.0, dtype=torch.float32, device=card)
+    assert torch.equal(ops.bf_round(x, 11).view(torch.int32),
+                       ref.bf_round(x, 11).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_serving_on_card_matches_cpu(card):
+    """The batched plan (sync and async) and the streaming plan on the card
+    against the same on the CPU, from one state."""
+    from repro_torch.runtime import ServiceConfig
+
+    ds = mnist_like(n_train=256, n_test=64, n_features=24, seed=0)
+    x, layout = complementary_code(ds.x_train)
+    net = Network(seed=0)
+    net.add(StructuralPlasticityLayer(layout, UnitLayout(4, 10), fan_in=12, lam=0.05, gain=4.0))
+    net.add(DenseLayer(UnitLayout(4, 10), onehot_layout(10), lam=0.05))
+    gpu, cpu = net.compile(), net.compile(ExecutionConfig(device="cpu"))
+    for c in (gpu, cpu):
+        c.fit((x, ds.y_train), epochs_hidden=1, epochs_readout=1, batch_size=64)
+    cfg = ServiceConfig(plan="batched", buckets=(4, 16, 64))
+    for n in (1, 5, 17, 64, 100):
+        got = gpu.serve(cfg).predict(x[:n])
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), cpu.serve(cfg).predict(x[:n]), rtol=1e-4, atol=1e-5)
+    svc = gpu.serve(ServiceConfig(plan="batched", max_batch=16, async_mode=True))
+    futs = [svc.submit(r) for r in x[:40]]
+    served = np.stack([f.result(timeout=60) for f in futs])
+    svc.drain_and_stop()
+    torch.testing.assert_close(torch.from_numpy(served), cpu.predict(x[:40]), rtol=1e-4, atol=1e-5)
+    sessions = [c.serve(ServiceConfig(plan="streaming", max_batch=16)) for c in (gpu, cpu)]
+    for s in sessions:
+        for row in x[:40]:
+            s.feed(row)
+        s.close()
+    for sg, sc in zip(gpu.state.layers, cpu.state.layers):
+        torch.testing.assert_close(sg.w.cpu(), sc.w, rtol=1e-4, atol=1e-4)
+        assert sg.host_step == sc.host_step

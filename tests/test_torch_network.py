@@ -299,7 +299,7 @@ def test_fused_config_validation():
 
 def test_unported_options_raise_by_name(data):
     ds, x, _, _ = data
-    for name in ("trainer", "use_kernels", "strict", "trace", "profile_dir"):
+    for name in ("trainer", "use_kernels", "strict", "profile_dir"):
         with pytest.raises(TypeError, match=name):
             ExecutionConfig(**{name: None})
     with pytest.raises(TypeError, match="use_kernels"):
@@ -307,8 +307,17 @@ def test_unported_options_raise_by_name(data):
     net = _torch_net().compile(ExecutionConfig(device="cpu"))
     with pytest.raises(ValueError, match="readout"):
         net.fit((x, ds.y_train), readout="svm", **FIT_KW)
+    # Streaming and serving are ported; the serving options of later slices
+    # are refused by name.
     for method in ("streaming", "serve"):
-        assert not hasattr(net, method)
+        assert callable(getattr(net, method))
+    from repro_torch.runtime import ServiceConfig
+
+    for name in ("router", "continual", "strict"):
+        with pytest.raises(TypeError, match=name):
+            ServiceConfig(**{name: True})
+    with pytest.raises(ValueError, match="decode"):
+        ServiceConfig(plan="decode")
     with pytest.raises(ValueError, match="engine"):
         ExecutionConfig(engine="pipelined")
 
