@@ -20,10 +20,13 @@ the run with a non-zero exit:
    predict's chunk of P rows through the hidden layer and the head, and
    every row count phase 5 gives a kernel (``serving_rows``: the batched
    plan's padded chunks, single rows, the streaming flushes of 16 rows and
-   the 10-row tail); ``bcpnn_update`` at the hidden and the readout shape,
-   each labelled with its launch plan, and at the streaming flushes;
-   ``bcpnn_phase`` also at the flushes with bf16 state; ``bf_round`` also
-   at the served chunks through both layers); then print where
+   the 10-row tail), and the 8-row feedback micro-batch of phase 6
+   (``continual_rows``); ``bcpnn_update`` at the hidden and the readout
+   shape, each labelled with its launch plan, at the streaming flushes and
+   at the 8-row continual update of each layer; ``bcpnn_phase`` also at the
+   flushes and the continual update with bf16 state, and with f32 traces
+   in (an adapter forked after a merge); ``bf_round`` also at the served
+   chunks through both layers); then print where
    ``bcpnn_phase``'s time goes, phase by phase
    (``tools/bcpnn_phase_profile.py``);
 4. drive the main paths, the paper's Listing 1 at MNIST width (784
@@ -67,7 +70,35 @@ the run with a non-zero exit:
    0.03).  Every serving
    run counts its launches from zero and checks them exactly once its
    engine has stopped;
-6. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
+6. the serving fabric, from phase 4's trained states: the continual tier
+   through the async engine (``ServiceConfig(continual=ContinualConfig(
+   update_batch=8, ...))``, two tenants, 384 feedback rows with labels
+   flipped on rows 192-255, a test row inferred after every third) in three
+   runs: the unfused network adapting its hidden layer (merge strategy
+   "trace") and its readout through the frozen prefix ("replace"), the
+   fused bf16-state network adapting its hidden layer ("trace").  Each run
+   must resolve every future, merge, detect drift and roll back; its ack
+   sequence must equal a CPU twin's fed the same stream through the sync
+   drain (``correct`` apart only on near-ties), its adopted base must
+   meet phase 5's rules against the twin's (on the fused network, whose
+   updates round the traces to bf16, traces within 2^-6 relative and w and
+   b within 3 x 2^-6), each rollback must restore the last-good base bit
+   for bit (against a host copy taken when that base was adopted), the
+   newest snapshot must reload through
+   ``load_adapters`` bit for bit, each inference must agree with
+   ``compiled.predict`` on the state it ran on, and its launches must be
+   exactly those its acks imply.  Then the router fleet: two batched and
+   two continual engines, each over its own network loaded from the unfused
+   network's checkpoint, tenants free (weight 1) and paid (weight 4), p95
+   routing, four clients submitting the 2,048 test rows (a quarter of the
+   free rows with a 5 ms deadline), 256 feedback rows to the continual
+   pool, the first batched engine to reach its 100th row crashing once:
+   every future resolves to a value or a typed error, one hot restart,
+   each tenant's feedback on one continual engine, the served scores
+   against ``compiled.predict``, the forward pair checked after the run at
+   every micro-batch size the engines formed.  Rates, latencies, the DRR
+   share and the sheds are printed, not gated;
+7. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
    ...}`` line.
 
 Without a CUDA device, or away from the rest of the repository, it exits
@@ -113,6 +144,20 @@ ASYNC_CLIENTS = 4
 STREAM_BATCH, STREAM_ROWS, STREAM_INFERS = 16, 23 * 16 + 10, 64
 GEMM_TOL = (1e-4, 1e-5)  # phase 3's tolerance of the forward pair
 SOFTMAX_TOL = (1e-5, 1e-6)  # ... and of hcu_softmax
+# The serving fabric (phase 6).  The continual tier: 384 labeled feedback
+# rows from two alternating tenants (48 micro-batches of 8), labels flipped
+# (y + 1 mod 10) on rows 192-255, one test row inferred after every third
+# feedback row; three runs (path, adapted layer, merge strategy).  The
+# adapted hidden layer starts at the trained step 128, so its updates cross
+# the rewiring step 150.  The fleet: two batched and two continual engines
+# behind one Router, four clients, a quarter of the free tenant's rows with
+# a 5 ms deadline, one batched engine crashing once at its 100th row.
+CONT_BATCH, CONT_ROWS, CONT_BURST, CONT_INFER_EVERY = 8, 384, (192, 256), 3
+CONT_KW = dict(update_batch=CONT_BATCH, update_budget=32, merge_every=4, drift_window=64,
+               drift_min_samples=16, drift_threshold=0.25)
+CONT_RUNS = (("unfused_f32", 0, "trace"), ("unfused_f32", -1, "replace"),
+             ("fused_bf16", 0, "trace"))
+FLEET_CLIENTS, FLEET_FEEDBACK, FLEET_DEADLINE_S, FLEET_CRASH_AT = 4, 256, 0.005, 100
 # The unfused streamed state against its CPU twin.  Each flush's a_j may be
 # 1e-3 apart, relative, on the two devices (phase 3's rule for a_j after
 # the gain, ``bcpnn_phase`` against the three kernels); an EWMA of
@@ -128,6 +173,16 @@ STREAM_TRACE_RTOL, STREAM_W_TOL = 1e-3, 3e-3
 # HCUs, so one hidden HCU of the fused network may rewire otherwise (read
 # on an H100 at 700 W: 2 entries of one hidden HCU's column).
 STREAM_MASK_COLUMNS = dict(unfused_f32=0, fused_bf16=1)
+# The fused bf16-state continual run against its CPU twin.  Every
+# bcpnn_phase update rounds the adapter's traces to bf16's 8 significant
+# bits (the merge then averages them into f32 base traces), so a value the
+# card and the CPU round to neighbours lands one bf16 ulp apart, at most
+# 2^-7 relative.  The traces are held to two such ulps, 2^-6, and w and b,
+# sums of up to three logs of them, to 3 x 2^-6, as STREAM_W_TOL is derived.
+# Read on an H100 at 700 W, equal in three runs: traces 9.990e-3 relative,
+# w 7.135e-3, b 2.906e-3.
+CONT_FUSED_TRACE_RTOL = 2.0 ** -6
+CONT_FUSED_W_TOL = 3 * CONT_FUSED_TRACE_RTOL
 
 
 class SmokeFailure(RuntimeError):
@@ -284,8 +339,9 @@ def kernel_checks(torch, ops, ref, dev):
     # The serving path's rows (phase 5): bucket-padded chunks, single rows
     # and streaming flushes, each a view at an odd row offset of a larger
     # block.
-    rows = serving_rows()
-    most = max(rows["hidden"])
+    rows, cont = serving_rows(), continual_rows()
+    hidden_rows = sorted(set(rows["hidden"]) | set(cont["hidden"]))
+    most = max(hidden_rows)
     x_s = uniform(most + 1, F)[1:]
     h_s = codes(most, n_hcu, n_mcu)
     s_sh, s_sr = 4 * normal(most, H), 4 * normal(most, N_CLASSES)
@@ -368,6 +424,26 @@ def kernel_checks(torch, ops, ref, dev):
                 phase(ref.bcpnn_phase, bf, xb=x[:rows], state_mantissa=7),
                 None, phase_bytes_bf16(rows), phase_flops(rows),
                 [(1e-4, 1e-5)] + [trace_tol] * 3 + [log_tol] * 2, "bf16")
+
+    def phase_merged_case(rows):  # a bf16-state adapter forked after a merge: f32 traces in
+        f32_state = (ci_h, cj_h, cij_h)
+        return (f"x({rows},{F}) {n_hcu}x{n_mcu}, f32 traces in, bf16 out, mantissa 7, "
+                "continual update after a merge",
+                phase(pk.bcpnn_phase, f32_state, xb=x[:rows], state_mantissa=7,
+                      state_dtype=torch.bfloat16),
+                phase(ref.bcpnn_phase, f32_state, xb=x[:rows], state_mantissa=7),
+                None, phase_bytes(rows) - 2 * (F * H + F + H), phase_flops(rows),
+                [(1e-4, 1e-5)] + [trace_tol] * 3 + [log_tol] * 2, "bf16")
+
+    def readout_case(rows, tail=""):  # the readout's update, f32, one-hot a_j
+        a, oh = h[:rows], onehot[:rows]
+        return (f"ai({rows},{H}) aj({rows},{N_CLASSES}) cij({H},{N_CLASSES}){tail}"
+                + up_plan(a, oh),
+                update(bk.bcpnn_update, a, oh, ci_r, cj_r, cij_r, None),
+                update(ref.bcpnn_update, a, oh, ci_r, cj_r, cij_r, None),
+                None,
+                4 * (rows * H + rows * N_CLASSES + 2 * H + 3 * N_CLASSES + 3 * H * N_CLASSES),
+                2 * rows * H * N_CLASSES + 6 * H * N_CLASSES)
     from repro_torch.kernels import bcpnn_phase as pk
     from repro_torch.kernels import bcpnn_update as bk
     from repro_torch.kernels import bf_round as bfk
@@ -383,7 +459,7 @@ def kernel_checks(torch, ops, ref, dev):
             tol=(1e-4, 1e-5),
             cases=[mm_case(*c) for c in (
                 (x, w_h, b_h, mask), (x_p, w_h, b_h, mask), (h_p, w_r, b_r, None),
-                *((x_s[:m], w_h, b_h, mask) for m in rows["hidden"]),
+                *((x_s[:m], w_h, b_h, mask) for m in hidden_rows),
                 *((h_s[:m], w_r, b_r, None) for m in rows["head"]))],
         ),
         dict(
@@ -393,7 +469,7 @@ def kernel_checks(torch, ops, ref, dev):
             tol=SOFTMAX_TOL,
             cases=[sm_case(*c) for c in (
                 (s_h, n_hcu, n_mcu), (s_p, n_hcu, n_mcu), (s_r, 1, N_CLASSES),
-                *((s_sh[:m], n_hcu, n_mcu) for m in rows["hidden"]),
+                *((s_sh[:m], n_hcu, n_mcu) for m in hidden_rows),
                 *((s_sr[:m], 1, N_CLASSES) for m in rows["head"]))],
         ),
         dict(
@@ -403,12 +479,7 @@ def kernel_checks(torch, ops, ref, dev):
             tol=(1e-4, 1e-5),
             cases=[
                 update_case(B),
-                (f"ai({B},{H}) aj({B},{N_CLASSES}) cij({H},{N_CLASSES})" + up_plan(h, onehot),
-                 update(bk.bcpnn_update, h, onehot, ci_r, cj_r, cij_r, None),
-                 update(ref.bcpnn_update, h, onehot, ci_r, cj_r, cij_r, None),
-                 None,
-                 4 * (B * H + B * N_CLASSES + 2 * H + 3 * N_CLASSES + 3 * H * N_CLASSES),
-                 2 * B * H * N_CLASSES + 6 * H * N_CLASSES),
+                readout_case(B),
                 (f"ai({B},{F}) aj({B},{H}) cij({F},{H}) masked, bf16 state, mantissa 7"
                  + up_plan(x, h),
                  update(bk.bcpnn_update, x, h, *bf, mask, state_mantissa=7,
@@ -430,6 +501,9 @@ def kernel_checks(torch, ops, ref, dev):
                  [trace_tol] * 3 + [log_tol] * 2, "bf16"),
                 # streaming flushes of the unfused path (phase 5)
                 *(update_case(m, ", streaming flush") for m in rows["update"]),
+                # the continual tier's feedback micro-batch (phase 6)
+                *(update_case(m, ", continual update") for m in cont["update"]),
+                *(readout_case(m, ", continual update") for m in cont["readout_update"]),
             ],
         ),
         dict(
@@ -453,6 +527,10 @@ def kernel_checks(torch, ops, ref, dev):
                  "three_kernels"),
                 # streaming flushes of the fused path (phase 5)
                 *(phase_bf16_case(m, ", streaming flush") for m in rows["flush"]),
+                # the continual tier's feedback micro-batch (phase 6), before
+                # and after a merge
+                *(phase_bf16_case(m, ", continual update") for m in cont["flush"]),
+                *(phase_merged_case(m) for m in cont["flush"]),
             ],
         ),
         dict(
@@ -801,7 +879,8 @@ def main_path(torch, ops, core, data, policy, devices=("cuda", "cpu")):
           f"{batches * B * x.shape[1] * 4 / 1e6:.1f} MB, part of each hidden epoch's host_s): "
           f"{stage_s:.4f} s")
     cliffs = dict(mnist_width=cliff, e2e=cliff_e2e)
-    trained = dict(net=net, split=split, nets=card_nets, configs={p: c for p, (c, _) in paths.items()})
+    trained = dict(net=net, split=split, nets=card_nets, configs={p: c for p, (c, _) in paths.items()},
+                   device=devices[0])
     return launches, runs, stage_s, cliffs, per_batch, stages, trained
 
 
@@ -818,6 +897,19 @@ def serving_rows():
     flushes = {STREAM_BATCH} | ({tail} if tail else set())
     return dict(hidden=sorted(chunks | flushes | {1}), head=sorted(chunks | {1}),
                 datapath=sorted(chunks), update=sorted(flushes | {1}), flush=sorted(flushes))
+
+
+def continual_rows():
+    """The row counts phase 6 gives each kernel beyond ``serving_rows``: the
+    feedback micro-batch of CONT_BATCH rows through the hidden forward (an
+    unfused hidden update's forward, the readout update's frozen prefix),
+    through ``bcpnn_update`` at the hidden and the readout shape, and
+    through ``bcpnn_phase`` (bf16 traces in, and f32 traces in after a
+    merge).  The single rows of the prequential view and of each inference
+    through both layers are ``serving_rows``' already; the fleet's batched
+    micro-batches depend on timing and are checked after its run."""
+    return dict(hidden=[CONT_BATCH], update=[CONT_BATCH], readout_update=[CONT_BATCH],
+                flush=[CONT_BATCH])
 
 
 def served_chunks(ns, buckets):
@@ -1140,6 +1232,445 @@ def serving(torch, ops, ref, core, trained, card):
     return launches, report
 
 
+def continual_stream():
+    """Phase 6's feedback stream, in arrival order: ("fb", row, label,
+    tenant) for each labeled training row (labels flipped inside
+    CONT_BURST, tenants alternating) and ("x", test row) after every
+    CONT_INFER_EVERY-th one."""
+    items = []
+    for k in range(CONT_ROWS):
+        items.append(("fb", k, CONT_BURST[0] <= k < CONT_BURST[1], ("t0", "t1")[k % 2]))
+        if (k + 1) % CONT_INFER_EVERY == 0:
+            items.append(("x", k // CONT_INFER_EVERY))
+    return items
+
+
+def _layer_bits_equal(torch, got, want) -> bool:
+    """Two LayerStates (any devices) equal bit for bit, mask and step too."""
+    pairs = list(zip((*got.marginals, got.w, got.b, got.step),
+                     (*want.marginals, want.w, want.b, want.step)))
+    if got.plast is not None or want.plast is not None:
+        pairs.append((got.plast.hcu_mask, want.plast.hcu_mask))
+    return all(a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()) for a, b in pairs)
+
+
+def _instrument(plan):
+    """Host-side probes on a ContinualPlan (no kernel launch): the score row
+    of every prequential evaluation, the state each inference ran on, every
+    merged base by merge sequence with a host copy taken when it was made
+    (a device-to-host copy, so it syncs the engine thread once a merge),
+    and the last-good base and the adopted base around every rollback."""
+    probe = dict(view_rows=[], infer_states=[], merged={}, merged_host={}, rollbacks=[])
+    view, infer, merge, rollback = plan._view_fwd, plan.infer, plan._merge, plan._rollback
+
+    def view_fn(states, readout, xd):
+        scores = view(states, readout, xd)
+        probe["view_rows"].append(scores[0])
+        return scores
+
+    def infer_fn(sample):
+        probe["infer_states"].append(plan.compiled.state)
+        return infer(sample)
+
+    def merge_fn(**kw):
+        merge(**kw)
+        merged = plan.compiled.state.layers[plan._li]
+        probe["merged"][plan._merge_seq] = merged
+        probe["merged_host"][plan._merge_seq] = merged._map(lambda t: t.to("cpu", copy=True))
+
+    def rollback_fn(**kw):
+        last_good = plan._last_good[0]
+        rollback(**kw)
+        probe["rollbacks"].append((last_good, plan.compiled.state.layers[plan._li]))
+
+    plan._view_fwd, plan.infer, plan._merge, plan._rollback = view_fn, infer_fn, merge_fn, rollback_fn
+    return probe
+
+
+def continual_run(torch, ops, core, trained, path, layer, strategy, card):
+    """One continual run (phase 6a): the async engine over a card network
+    on phase 4's trained state, fed ``continual_stream()``; a CPU twin from
+    the same state takes the same stream through the sync drain.  Gates:
+    every future resolves; a merge, a drift event and a rollback happen;
+    the acks equal the twin's (``correct`` may differ only on near-ties);
+    the adopted base against the twin's under phase 5's rules (the fused
+    network's traces, rounded to bf16, under CONT_FUSED_*); each
+    rollback restores the last-good base bit for bit; the newest snapshot
+    reloads through ``load_adapters`` bit for bit; inference scores agree
+    with ``compiled.predict`` on the state they ran on; launch counts
+    exact, from the acks."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import latest_checkpoint, load_adapters, load_network
+    from repro_torch.runtime import ContinualConfig, Feedback, ServiceConfig
+
+    x, y, xt, _ = trained["split"]
+    pre = trained["states"][path]
+    cfg = trained["configs"][path]
+    compiled = trained["net"].compile(core.ExecutionConfig(engine="scan", device=trained["device"], **cfg))
+    compiled.state = pre
+    twin = trained["net"].compile(core.ExecutionConfig(engine="scan", device="cpu", **cfg))
+    twin.state = pre._replace(layers=tuple(s.to("cpu") for s in pre.layers))
+    li = layer if layer >= 0 else len(compiled.layers) + layer
+    pre_host = pre.layers[li].to("cpu")
+    fused = path == "fused_bf16"
+    flipped = (np.asarray(y) + 1) % N_CLASSES
+    items = continual_stream()
+
+    def item(kind, k, flip=False, tenant=None):
+        if kind == "x":
+            return xt[k]
+        return Feedback(x[k], int(flipped[k] if flip else y[k]), tenant=tenant)
+
+    with tempfile.TemporaryDirectory() as snap_dir:
+        cc = ContinualConfig(layer=layer, merge_strategy=strategy, snapshot_dir=snap_dir, **CONT_KW)
+        store = compiled.activations
+        p0 = store.stats["projections"]
+        ops.reset_launches()
+        svc = compiled.serve(ServiceConfig(continual=cc, async_mode=True))
+        probe = _instrument(svc.plan)
+        t0 = time.perf_counter()
+        futs = [svc.submit(item(*it)) for it in items]
+        outs = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        svc.drain_and_stop()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        projections = store.stats["projections"] - p0
+        tele = svc.stats["telemetry"]
+        # The newest snapshot: base and every adapter equal that merge's
+        # base as it was copied to the host when the merge made it, bit for
+        # bit (the adapters re-fork from it before it is written).
+        seq, snap = latest_checkpoint(snap_dir)
+        adapters = load_adapters(snap, compiled.state.layers[li], device="cpu")
+        snap_layers, _, _ = load_network(snap, list(compiled.state.layers), device="cpu")
+        newest = probe["merged_host"][seq]
+        check(sorted(adapters) == ["t0", "t1"], f"continual {path} layer {layer}: adapters "
+              f"{sorted(adapters)} in the newest snapshot")
+        check(all(_layer_bits_equal(torch, a, newest) for a in adapters.values())
+              and _layer_bits_equal(torch, snap_layers[li], newest),
+              f"continual {path} layer {layer}: snapshot {seq} does not reload bit for bit")
+
+    acks = [o for o in outs if isinstance(o, dict)]
+    rows = [o for o in outs if not isinstance(o, dict)]
+    check(len(acks) == CONT_ROWS and len(rows) == len(items) - CONT_ROWS,
+          f"continual {path}: {len(acks)} acks and {len(rows)} score rows")
+    check(all(r.shape == (N_CLASSES,) and np.isfinite(r).all() for r in rows),
+          f"continual {path}: a score row is malformed")
+    n = {k: sum(a[k] for a in acks) for k in ("applied", "shed", "merged", "rolled_back")}
+    check(n["merged"] >= 1 and n["rolled_back"] >= 1 and tele["drift_events"] >= 1,
+          f"continual {path} layer {layer}: acks {n}, drift events {tele['drift_events']}")
+    check(tele["merges"] == n["merged"] and tele["rollbacks"] == n["rolled_back"]
+          and tele["online_updates"] == n["applied"], f"continual {path}: telemetry {tele}")
+
+    # Each rollback restored the last-good base: the same object, and bit
+    # for bit the host copy taken when it was adopted (phase 4's state, or
+    # a merged base copied to the host by the merge that made it), so an
+    # in-place write into the base after its adoption fails the gate.
+    rolled_to_merged = 0
+    for last_good, adopted in probe["rollbacks"]:
+        seqs = [s for s, m in probe["merged"].items() if m is last_good]
+        want = pre_host if not seqs else probe["merged_host"][seqs[0]]
+        rolled_to_merged += bool(seqs)
+        check(adopted is last_good and _layer_bits_equal(torch, adopted, want),
+              f"continual {path} layer {layer}: a rollback did not restore the last-good base")
+
+    # Launches, exact: a two-layer view forward per feedback row, a
+    # projection (when the row is new to the store) and a head per
+    # inference, and per applied update the hidden layer's forward pair and
+    # bcpnn_update (bcpnn_phase on the fused network) or the readout's
+    # prefix pair and bcpnn_update; a merge launches nothing.
+    n_infer = len(rows)
+    fused_update = fused and li == 0
+    pairs = 2 * CONT_ROWS + projections + n_infer + (0 if fused_update else n["applied"])
+    want = dict(masked_matmul=pairs, hcu_softmax=pairs,
+                bcpnn_update=0 if fused_update else n["applied"],
+                bcpnn_phase=n["applied"] if fused_update else 0, bf_round=0)
+    check(projections == n_infer, f"continual {path}: {projections} projections for {n_infer} rows")
+    check(counts == want, f"continual {path} layer {layer}: launches {counts}, want {want}")
+
+    # Inference scores against predict on the state each ran on.
+    unclear = 0
+    final = compiled.state
+    by_state = {}
+    infer_items = [it for it in items if it[0] == "x"]
+    for (_, k), out, st in zip(infer_items, rows, probe["infer_states"]):
+        by_state.setdefault(id(st), (st, []))[1].append((k, out))
+    for st, served in by_state.values():
+        compiled.state = st
+        idx = [k for k, _ in served]
+        unclear += scores_agree(torch, f"continual {path} inference",
+                                torch.from_numpy(np.stack([o for _, o in served])),
+                                compiled.predict(xt[idx]).cpu())
+    compiled.state = final
+
+    # The CPU twin: the same stream through the sync drain.
+    tsvc = twin.serve(ServiceConfig(continual=ContinualConfig(
+        layer=layer, merge_strategy=strategy, **CONT_KW)))
+    tprobe = _instrument(tsvc.plan)
+    for it in items:
+        tsvc.submit(item(*it))
+    touts = tsvc.drain()
+    tacks = [o for o in touts if isinstance(o, dict)]
+    flags = ("tenant", "applied", "shed", "merged", "rolled_back")
+    check([tuple(a[f] for f in flags) for a in acks] == [tuple(a[f] for f in flags) for a in tacks],
+          f"continual {path} layer {layer}: the ack sequence differs from the CPU twin's")
+    near = 0
+    for a, ta, trow in zip(acks, tacks, tprobe["view_rows"]):
+        if a["correct"] != ta["correct"]:
+            top2 = trow.topk(2).values
+            margin = float(top2[0] - top2[1])
+            tol = 2 * (GEMM_TOL[0] * float(top2[0].abs()) + GEMM_TOL[1] * float(trow.abs().max()))
+            check(margin <= tol, f"continual {path}: a prequential prediction differs off a tie")
+            near += 1
+    st, tw = compiled.state.layers[li], twin.state.layers[li]
+    check(st.host_step == tw.host_step == int(st.step), f"continual {path}: steps differ")
+    mask_cols = 0
+    if st.plast is not None:
+        mask_cols = int((st.plast.hcu_mask.cpu() != tw.plast.hcu_mask).any(0).sum())
+    w_diff = float((st.w.cpu() - tw.w).abs().max())
+    b_diff = float((st.b.cpu() - tw.b).abs().max())
+    trace_rel = max(
+        float(((g.cpu().float() - t.float()).abs() / t.float().abs().clamp_min(STREAM_EPS)).max())
+        for g, t in zip(st.marginals, tw.marginals))
+    lat = percentiles(tele, "queue_wait_s", "update_s", "e2e_s")
+    dtypes = sorted({str(t.dtype) for t in st.marginals})
+    print(f"continual {path} layer {layer} ({strategy}) [{card}]: {len(items)} items "
+          f"({CONT_ROWS} feedback, {n_infer} inferences) in {wall:.4f} s "
+          f"({len(items) / wall:.1f} items/s); acks {json.dumps(n)}, drift events "
+          f"{tele['drift_events']}, steps {pre.layers[li].host_step}..{st.host_step}, traces "
+          f"{dtypes}; twin: acks equal, correct apart on {near} near-ties, mask HCUs differing "
+          f"{mask_cols}, max |w - w_twin| {w_diff:.3e}, |b - b_twin| {b_diff:.3e}, traces "
+          f"{trace_rel:.3e} relative; rollbacks to a merged base {rolled_to_merged} of "
+          f"{len(probe['rollbacks'])}; inference rows near a tie {unclear}; latency s "
+          f"{json.dumps(lat)}; launches {json.dumps(counts)}")
+    check(mask_cols <= STREAM_MASK_COLUMNS[path],
+          f"continual {path}: masks differ from the twin's in {mask_cols} hidden HCUs")
+    trace_tol, w_tol = ((CONT_FUSED_TRACE_RTOL, CONT_FUSED_W_TOL) if fused
+                        else (STREAM_TRACE_RTOL, STREAM_W_TOL))
+    check(trace_rel <= trace_tol and w_diff <= w_tol and b_diff <= w_tol,
+          f"continual {path} layer {layer}: traces {trace_rel:.3e} (bound {trace_tol:.3e}), "
+          f"w {w_diff:.3e}, b {b_diff:.3e} (bound {w_tol:.3e}) from the twin")
+    return counts, dict(items=len(items), wall_s=wall, items_per_s=len(items) / wall, acks=n,
+                        drift_events=tele["drift_events"], latency_s=lat, trace_dtypes=dtypes,
+                        near_ties=near, mask_hcus_differing=mask_cols, max_w_diff=w_diff,
+                        max_b_diff=b_diff, trace_max_rel_diff=trace_rel,
+                        rollbacks_to_merged=rolled_to_merged)
+
+
+class _Crash(BaseException):
+    """Escapes the engine's per-batch Exception handler: kills its loop."""
+
+
+def fleet_run(torch, ops, ref, core, trained, card):
+    """Phase 6b: the Router over two batched engines and two continual
+    engines (each over its own network loaded from the unfused network's
+    checkpoint), tenants free (weight 1) and paid (weight 4), p95 routing.
+    FLEET_CLIENTS threads submit the test rows, two threads a tenant (so a
+    client backing off from its tenant's full queue never holds back the
+    other tenant), a quarter of the free rows with a FLEET_DEADLINE_S
+    deadline; a feedback thread
+    sends FLEET_FEEDBACK labeled rows (the same flipped burst) to the
+    continual pool.  The batched engine that first reaches its
+    FLEET_CRASH_AT-th row crashes, once.  Gates: every future resolves to a value or a
+    typed error; exactly one restart; each tenant's feedback on one
+    continual engine; served scores against ``compiled.predict``; the
+    forward pair at every micro-batch size the engines formed."""
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from repro_torch.checkpoint import save_network
+    from repro_torch.runtime import (
+        BatchedPlan, ContinualConfig, ContinualPlan, DeadlineExceeded, DriftDetected, Feedback,
+        Router, RouterConfig, RouterError, ServiceConfig, TenantConfig, TenantQueueFull)
+
+    x, y, xt, _ = trained["split"]
+    flipped = (np.asarray(y) + 1) % N_CLASSES
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        path = save_network(ckpt_dir, 0, trained["states"]["unfused_f32"])
+        nets = [trained["net"].compile(core.ExecutionConfig(engine="scan", device=trained["device"])).load(path)
+                for _ in range(4)]
+    # The first batched engine to reach its FLEET_CRASH_AT-th row crashes,
+    # once (p95 routing decides which engine gets more rows).
+    sizes, armed, seen = [], {"on": True}, {}
+
+    def batched_factory(compiled, name):
+        def factory(config, metrics):
+            plan = BatchedPlan(compiled, config, metrics)
+            predict = plan.predict
+
+            def recorded(xb):
+                sizes.append(len(xb))
+                seen[name] = seen.get(name, 0) + len(xb)
+                if seen[name] >= FLEET_CRASH_AT and armed.pop("on", None):
+                    raise _Crash(f"injected crash in {name} at row {seen[name]}")
+                return predict(xb)
+
+            plan.predict = recorded
+            return plan
+        return factory
+
+    def continual_factory(compiled):
+        return lambda config, metrics: ContinualPlan(compiled, config, metrics)
+
+    ops.reset_launches()
+    router = Router(RouterConfig(tenants={"free": TenantConfig(weight=1),
+                                          "paid": TenantConfig(weight=4)}, routing="p95"))
+    batched_cfg = ServiceConfig(plan="batched", max_batch=64, max_wait_s=0.002, max_queue=64)
+    cont_cfg = ServiceConfig(max_queue=8, continual=ContinualConfig(layer=0, **CONT_KW))
+    for i in range(2):
+        router.add_engine(f"batched{i}", batched_factory(nets[i], f"batched{i}"), batched_cfg)
+    router.add_engine("continual0", continual_factory(nets[2]), cont_cfg)
+    router.add_engine("continual1", continual_factory(nets[3]), cont_cfg)
+
+    n = len(xt) - len(xt) % FLEET_CLIENTS
+    results, fb_results, errors = [None] * n, [None] * FLEET_FEEDBACK, []
+    bounced = {"free": 0, "paid": 0}
+    samples, done = [], threading.Event()
+
+    def submit(item, **kw):
+        while True:  # a client backs off while its tenant's queue is full
+            try:
+                return router.submit(item, **kw)
+            except TenantQueueFull as e:
+                bounced[e.tenant] += 1
+                time.sleep(0.001)
+
+    def outcome(fut):
+        try:
+            return fut.result(timeout=300)
+        except (RouterError, DriftDetected) as e:
+            return e
+
+    def client(t):  # clients 0, 2 are the free tenant's, 1, 3 the paid tenant's
+        try:
+            futs = []
+            for i in range(t, n, FLEET_CLIENTS):
+                tenant = ("free", "paid")[i % 2]
+                deadline = FLEET_DEADLINE_S if tenant == "free" and i % 8 == 0 else None
+                futs.append((i, submit(xt[i], tenant=tenant, deadline_s=deadline)))
+            for i, f in futs:
+                results[i] = outcome(f)
+        except BaseException as e:  # reported below: the run fails on it
+            errors.append(e)
+
+    def feeder():
+        try:
+            futs = []
+            for k in range(FLEET_FEEDBACK):
+                label = int(flipped[k] if CONT_BURST[0] <= k < CONT_BURST[1] else y[k])
+                tenant = ("free", "paid")[k % 2]
+                futs.append((k, submit(Feedback(x[k], label, tenant=tenant), tenant=tenant,
+                                       pool="continual")))
+            for k, f in futs:
+                fb_results[k] = outcome(f)
+        except BaseException as e:  # reported below
+            errors.append(e)
+
+    def monitor():  # DRR share while both tenants are backlogged
+        while not done.is_set():
+            st = router.stats["tenants"]
+            tm = router.metrics.tenants
+            samples.append({t: (st[t]["depth"] if t in st else 0,
+                                tm[t].sched_wait_s.count if t in tm else 0)
+                            for t in ("free", "paid")})
+            time.sleep(0.002)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(FLEET_CLIENTS)]
+    threads.append(threading.Thread(target=feeder))
+    mon = threading.Thread(target=monitor)
+    t0 = time.perf_counter()
+    router.start()
+    mon.start()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    router.drain_and_stop(timeout=300)
+    done.set()
+    mon.join(30)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(not any(t.is_alive() for t in threads) and not mon.is_alive(), "fleet: a thread hangs")
+    check(not errors, f"fleet: a client failed: {errors[:1]!r}")
+    typed = (RouterError, DriftDetected)
+    check(all(r is not None for r in results) and all(r is not None for r in fb_results),
+          "fleet: a future did not resolve")
+    bad = [r for r in results + fb_results if isinstance(r, BaseException) and not isinstance(r, typed)]
+    check(not bad, f"fleet: an untyped failure {bad[:1]!r}")
+    stats = router.stats
+    restarts = {name: e["restarts"] for name, e in stats["engines"].items()}
+    check(sum(restarts.values()) == 1 and restarts["batched0"] + restarts["batched1"] == 1
+          and stats["telemetry"]["restarts"] == 1 and not armed, f"fleet: restarts {restarts}")
+    pinned = {t: [name for name, slot in router._slots.items()
+                  if slot.pool == "continual" and t in slot.engine.plan.stats["tenants"]]
+              for t in ("free", "paid")}
+    check(all(len(v) == 1 for v in pinned.values()), f"fleet: feedback spread over {pinned}")
+
+    served = [(i, r) for i, r in enumerate(results) if not isinstance(r, BaseException)]
+    idx = [i for i, _ in served]
+    got = torch.from_numpy(np.stack([r for _, r in served]))
+    unclear = scores_agree(torch, "fleet", got, nets[0].predict(xt[idx]).cpu())
+    rows = serving_rows()
+    unseen = sorted(set(sizes) - (set(rows["hidden"]) & set(rows["head"])))
+    worst = forward_pair_at(torch, ops, ref, nets[0], xt, unseen)
+
+    shed = {t: {k: stats["telemetry"]["tenants"][t][k]
+                for k in ("shed_deadline", "shed_drift", "requeued", "failed", "completed")}
+            for t in ("free", "paid")}
+    drift_shed = sum(isinstance(r, DriftDetected) for r in fb_results)
+    deadline_shed = sum(isinstance(r, DeadlineExceeded) for r in results)
+    both, d_free, d_paid = 0, 0, 0
+    for a, b in zip(samples, samples[1:]):
+        if a["free"][0] > 0 and a["paid"][0] > 0:
+            both += 1
+            d_free += b["free"][1] - a["free"][1]
+            d_paid += b["paid"][1] - a["paid"][1]
+    share = d_paid / d_free if d_free else None
+    tenants = {t: percentiles(stats["telemetry"]["tenants"][t], "sched_wait_s", "e2e_s")
+               for t in ("free", "paid")}
+    cont = {name: stats["telemetry"]["engines"][name] for name in ("continual0", "continual1")}
+    update = {name: {q: c["update_s"][q] for q in ("p50", "p99")} for name, c in cont.items()}
+    online = {k: sum(c[k] for c in cont.values())
+              for k in ("online_updates", "updates_shed", "merges", "rollbacks", "drift_events")}
+    print(f"fleet [{card}]: {len(served)} of {n} rows served by 2 batched engines in {wall:.4f} s "
+          f"({len(served) / wall:.1f} rows/s), {deadline_shed} shed by their {FLEET_DEADLINE_S} s "
+          f"deadline; {FLEET_FEEDBACK} feedback rows to 2 continual engines, pinned "
+          f"{json.dumps(pinned)}, {drift_shed} shed on drift; restarts {json.dumps(restarts)}; "
+          f"micro-batches {len(sizes)} of {json.dumps(sorted(set(sizes)))} rows (checked after "
+          f"the run: {json.dumps(unseen)}, max_abs_err {json.dumps(worst)}); rows near a tie "
+          f"{unclear}; router queue wait and end to end s {json.dumps(tenants)}; update_s "
+          f"{json.dumps(update)}; online {json.dumps(online)}; sheds {json.dumps(shed)}; "
+          f"submits bounced off a full tenant queue {json.dumps(bounced)}; DRR dispatches paid:free "
+          f"while both backlogged {d_paid}:{d_free} over {both} samples "
+          f"(share {'null' if share is None else f'{share:.3f}'}); launches {json.dumps(counts)}")
+    return counts, dict(rows=n, served=len(served), wall_s=wall, rows_per_s=len(served) / wall,
+                        deadline_shed=deadline_shed, drift_shed=drift_shed, pinned=pinned,
+                        restarts=restarts, batch_rows=sorted(set(sizes)), checked_after=unseen,
+                        checked_after_max_abs_err=worst, near_ties=unclear, tenants_latency_s=tenants,
+                        update_s=update, online=online, sheds=shed, bounced=bounced,
+                        drr_paid_to_free=share, drr_samples=both)
+
+
+def fabric(torch, ops, ref, core, trained, card):
+    """Phase 6: the continual tier (three runs) and the router fleet, at
+    full width, on phase 4's trained states."""
+    launches, report = {}, {}
+    for path, layer, strategy in CONT_RUNS:
+        key = f"continual/{path}/layer{layer}"
+        launches[key], report[key] = continual_run(torch, ops, core, trained, path, layer,
+                                                   strategy, card)
+    launches["fleet"], report["fleet"] = fleet_run(torch, ops, ref, core, trained, card)
+    for name in ("masked_matmul", "hcu_softmax", "bcpnn_update", "bcpnn_phase"):
+        check(any(c[name] > 0 for c in launches.values()), f"{name} not launched by the fabric phase")
+    return launches, report
+
+
 def main() -> int:
     import torch
 
@@ -1189,11 +1720,20 @@ def main() -> int:
         torch, ops, core, data, policy)
 
     # Phase 5: serve the networks phase 4 trained, launches counted from
-    # zero on each serving run.
+    # zero on each serving run.  Phase 6 starts again from the trained
+    # states (states are never written in place, so holding them suffices).
+    trained["states"] = {path: net.state for path, net in trained["nets"].items()}
     serve_launches, served = serving(torch, ops, ref, core, trained, card)
     launches.update(serve_launches)
 
-    # Phase 6: the records.
+    # Phase 6: the serving fabric, the continual tier and the router fleet.
+    t0 = time.perf_counter()
+    fabric_launches, fabric_report = fabric(torch, ops, ref, core, trained, card)
+    launches.update(fabric_launches)
+    fabric_report["wall_s"] = time.perf_counter() - t0
+    print(f"phase 6 (the serving fabric) wall: {fabric_report['wall_s']:.2f} s")
+
+    # Phase 7: the records.
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in launches.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -1212,6 +1752,7 @@ def main() -> int:
         "datapath_stages_card_vs_cpu": stages,
         "batch_device_ms": per_batch,
         "serving": served,
+        "fabric": fabric_report,
     }))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -32,10 +32,8 @@ def network_state_from_flat(
 ) -> NetworkState:
     """A NetworkState for ``layers`` on ``device`` from flat arrays, the
     SGD readout head included when ``readout/w`` and ``readout/b`` are
-    there.  Continual-learning adapters (``adapters/*``) are not ported
-    and are refused."""
-    if any(k.startswith("adapters/") for k in flat):
-        raise ValueError("adapters/*: continual-learning adapters are not ported yet")
+    there.  Continual-learning adapters (``adapters/<tenant>/...``) are not
+    part of the network's state and are left for ``load_adapters``."""
 
     def get(key: str, shape) -> torch.Tensor:
         if key not in flat:

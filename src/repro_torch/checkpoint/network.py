@@ -10,15 +10,19 @@ reference's (``repro/checkpoint/network.py``)::
     layers/<i>/marginals/{ci,cj,cij}   layers/<i>/{w,b,step}
     layers/<i>/plast/hcu_mask          (hidden layers)
     readout/{w,b}                      (the SGD readout head, when present)
+    adapters/<tenant>/...              per-tenant continual-learning adapter
+                                       LayerStates (when the continual tier
+                                       snapshots at a merge)
 
-with ``extra = {network_ckpt_version, n_layers, has_readout, rng_state}``.
+with ``extra = {network_ckpt_version, n_layers, has_readout, rng_state}``,
+plus ``adapter_tenants`` and ``adapter_layer`` when adapters are saved.
 Loading checks the layer count, every shape, and the head's input width
 against the target network.  The optimizer's moments are not saved (a
-resumed fit starts them afresh), as in the reference.  Continual-learning
-adapters (``adapters/*``) are not ported yet.
+resumed fit starts them afresh), as in the reference.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -32,10 +36,18 @@ from repro_torch.checkpoint.store import (
 
 _VERSION = 1
 
+# Tenant names become flat array keys (``adapters/<tenant>/...``): restrict
+# them so a name can never alias another key's path segments.
+_TENANT_RE = re.compile(r"^[A-Za-z0-9._-]+$")
+
+
+def _unmirrored(state):
+    # host_step mirrors ``step`` on the host and is not saved.
+    return state._replace(host_step=None)
+
 
 def _network_tree(layer_states: Sequence[Any], readout: Optional[dict]) -> dict:
-    # host_step mirrors ``step`` on the host and is not saved.
-    tree = {"layers": {str(i): s._replace(host_step=None) for i, s in enumerate(layer_states)}}
+    tree = {"layers": {str(i): _unmirrored(s) for i, s in enumerate(layer_states)}}
     if readout is not None:
         tree["readout"] = readout
     return tree
@@ -69,17 +81,53 @@ def save_network(
     state,
     rng_state: Optional[dict] = None,
     retain: int = 3,
+    adapters: Optional[Dict[str, Any]] = None,
+    adapter_layer: Optional[int] = None,
 ) -> str:
-    """Atomically write a NetworkState (+ host RNG state) checkpoint."""
+    """Atomically write a NetworkState (+ host RNG state) checkpoint.
+
+    adapters: optional ``tenant -> LayerState`` map from the continual tier;
+    each adapter is a fork of layer ``adapter_layer`` and is stored under
+    ``adapters/<tenant>/...``, so a base+adapters snapshot is ONE atomic
+    manifest (the rollback unit).
+    """
     extra = {
         "network_ckpt_version": _VERSION,
         "n_layers": len(state.layers),
         "has_readout": state.readout is not None,
         "rng_state": rng_state,
     }
-    return save_checkpoint(
-        directory, step, _network_tree(state.layers, state.readout), retain=retain, extra=extra
-    )
+    tree = _network_tree(state.layers, state.readout)
+    if adapters:
+        for tenant in adapters:
+            if not _TENANT_RE.match(tenant):
+                raise ValueError(
+                    f"tenant name {tenant!r} is not checkpoint-safe (expected [A-Za-z0-9._-]+)"
+                )
+        tree["adapters"] = {t: _unmirrored(s) for t, s in adapters.items()}
+        extra["adapter_tenants"] = sorted(adapters)
+        extra["adapter_layer"] = adapter_layer
+    return save_checkpoint(directory, step, tree, retain=retain, extra=extra)
+
+
+def load_adapters(path: str, template: Any, device=None) -> Dict[str, Any]:
+    """Restore the per-tenant adapter LayerStates of a network checkpoint
+    (this package's or the reference's), on ``device`` (default: the
+    template's).  template: the adapted layer's current LayerState (its
+    structure and shapes).  Returns ``{}`` for a checkpoint written without
+    adapters."""
+    extra = load_manifest(path).get("extra", {})
+    if extra.get("network_ckpt_version") != _VERSION:
+        raise ValueError(f"{path} is not a network checkpoint")
+    tenants = extra.get("adapter_tenants") or []
+    if not tenants:
+        return {}
+    flat = load_flat(path)
+    out = {}
+    for t in tenants:
+        s = restore_into_template(flat, template, prefix=f"adapters/{t}/", device=device)
+        out[t] = s._replace(host_step=int(s.step))
+    return out
 
 
 def load_network(

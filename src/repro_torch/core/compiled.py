@@ -25,7 +25,8 @@ passing one raises a ``TypeError`` that names it.
 forward (:meth:`CompiledNetwork._forward_fn`) and one readout head
 (:meth:`CompiledNetwork._head_fn`), so service and library calls cannot
 diverge; ``serve`` binds the ``"batched"`` (default) or ``"streaming"``
-plan of :mod:`repro_torch.runtime.service`.
+plan of :mod:`repro_torch.runtime.service`, or the ``"continual"`` plan
+of :mod:`repro_torch.runtime.continual`.
 """
 from __future__ import annotations
 
@@ -491,14 +492,18 @@ class CompiledNetwork:
         """Bind this compiled network to an :class:`InferenceService`.
         ``ServiceConfig(plan=...)`` picks the strategy: "batched" (default:
         bucket-padded classification through the same projection and head
-        ``predict`` uses) or "streaming" (the latency path, over
-        :meth:`streaming`).  ``ServiceConfig(async_mode=True)`` starts the
-        executor thread at bind time, and ``submit()`` then returns
+        ``predict`` uses), "streaming" (the latency path, over
+        :meth:`streaming`) or "continual" (batched classification that
+        keeps learning from labeled ``Feedback``; the default when
+        ``ServiceConfig(continual=...)`` is set).
+        ``ServiceConfig(async_mode=True)`` starts the executor thread at
+        bind time, and ``submit()`` then returns
         ``concurrent.futures.Future``s (:mod:`repro_torch.runtime.engine`)."""
         from repro_torch.runtime.service import SERVE_PLANS, InferenceService, ServiceConfig
 
         config = config if config is not None else ServiceConfig()
-        plan = SERVE_PLANS[config.plan or "batched"](self, config)
+        plan_name = config.plan or ("continual" if config.continual is not None else "batched")
+        plan = SERVE_PLANS[plan_name](self, config)
         service = InferenceService(plan, config)
         if config.async_mode:
             service.start()

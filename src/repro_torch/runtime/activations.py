@@ -17,10 +17,15 @@ the frozen stack per batch.
 * Projection runs in chunks of the training batch size, the ragged tail
   zero-padded to a full chunk, so every row sees the GEMM shape of a
   training batch.
+* Threads: :meth:`ActivationStore.level` and
+  :meth:`ActivationStore.invalidate_above` hold one lock, so several
+  serving engines may share a compiled network (without it, one thread's
+  insert could evict the entry another was about to return).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -75,6 +80,7 @@ class ActivationStore:
         self._entries: Dict[Tuple[int, int], _Entry] = {}  # (id(x), level)
         self._tick = 0
         self.stats = {"projections": 0, "hits": 0, "spills": 0, "evictions": 0}
+        self._lock = threading.RLock()
 
     # ------------------------------------------------------------- interface
     def level(self, k: int, states: Sequence[Any], x, chunk: int):
@@ -83,6 +89,10 @@ class ActivationStore:
             return x
         if not 0 < k <= len(self.layers):
             raise ValueError(f"level {k} out of range for {len(self.layers)} layers")
+        with self._lock:
+            return self._level_locked(k, states, x, chunk)
+
+    def _level_locked(self, k: int, states: Sequence[Any], x, chunk: int):
         self._purge(states)
         # Each entry holds a strong reference to its dataset array, so the
         # id() in its key stays reserved for the entry's lifetime.
@@ -90,7 +100,7 @@ class ActivationStore:
         entry = self._entries.get(key)
         if entry is not None:
             self.stats["hits"] += 1
-            entry.tick = self._next_tick()
+            entry.tick = self._next_tick_locked()
             return entry.value
         base, j = x, 0
         for (aid, lvl), e in self._entries.items():
@@ -106,29 +116,33 @@ class ActivationStore:
         drop them lazily at the next :meth:`level` call; a state adoption
         (a streaming session's close) calls this so the dead projections
         release their device and host bytes at the adoption itself."""
-        stale = [k for k in self._entries if k[1] > level]
-        for k in stale:
-            del self._entries[k]
-            self.stats["evictions"] += 1
-        return len(stale)
+        with self._lock:
+            stale = [k for k in self._entries if k[1] > level]
+            for k in stale:
+                del self._entries[k]
+                self.stats["evictions"] += 1
+            return len(stale)
 
     @property
     def device_bytes(self) -> int:
-        return sum(e.nbytes for e in self._entries.values() if not e.on_host)
+        with self._lock:
+            return sum(e.nbytes for e in self._entries.values() if not e.on_host)
 
     @property
     def host_bytes(self) -> int:
-        return sum(e.nbytes for e in self._entries.values() if e.on_host)
+        with self._lock:
+            return sum(e.nbytes for e in self._entries.values() if e.on_host)
 
     def resident(self, k: int, x) -> Optional[str]:
         """'device' / 'host' for the cached level ``k`` of ``x``, else None."""
-        e = self._entries.get((id(x), k))
+        with self._lock:
+            e = self._entries.get((id(x), k))
         if e is None:
             return None
         return "host" if e.on_host else "device"
 
     # -------------------------------------------------------------- plumbing
-    def _next_tick(self) -> int:
+    def _next_tick_locked(self) -> int:
         self._tick += 1
         return self._tick
 
@@ -174,7 +188,7 @@ class ActivationStore:
             self.stats["spills"] += 1
         self._entries[key] = _Entry(
             value=value, states=tuple(states[: key[1]]), x=x, nbytes=nbytes,
-            on_host=on_host, tick=self._next_tick(),
+            on_host=on_host, tick=self._next_tick_locked(),
         )
         # Host-spilled bytes are bounded too: drop LRU host entries.
         while self.host_bytes > self.host_budget_bytes:

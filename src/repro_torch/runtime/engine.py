@@ -1,7 +1,7 @@
 """Async serving engine: deadline micro-batching, futures, backpressure.
 
-The port of the JAX package's ``repro/runtime/engine.py`` for the batched
-and streaming plans.  The synchronous
+The port of the JAX package's ``repro/runtime/engine.py`` for the batched,
+streaming and continual plans.  The synchronous
 :class:`~repro_torch.runtime.service.InferenceService` path is a
 hand-crank: callers ``submit()`` into a deque and block on ``drain()``.
 This module gives a :class:`~repro_torch.runtime.service.ServePlan` a
@@ -18,6 +18,8 @@ serving runtime:
   ``max_batch`` is reached or ``max_wait_s`` has elapsed since the batch
   opened.
 * **Per-item inference (StreamingPlan):** the lowest-latency path.
+* **Update/infer interleave (ContinualPlan):** labeled ``Feedback`` items
+  learn, every other item infers, in arrival order on the one thread.
 * **Backpressure:** the inbox is bounded by ``max_queue`` (the knob the
   sync queue uses); a submit beyond it raises :class:`QueueFull` and counts
   into ``metrics.rejected``.
@@ -27,10 +29,12 @@ serving runtime:
   futures with the exception (so every future resolves, and the caller sees
   the fault); a loop crash fails the remaining futures.
 * **Restart seam:** ``drain_and_stop()`` returns the work items the loop
-  could NOT complete (empty on a graceful drain).
+  could NOT complete (empty on a graceful drain).  A supervisor (the
+  :mod:`repro_torch.runtime.router` Router) re-enqueues them onto a
+  replacement engine built from the same plan factory (hot restart).
 
-The decode loop (continuous batching of the LM zoo) and the continual
-tier's loop are not ported: an engine over such a plan raises by name.
+The decode loop (continuous batching of the LM zoo) is not ported: an
+engine over such a plan raises by name.
 Latency telemetry (queue wait, batch, end to end) records into the plan's
 shared :class:`~repro_torch.runtime.metrics.ServiceMetrics` bundle.
 """
@@ -79,10 +83,7 @@ class AsyncEngine:
     _POLL_S = 0.05  # idle wakeup so state changes are never missed
 
     # Plans whose loops wait for a later slice of the port.
-    _UNPORTED_LOOPS = {
-        "decode": "token decoding of the LM zoo (Slice F)",
-        "continual": "the continual-learning tier (runtime/continual.py)",
-    }
+    _UNPORTED_LOOPS = {"decode": "token decoding of the LM zoo (Slice F)"}
 
     def __init__(self, plan, config, metrics=None, name: str = "engine",
                  tracer=None):
@@ -259,6 +260,8 @@ class AsyncEngine:
             with on_card:
                 if self.plan.name == "batched":
                     self._loop_batched()
+                elif self.plan.name == "continual":
+                    self._loop_continual()
                 else:
                     self._loop_streaming()
         except BaseException as e:
@@ -381,10 +384,37 @@ class AsyncEngine:
                     )
                 raise
 
-    # -------------------------------------------------- streaming (latency)
+    # ------------------------------------ per item: streaming, continual
     def _loop_streaming(self) -> None:
-        """Per-item inference through the streaming session — the lowest
-        latency path; coalesced training feeds stay on the sync surface."""
+        """Per-item inference through the streaming session: the lowest
+        latency path; coalesced training feeds stay on the sync surface.
+        The streaming plan answers with a host array already."""
+        self._loop_items(lambda item, _trace_id: self.plan.infer(np.asarray(item)))
+
+    def _loop_continual(self) -> None:
+        """Update/infer interleave on the ONE loop thread: labeled Feedback
+        items run the plan's online-learning step (micro-batch Hebbian
+        update, merge, drift safety loop), everything else is per-item
+        inference (a host score row), so a rollback can never race an
+        in-flight prediction, and every future (feedback acks included)
+        resolves in arrival order."""
+        from repro_torch.runtime.continual import Feedback
+
+        def serve(item, trace_id):
+            if not isinstance(item, Feedback):
+                return self.plan.infer(np.asarray(item)).cpu().numpy()
+            t0 = time.perf_counter()
+            ack = self.plan.learn(item)
+            if self.tracer is not None and trace_id is not None:
+                self.tracer.record(trace_id, "engine.learn", t0, time.perf_counter(),
+                                   engine=self.name, tenant=item.tenant)
+            return ack
+
+        self._loop_items(serve)
+
+    def _loop_items(self, serve) -> None:
+        """One item at a time, in arrival order: ``serve(item, trace_id)``
+        gives the item's result."""
         while True:
             with self._cv:
                 while not self._inbox and self._state == "running":
@@ -399,7 +429,7 @@ class AsyncEngine:
             self.metrics.queue_wait_s.observe(now - w.t_submit)
             self._span_inbox(w, now)
             try:
-                self._complete(w, np.asarray(self.plan.infer(np.asarray(w.item))))
+                self._complete(w, serve(w.item, w.trace_id))
             except Exception as e:  # noqa: BLE001 — per-item failure
                 w.future.set_exception(e)
             except BaseException as e:
@@ -414,4 +444,3 @@ class AsyncEngine:
                     ),
                 )
                 raise
-

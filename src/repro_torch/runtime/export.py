@@ -1,23 +1,25 @@
 """OpenMetrics export: exposition-format rendering, a stdlib validator,
 and an ``http.server`` scrape endpoint.
 
-The in-process snapshot dict (``ServiceMetrics.snapshot()``) is great for
-tests and CLI summaries but invisible to a scrape-based monitoring stack.
-This module renders it as OpenMetrics text (the Prometheus exposition
-format, versioned flavor:
+The in-process snapshot dicts (``ServiceMetrics.snapshot()`` /
+``RouterMetrics.snapshot()``) are great for tests and CLI summaries but
+invisible to a scrape-based monitoring stack.  This module renders them
+as OpenMetrics text (the Prometheus exposition format, versioned flavor:
 https://prometheus.io/docs/specs/om/open_metrics_spec/):
 
 * counters  -> ``repro_submitted_total 42``
 * gauges    -> ``repro_queue_depth 3``
 * histogram snapshots -> OpenMetrics *summary* families:
   ``repro_e2e_seconds{quantile="0.95"} 0.012`` + ``_count``/``_sum``
+* router snapshots fan out with ``tenant=``/``engine=`` labels, plus the
+  fabric-wide ``repro_fleet_*`` roll-up series.
 
 Deliberately **pure stdlib** (no numpy, no torch): the renderer and
 :func:`parse_openmetrics` run anywhere.  A copy of the JAX package's
-``repro/runtime/export.py`` for the one-service snapshot: the reference's
-router snapshots (``tenant=``/``engine=`` labels, the ``repro_fleet_*``
-roll-up), the continual tier's counters and drift gauges, and its
-``checkmetrics`` command line come with the slices that port them.
+``repro/runtime/export.py``; its ``checkmetrics`` command line is
+:func:`main` here (``python -m repro_torch.runtime.export FILE
+[--require FAMILY] [--trace TRACE.json --expect-trace-id ID]``), which
+validates a scraped or dumped payload.
 
 :class:`MetricsServer` wraps ``ThreadingHTTPServer`` around a snapshot
 callable:
@@ -41,10 +43,16 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 __all__ = [
     "render_openmetrics", "parse_openmetrics", "OpenMetricsError",
-    "MetricsServer",
+    "MetricsServer", "main",
 ]
 
 _QUANTILES = (("p50", "0.5"), ("p95", "0.95"), ("p99", "0.99"))
+
+# ServiceMetrics.ONLINE_COUNTERS, spelled out so this module stays pure
+# stdlib (importing metrics would pull numpy in).
+_ONLINE_COUNTERS = (
+    "online_updates", "updates_shed", "merges", "rollbacks", "drift_events",
+)
 
 # Histogram snapshot names end in `_s`; exported seconds-unit families
 # spell it out per Prometheus naming conventions.
@@ -130,27 +138,68 @@ class _Families:
         return "\n".join(out) + "\n"
 
 
-def _hist_family(ns: str, name: str) -> str:
-    return f"{ns}_{_SECONDS_SUFFIX.sub('_seconds', name)}"
+def _hist_family(ns: str, prefix: str, name: str) -> str:
+    return f"{ns}_{prefix}{_SECONDS_SUFFIX.sub('_seconds', name)}"
+
+
+def _render_service(fams: _Families, snap: Dict[str, Any], ns: str,
+                    **labels) -> None:
+    """One ServiceMetrics snapshot (optionally engine-labelled)."""
+    for key in ("submitted", "completed", "rejected"):
+        if key in snap:
+            fams.counter(f"{ns}_{key}", snap[key], **labels)
+    if "queue_depth" in snap:
+        fams.gauge(f"{ns}_queue_depth", snap["queue_depth"], **labels)
+    for key in _ONLINE_COUNTERS:
+        if key in snap:
+            fams.counter(f"{ns}_{key}", snap[key], **labels)
+    for name, h in snap.items():
+        if isinstance(h, dict) and "p95" in h and "count" in h:
+            fams.summary(h, _hist_family(ns, "", name), **labels)
+    drift = snap.get("drift")
+    if isinstance(drift, dict):
+        for key in ("accuracy", "baseline_accuracy", "confidence",
+                    "samples"):
+            if drift.get(key) is not None:
+                fams.gauge(f"{ns}_drift_{key}", drift[key], **labels)
+        fams.gauge(f"{ns}_drifted", 1.0 if drift.get("drifted") else 0.0,
+                   **labels)
 
 
 def render_openmetrics(snapshot: Dict[str, Any], namespace: str = "repro") -> str:
-    """Render a ``ServiceMetrics.snapshot()`` dict as OpenMetrics
-    exposition text (terminated by ``# EOF``)."""
+    """Render a ``ServiceMetrics.snapshot()`` or ``RouterMetrics.snapshot()``
+    dict as OpenMetrics exposition text (terminated by ``# EOF``)."""
     fams = _Families()
-    for key in ("submitted", "completed", "rejected"):
-        if key in snapshot:
-            fams.counter(f"{namespace}_{key}", snapshot[key])
-    if "queue_depth" in snapshot:
-        fams.gauge(f"{namespace}_queue_depth", snapshot["queue_depth"])
-    for name, h in snapshot.items():
-        if isinstance(h, dict) and "p95" in h and "count" in h:
-            fams.summary(h, _hist_family(namespace, name))
+    is_router = "tenants" in snapshot or "engines" in snapshot
+    if not is_router:
+        _render_service(fams, snapshot, namespace)
+        return fams.render()
+
+    if "dispatched" in snapshot:
+        fams.counter(f"{namespace}_router_dispatched", snapshot["dispatched"])
+    if "restarts" in snapshot:
+        fams.counter(f"{namespace}_router_restarts", snapshot["restarts"])
+    for tenant, tsnap in sorted(snapshot.get("tenants", {}).items()):
+        for key, value in tsnap.items():
+            if isinstance(value, dict) and "p95" in value:
+                fams.summary(value, _hist_family(namespace, "tenant_", key),
+                             tenant=tenant)
+            elif key == "queue_depth":
+                fams.gauge(f"{namespace}_tenant_queue_depth", value,
+                           tenant=tenant)
+            elif isinstance(value, (int, float)):
+                fams.counter(f"{namespace}_tenant_{key}", value,
+                             tenant=tenant)
+    for engine, esnap in sorted(snapshot.get("engines", {}).items()):
+        _render_service(fams, esnap, namespace, engine=engine)
+    for name, h in sorted(snapshot.get("fleet", {}).items()):
+        if isinstance(h, dict) and "p95" in h:
+            fams.summary(h, _hist_family(namespace, "fleet_", name))
     return fams.render()
 
 
 # --------------------------------------------------------------------------
-# Validation.
+# Validation (the `checkmetrics` parser).
 # --------------------------------------------------------------------------
 class OpenMetricsError(ValueError):
     """The payload is not valid OpenMetrics text."""
@@ -331,3 +380,73 @@ class MetricsServer:
         self._server.shutdown()
         self._server.server_close()
         self._thread.join(timeout=5)
+
+
+# --------------------------------------------------------------------------
+# CLI (checkmetrics).
+# --------------------------------------------------------------------------
+def main(argv: Optional[List[str]] = None) -> int:
+    import argparse
+    import sys
+
+    ap = argparse.ArgumentParser(
+        prog="checkmetrics",
+        description="validate OpenMetrics exposition text (stdlib parser)",
+    )
+    ap.add_argument("path", help="file to validate ('-' for stdin)")
+    ap.add_argument(
+        "--require", action="append", default=[],
+        help="family that must be present with >= 1 sample (repeatable)",
+    )
+    ap.add_argument(
+        "--trace", default=None,
+        help="Chrome trace JSON file to cross-check (optional)",
+    )
+    ap.add_argument(
+        "--expect-trace-id", type=int, action="append", default=[],
+        help="trace_id that must appear in --trace span args (repeatable)",
+    )
+    args = ap.parse_args(argv)
+
+    if args.path == "-":
+        text = sys.stdin.read()
+    else:
+        with open(args.path, encoding="utf-8") as f:
+            text = f.read()
+    try:
+        families = parse_openmetrics(text)
+    except OpenMetricsError as e:
+        print(f"checkmetrics: INVALID: {e}", file=sys.stderr)
+        return 1
+    n_samples = sum(len(f["samples"]) for f in families.values())
+    missing = [
+        r for r in args.require
+        if r not in families or not families[r]["samples"]
+    ]
+    if missing:
+        print(f"checkmetrics: missing required families: {missing}",
+              file=sys.stderr)
+        return 1
+    print(f"checkmetrics: OK ({len(families)} families, "
+          f"{n_samples} samples)")
+
+    if args.trace is not None:
+        with open(args.trace, encoding="utf-8") as f:
+            trace = json.load(f)
+        events = trace.get("traceEvents", [])
+        seen = {
+            e.get("args", {}).get("trace_id")
+            for e in events if e.get("ph") == "X"
+        }
+        missing_ids = [t for t in args.expect_trace_id if t not in seen]
+        if missing_ids:
+            print(f"checkmetrics: trace ids {missing_ids} absent from "
+                  f"{args.trace}", file=sys.stderr)
+            return 1
+        print(f"checkmetrics: trace OK ({len(events)} events, "
+              f"{len(seen - {None})} trace ids)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

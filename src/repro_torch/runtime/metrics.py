@@ -1,14 +1,15 @@
 """Serving telemetry: monotonic counters, gauges, percentile histograms.
 
 A copy of the JAX package's ``repro/runtime/metrics.py`` (it is pure numpy
-and threading).  The serving subsystem (sync ``InferenceService`` drains
-and the :mod:`repro_torch.runtime.engine` async loops) records where every
-request's wall-time goes (queue wait, micro-batch execution, end to end)
-into one :class:`ServiceMetrics` bundle shared by the plan, the service
-front door and the engine; ``service.stats["telemetry"]`` surfaces the
-snapshot.  The reference's decode, continual and router instruments (the
-drift window, the per-tenant and router roll-ups, the latency line) come
-with the slices that port those tiers.
+and threading).  The serving subsystem (sync ``InferenceService`` drains,
+the :mod:`repro_torch.runtime.engine` async loops, and the
+:mod:`repro_torch.runtime.router` fleet scheduler) records where every
+request's wall-time goes (queue wait, micro-batch execution, online
+updates, end to end) into one :class:`ServiceMetrics` bundle shared by the
+plan, the service front door and the engine; ``service.stats["telemetry"]``
+surfaces the snapshot, and the Router reads per-engine ``queue_wait_s``
+percentiles to pick the least-loaded engine.  The reference's decode
+histograms (``prefill_s``, ``decode_step_s``) come with the LM zoo's slice.
 
 Design constraints, in order:
 
@@ -34,7 +35,7 @@ exactly (asserted in tests).
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -42,7 +43,7 @@ import numpy as np
 class Counter:
     """A monotonic event counter.
 
-    ``lock`` lets a bundle (:class:`ServiceMetrics`)
+    ``lock`` lets a bundle (:class:`ServiceMetrics`, :class:`RouterMetrics`)
     share ONE re-entrant lock across its instruments so bundle snapshots are
     point-in-time consistent; standalone counters default to a private lock.
     """
@@ -127,8 +128,8 @@ class Histogram:
 
     def merge(self, other: "Histogram") -> "Histogram":
         """Fold ``other``'s retained window and lifetime totals into this
-        histogram (the reference's router exposes fabric-wide latency
-        quantiles across per-engine bundles with it).
+        histogram (RouterMetrics uses this to expose fabric-wide latency
+        quantiles across per-engine bundles).
 
         Both locks are taken, ordered by ``id()`` so two threads merging
         opposite directions cannot deadlock; instruments sharing one
@@ -208,6 +209,130 @@ class Histogram:
         }
 
 
+class DriftWindow:
+    """Windowed accuracy/confidence tracker for online-learning drift checks.
+
+    The continual tier (:mod:`repro_torch.runtime.continual`) evaluates every
+    feedback sample *prequentially* — predict first, then learn — and records
+    whether the prediction was correct plus its confidence here.  Two views
+    exist side by side:
+
+    * the **current window**: a fixed-size ring of the most recent
+      observations since the last reset (resets happen on merge adoption and
+      on rollback, so the window always measures the *currently served*
+      state);
+    * the **baseline**: the frozen summary of the last window that was
+      measured against a known-good state (frozen on first fill and
+      re-frozen when a merge candidate is confirmed healthy).
+
+    ``drifted()`` is the one decision surface: the current window has at
+    least ``min_samples`` observations AND its accuracy fell more than
+    ``threshold`` below the baseline's.  The continual plan turns a True
+    here into a typed ``DriftDetected`` plus (if a merge is pending
+    confirmation) an automatic rollback.
+
+    Like every instrument in this module the lock arrives via the
+    constructor so one bundle snapshot is point-in-time consistent.
+    """
+
+
+    def __init__(
+        self,
+        window: int = 64,
+        min_samples: int = 16,
+        threshold: float = 0.2,
+        lock: Optional[Any] = None,
+    ) -> None:
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        if not 1 <= min_samples <= window:
+            raise ValueError(
+                f"min_samples must be in [1, window={window}], got {min_samples}"
+            )
+        if threshold <= 0:
+            raise ValueError(f"threshold must be > 0, got {threshold}")
+        self._lock = lock if lock is not None else threading.Lock()
+        self.window = int(window)
+        self.min_samples = int(min_samples)
+        self.threshold = float(threshold)
+        self._acc = np.zeros(window, np.float64)
+        self._conf = np.zeros(window, np.float64)
+        self._n = 0  # observations since the last reset
+        # Frozen (accuracy, confidence-mean, samples) of the last-good window.
+        self._baseline: Optional[Tuple[float, float, int]] = None
+
+    def observe(self, correct: bool, confidence: float) -> None:
+        with self._lock:
+            i = self._n % self.window
+            self._acc[i] = 1.0 if correct else 0.0
+            self._conf[i] = float(confidence)
+            self._n += 1
+
+    def _current_locked(self) -> Tuple[float, float, int]:
+        m = min(self._n, self.window)
+        if m == 0:
+            return 0.0, 0.0, 0
+        return float(self._acc[:m].mean()), float(self._conf[:m].mean()), m
+
+    @property
+    def samples(self) -> int:
+        with self._lock:
+            return min(self._n, self.window)
+
+    @property
+    def baseline_samples(self) -> int:
+        with self._lock:
+            return 0 if self._baseline is None else self._baseline[2]
+
+    def freeze_baseline(self) -> None:
+        """Adopt the current window as the known-good baseline and reset the
+        current window (the next observations measure a *new* state)."""
+        with self._lock:
+            self._baseline = self._current_locked()
+            self._n = 0
+
+    def reset_current(self) -> None:
+        """Discard the current window, keep the baseline (rollback path,
+        merge adoption: the served state just changed)."""
+        with self._lock:
+            self._n = 0
+
+    def drifted(self) -> bool:
+        with self._lock:
+            if self._baseline is None or self._baseline[2] == 0:
+                return False
+            acc, _conf, m = self._current_locked()
+            if m < self.min_samples:
+                return False
+            return (self._baseline[0] - acc) > self.threshold
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            acc, conf, m = self._current_locked()
+            base = self._baseline
+            vals = self._conf[: min(self._n, self.window)]
+            p50, p95 = (
+                (float(x) for x in np.percentile(vals, (50, 95)))
+                if m
+                else (0.0, 0.0)
+            )
+        out: Dict[str, Any] = {
+            "samples": m,
+            "accuracy": acc,
+            "confidence": conf,
+            "confidence_p50": p50,
+            "confidence_p95": p95,
+            "baseline_accuracy": 0.0 if base is None else base[0],
+            "baseline_confidence": 0.0 if base is None else base[1],
+            "baseline_samples": 0 if base is None else base[2],
+        }
+        out["drift"] = (
+            out["baseline_accuracy"] - acc if base is not None and m else 0.0
+        )
+        out["drifted"] = self.drifted()
+        return out
+
+
 class ServiceMetrics:
     """The per-service telemetry bundle, shared by plan + service + engine.
 
@@ -216,19 +341,30 @@ class ServiceMetrics:
     Gauges
       ``queue_depth``: items waiting (sync queue + engine inbox).
     Histograms (seconds)
-      ``queue_wait_s``:  submit -> batch formation (batched) / drain start
-                         (sync path).
+      ``queue_wait_s``:  submit -> batch formation (batched) / claim
+                         (streaming, continual) / drain start (sync path).
       ``batch_s``:       one padded micro-batch forward (batched plans).
       ``e2e_s``:         submit -> completion, the caller-visible latency.
+      ``update_s``:      one online Hebbian micro-batch update (continual
+                         plans only; empty otherwise).
 
-    The reference's bundle also holds the decode plan's histograms and the
-    continual tier's counters and drift window; they come with those
-    slices.  Every instrument shares the bundle's ONE re-entrant lock, so
+    The online-learning tier adds its lifecycle counters (``online_updates``
+    applied, ``updates_shed`` by budget, ``merges``, ``rollbacks``,
+    ``drift_events``) and a :class:`DriftWindow` under the same bundle lock;
+    all stay zero/empty unless a :class:`~repro_torch.runtime.continual.
+    ContinualPlan` is serving.
+
+    Every instrument shares the bundle's ONE re-entrant lock, so
     :meth:`snapshot` is a single lock acquisition and the returned dict is a
-    consistent point-in-time view.
+    consistent point-in-time view; the Router's scheduling reads (per-engine
+    ``queue_wait_s`` p95 vs ``completed`` counts) rely on this.
     """
 
-    HISTOGRAMS: Sequence[str] = ("queue_wait_s", "batch_s", "e2e_s")
+    HISTOGRAMS: Sequence[str] = ("queue_wait_s", "batch_s", "e2e_s", "update_s")
+    ONLINE_COUNTERS: Sequence[str] = (
+        "online_updates", "updates_shed", "merges", "rollbacks",
+        "drift_events",
+    )
 
     def __init__(self, window: int = 2048) -> None:
         self._lock = threading.RLock()
@@ -238,9 +374,25 @@ class ServiceMetrics:
         self.queue_depth = Gauge(lock=self._lock)
         for name in self.HISTOGRAMS:
             setattr(self, name, Histogram(window, lock=self._lock))
+        for name in self.ONLINE_COUNTERS:
+            setattr(self, name, Counter(lock=self._lock))
+        self.drift = DriftWindow(lock=self._lock)
 
     def hist(self, name: str) -> Histogram:
         return getattr(self, name)
+
+    def configure_drift(
+        self, window: int, min_samples: int, threshold: float
+    ) -> DriftWindow:
+        """Replace the drift window with one sized by a ``ContinualConfig``
+        (the default instance exists so ``snapshot()`` is shape-stable even
+        on plans that never learn)."""
+        with self._lock:
+            self.drift = DriftWindow(
+                window=window, min_samples=min_samples, threshold=threshold,
+                lock=self._lock,
+            )
+            return self.drift
 
     def snapshot(self) -> Dict[str, Any]:
         """A consistent point-in-time view: counters AND histogram
@@ -256,7 +408,185 @@ class ServiceMetrics:
             }
             for name in self.HISTOGRAMS:
                 out[name] = self.hist(name).snapshot()
+            for name in self.ONLINE_COUNTERS:
+                out[name] = getattr(self, name).value
+            out["drift"] = self.drift.snapshot()
         return out
 
 
-__all__ = ["Counter", "Gauge", "Histogram", "ServiceMetrics"]
+class TenantMetrics:
+    """Per-tenant request-lifecycle counters for the Router.
+
+    ``submitted``/``completed`` bracket the happy path; the shed counters
+    split rejections by cause (the Router never FIFO-blind-drops):
+    ``shed_queue_full`` (bounced off the tenant's bounded queue),
+    ``shed_deadline`` (expired before dispatch), ``shed_drift`` (refused
+    because the target continual engine's drift window reads degraded),
+    ``requeued`` (bounced off a crashed engine and put back), ``failed``
+    (dispatch errors surfaced on the future).  ``sched_wait_s`` is router-queue wait: submit -> hand-off into
+    an engine inbox; ``e2e_s`` is submit -> result on the caller's future
+    (the per-tenant SLO view, spanning redispatches across restarts).
+    """
+
+    COUNTERS: Sequence[str] = (
+        "submitted", "completed", "shed_queue_full", "shed_deadline",
+        "shed_drift", "requeued", "failed",
+    )
+    HISTOGRAMS: Sequence[str] = ("sched_wait_s", "e2e_s")
+
+    def __init__(self, lock: Any, window: int = 1024) -> None:
+        for name in self.COUNTERS:
+            setattr(self, name, Counter(lock=lock))
+        self.queue_depth = Gauge(lock=lock)
+        for name in self.HISTOGRAMS:
+            setattr(self, name, Histogram(window, lock=lock))
+
+    def snapshot(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {
+            name: getattr(self, name).value for name in self.COUNTERS
+        }
+        out["queue_depth"] = self.queue_depth.value
+        for name in self.HISTOGRAMS:
+            out[name] = getattr(self, name).snapshot()
+        return out
+
+
+class RouterMetrics:
+    """The Router's roll-up: per-tenant counters, per-engine bundles,
+    fleet-level lifecycle counters.
+
+    Tenant bundles share THIS object's re-entrant lock (one acquisition
+    snapshots every tenant consistently); each engine keeps its own
+    :class:`ServiceMetrics` bundle — registered here so the roll-up
+    :meth:`snapshot` carries the whole fabric.
+    """
+
+    def __init__(self, window: int = 1024) -> None:
+        self._lock = threading.RLock()
+        self._window = window
+        self._tenants: Dict[str, TenantMetrics] = {}
+        self._engines: Dict[str, ServiceMetrics] = {}
+        self.dispatched = Counter(lock=self._lock)
+        self.restarts = Counter(lock=self._lock)
+
+    def tenant(self, name: str) -> TenantMetrics:
+        """The (auto-created) bundle for one tenant."""
+        with self._lock:
+            tm = self._tenants.get(name)
+            if tm is None:
+                tm = TenantMetrics(self._lock, self._window)
+                self._tenants[name] = tm
+            return tm
+
+    def register_engine(self, name: str,
+                        metrics: Optional[ServiceMetrics] = None
+                        ) -> ServiceMetrics:
+        """Register (or create) the per-engine bundle under ``name``.
+        Re-registering a name keeps the existing bundle unless a new one is
+        passed — a hot-restarted engine inherits its predecessor's
+        histograms, so scheduling signal survives the restart."""
+        with self._lock:
+            if metrics is not None:
+                self._engines[name] = metrics
+            elif name not in self._engines:
+                self._engines[name] = ServiceMetrics()
+            return self._engines[name]
+
+    @property
+    def tenants(self) -> Dict[str, TenantMetrics]:
+        with self._lock:
+            return dict(self._tenants)
+
+    @property
+    def engines(self) -> Dict[str, ServiceMetrics]:
+        with self._lock:
+            return dict(self._engines)
+
+    def fleet_histograms(self) -> Dict[str, Histogram]:
+        """Fabric-wide latency quantiles: per-engine windows merged into
+        fresh histograms sized to hold every engine's full window, so the
+        merged percentiles equal ``np.percentile`` over the concatenated
+        windows (no truncation)."""
+        with self._lock:
+            engines = list(self._engines.values())
+        out: Dict[str, Histogram] = {}
+        for name in ServiceMetrics.HISTOGRAMS:
+            capacity = max(
+                1, sum(sm.hist(name)._window for sm in engines)
+            )
+            merged = Histogram(window=capacity)
+            for sm in engines:
+                merged.merge(sm.hist(name))
+            out[name] = merged
+        return out
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            out: Dict[str, Any] = {
+                "dispatched": self.dispatched.value,
+                "restarts": self.restarts.value,
+                "tenants": {
+                    name: tm.snapshot() for name, tm in self._tenants.items()
+                },
+            }
+            engines = dict(self._engines)
+        # Engine bundles own separate locks: snapshot each consistently
+        # OUTSIDE the router-metrics lock (no nested foreign acquisition).
+        out["engines"] = {name: sm.snapshot() for name, sm in engines.items()}
+        # The fabric-wide roll-up (merged per-engine windows).  Engines keep
+        # recording between the per-engine snapshots above and this merge;
+        # the roll-up is its own consistent view, not a re-sum of theirs.
+        out["fleet"] = {
+            name: h.snapshot() for name, h in self.fleet_histograms().items()
+        }
+        return out
+
+
+def format_latency_line(snapshot: Dict[str, Any], *names: str) -> str:
+    """One CLI-friendly line: ``queue_wait p50=1.2ms p95=3.4ms p99=5.6ms``
+    per requested histogram.  Explicitly requested names render
+    **shape-stably** — a zero-observation histogram shows ``p50=0.00ms ...``
+    instead of vanishing, so fleet roll-ups that print one line per engine
+    stay column-aligned even for a just-restarted engine that has not
+    dispatched yet.  The no-names form (render "whatever has data") keeps
+    skipping empties.  When the snapshot carries online-learning activity
+    (any continual-tier counter nonzero), a trailing ``online updates=..
+    merges=.. rollbacks=.. drift=..`` segment is appended; frozen-serving
+    snapshots render exactly as before."""
+    explicit = bool(names)
+    parts = []
+    for name in names or ServiceMetrics.HISTOGRAMS:
+        h = snapshot.get(name)
+        if h is None or (not explicit and not h.get("count")):
+            continue
+        label = name[:-2] if name.endswith("_s") else name
+        parts.append(
+            f"{label} p50={h['p50'] * 1e3:.2f}ms p95={h['p95'] * 1e3:.2f}ms "
+            f"p99={h['p99'] * 1e3:.2f}ms"
+        )
+    online = []
+    for key, label in (
+        ("online_updates", "updates"),
+        ("updates_shed", "shed"),
+        ("merges", "merges"),
+        ("rollbacks", "rollbacks"),
+        ("drift_events", "drift"),
+    ):
+        v = snapshot.get(key)
+        if v:
+            online.append(f"{label}={v}")
+    if online:
+        parts.append("online " + " ".join(online))
+    return " | ".join(parts) if parts else "no latency samples"
+
+
+__all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "DriftWindow",
+    "ServiceMetrics",
+    "TenantMetrics",
+    "RouterMetrics",
+    "format_latency_line",
+]

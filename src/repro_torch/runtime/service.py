@@ -7,7 +7,7 @@ serving binds a compiled network to one :class:`ServePlan`::
     service = compiled.serve(ServiceConfig(max_batch=64, buckets=(16, 64)))
     scores  = service.predict(x)             # class scores, on the compiled device
 
-Two strategies of the JAX package's ``repro/runtime/service.py`` are
+Three strategies of the JAX package's ``repro/runtime/service.py`` are
 ported:
 
 * :class:`BatchedPlan`: BCPNN classification through the compiled
@@ -22,11 +22,17 @@ ported:
 * :class:`StreamingPlan`: the latency path, over the compiled network's
   :class:`~repro_torch.core.streaming.StreamingSession` (host-side
   coalescing, LRU-bounded per-size cells, state adoption on close).
+* :class:`~repro_torch.runtime.continual.ContinualPlan` (``plan=
+  "continual"`` or ``continual=ContinualConfig(...)``): batched
+  classification that keeps learning from labeled ``Feedback``.
 
-Token decoding (``plan="decode"``) and the continual-learning plan are not
-ported: each raises a ``ValueError`` that names it and the slice that will
-bring it.  The reference's ``router=``, ``continual=`` and ``strict=``
-options are absent, so passing one raises a ``TypeError`` that names it.
+Token decoding (``plan="decode"``) is not ported: it raises a
+``ValueError`` that names it and the slice that will bring it.  The
+reference's ``strict=`` and ``router=`` options are absent, so passing
+either raises a ``TypeError`` that names it: ``router=`` is read only by
+the reference's ``serve_fleet``, which serves the LM zoo and waits for
+Slice F.  A fleet of engines is built with
+:class:`~repro_torch.runtime.router.Router` directly.
 
 :class:`InferenceService` owns the request queue (admission control via
 ``max_queue``, ``policy="fcfs"``) and delegates execution to its plan.
@@ -55,10 +61,7 @@ POLICIES = ("fcfs", "sjf")
 
 # Plans of the reference that wait for a later slice of the port: the
 # plan's name -> what brings it.
-_UNPORTED_PLANS = {
-    "decode": "token decoding of the LM zoo (Slice F)",
-    "continual": "the continual-learning tier (runtime/continual.py), with adapter checkpoints",
-}
+_UNPORTED_PLANS = {"decode": "token decoding of the LM zoo (Slice F)"}
 
 
 def _sync(device: Optional[torch.device]) -> None:
@@ -79,7 +82,8 @@ class ServiceConfig:
     policy:     queue admission order: "fcfs" (arrival).  "sjf" orders
                 decode requests by prompt length, so these plans refuse it.
     cache_size: LRU bound on the streaming plan's per-size cells.
-    plan:       "batched" | "streaming"; None picks "batched".
+    plan:       "batched" | "streaming" | "continual"; None picks
+                "continual" when ``continual`` is set, else "batched".
     max_wait_s: micro-batch aggregation deadline: the async engine (and the
                 streaming plan's coalescing buffer) waits at most this long
                 to fill ``max_batch`` before dispatching a partial batch.
@@ -89,10 +93,16 @@ class ServiceConfig:
     async_mode: start the executor thread at bind time: ``submit()`` returns
                 a ``Future``.  For streaming plans the async surface serves
                 per-item INFERENCE (sync submit+drain feeds training samples).
+    continual:  a ``repro_torch.runtime.continual.ContinualConfig``
+                enabling the online-learning tier: the bound plan becomes
+                :class:`~repro_torch.runtime.continual.ContinualPlan`
+                (inference unchanged; labeled ``Feedback`` items drive
+                Hebbian adapter updates, merges, drift detection and
+                rollback).  None = frozen serving.
     trace:      a ``repro_torch.runtime.trace.TraceConfig`` enabling
                 per-request spans (engine inbox, batch aggregation, batch,
-                end to end), exportable as Chrome trace JSON.  None (the
-                default) constructs no tracer at all.
+                learn, end to end), exportable as Chrome trace JSON.  None
+                (the default) constructs no tracer at all.
     """
 
     max_batch: int = 4
@@ -104,9 +114,24 @@ class ServiceConfig:
     max_queue: Optional[int] = None
     layer: int = 0
     async_mode: bool = False
+    continual: Optional[Any] = None
     trace: Optional[Any] = None
 
     def __post_init__(self):
+        if self.continual is not None or self.plan == "continual":
+            # Importing the continual module registers ContinualPlan in
+            # SERVE_PLANS before the plan-name validation below runs (it
+            # imports this module for the plan base, so not at the top).
+            from repro_torch.runtime.continual import ContinualConfig
+
+            if self.continual is not None and not isinstance(self.continual, ContinualConfig):
+                raise TypeError(
+                    f"continual must be a ContinualConfig, got {type(self.continual).__name__}"
+                )
+            if self.plan not in (None, "continual"):
+                raise ValueError(
+                    f"continual learning serves through plan='continual', got plan={self.plan!r}"
+                )
         if self.plan in _UNPORTED_PLANS:
             raise ValueError(
                 f"ServiceConfig(plan={self.plan!r}) is not ported yet: it waits for "
@@ -438,7 +463,9 @@ class InferenceService:
 
     def drain(self):
         """Run everything queued through the plan: stacked scores
-        (batched) or a flush (streaming)."""
+        (batched), a flush (streaming), or one result per item in arrival
+        order (continual: an ack dict per ``Feedback``, a score row per
+        other item)."""
         if self.engine is not None and not self.engine.stopped:
             raise RuntimeError(
                 "the async engine owns this service's queue; submit() returns "
@@ -460,6 +487,15 @@ class InferenceService:
                 self.plan.feed(s)
             self.plan.flush()
             out = None
+        elif self.plan.name == "continual":
+            # Mixed traffic in arrival order: Feedback learns, anything
+            # else infers, one result per item, as on the async path.
+            from repro_torch.runtime.continual import Feedback
+
+            out = [
+                self.plan.learn(s) if isinstance(s, Feedback) else self.plan.infer(s)
+                for s in items
+            ]
         else:
             out = self.plan.predict(np.stack([np.asarray(s) for s in items]))
         _sync(self.plan.device)

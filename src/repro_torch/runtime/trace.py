@@ -1,8 +1,9 @@
 """Request tracing + structured event journal (the observability spine).
 
 A copy of the JAX package's ``repro/runtime/trace.py`` (stdlib only); the
-port records the engine's inbox, batch and end-to-end spans and the
-training program's ``train.<phase>`` spans.
+port records the router's, the engine's and the continual plan's spans and
+the training program's ``train.<phase>`` spans.  The reference's
+``RecompileRebaseline`` event belongs to its strict mode, not ported.
 
 Aggregate p95s (``repro_torch.runtime.metrics``) tell you the fabric is slow;
 they cannot tell you WHERE one request spent its time.  This module adds
@@ -10,16 +11,18 @@ the per-request view:
 
 * A :class:`Tracer` owns a ring of **spans** — ``(trace_id, name,
   t_start, t_end, attrs)`` tuples recorded at every hop a request takes
-  (engine inbox, micro-batch aggregation, the batch, end to end, and
-  the training phases).  One ``trace_id``, minted at the engine's
-  ``submit`` and carried on the request's Future, reconstructs the full
-  path.  Spans export as Chrome ``trace_event`` JSON — load the file in
+  (Router sched-wait, engine inbox, micro-batch aggregation, the batch,
+  continual learn/update/merge, end to end, training phases).  One
+  ``trace_id``, minted at the fabric front door (the Router's or the
+  engine's ``submit``) and threaded through ``Feedback`` and the dispatch
+  seams, reconstructs the full path.  Spans export as Chrome
+  ``trace_event`` JSON — load the file in
   Perfetto (https://ui.perfetto.dev) or ``chrome://tracing``.
-* An :class:`EventJournal` records typed operational **events** (frozen
-  dataclasses with a ``kind`` discriminator) in a bounded deque with an
-  optional JSONL sink.  The reference's event types (engine restarts,
-  drift, merges, rollbacks, sheds) belong to the router and the continual
-  tier and come with those slices; nothing the port serves emits one yet.
+* An :class:`EventJournal` records typed operational **events**
+  (:class:`EngineRestart`, :class:`DriftDetected`, :class:`MergeApplied`,
+  :class:`RollbackApplied`, :class:`DeadlineShed`, :class:`TenantShed`)
+  in a bounded deque with an optional JSONL sink, each carrying the
+  correlating trace_id / tenant / engine slot.
 
 Hot-path discipline:
 
@@ -47,7 +50,11 @@ import time
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
-__all__ = ["TraceConfig", "Tracer", "SpanRecord", "EventJournal", "build_tracer"]
+__all__ = [
+    "TraceConfig", "Tracer", "SpanRecord", "EventJournal", "build_tracer",
+    "EngineRestart", "DriftDetected", "MergeApplied", "RollbackApplied",
+    "DeadlineShed", "TenantShed",
+]
 
 
 # --------------------------------------------------------------------------
@@ -55,8 +62,8 @@ __all__ = ["TraceConfig", "Tracer", "SpanRecord", "EventJournal", "build_tracer"
 # --------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class TraceConfig:
-    """Tracing knobs.  Handed to ``ServiceConfig(trace=)`` or
-    ``ExecutionConfig(trace=)``; absence of a
+    """Tracing knobs.  Handed to ``ServiceConfig(trace=)``,
+    ``RouterConfig(trace=)`` or ``ExecutionConfig(trace=)``; absence of a
     config (the default) means no tracer is ever constructed."""
 
     enabled: bool = True
@@ -90,10 +97,10 @@ class SpanRecord:
 
     seq: int                 # global record order (monotone per tracer)
     trace_id: int            # correlates hops of one request; 0 = training
-    name: str                # e.g. "engine.inbox", "train.hidden0"
+    name: str                # e.g. "router.sched", "engine.inbox"
     t_start: float           # time.perf_counter() seconds
     t_end: float
-    attrs: Dict[str, Any]    # engine / batch rows / epoch / ...
+    attrs: Dict[str, Any]    # tenant / engine / batch rows / epoch / ...
 
     @property
     def duration_s(self) -> float:
@@ -129,6 +136,84 @@ class _SpanRing:
         rows = [s for s in list(self._slots) if s is not None]
         rows.sort(key=lambda r: r[0])
         return [SpanRecord(*r) for r in rows]
+
+
+# --------------------------------------------------------------------------
+# Journal events.  Each is a frozen dataclass with a `kind` discriminator;
+# fields default to None so emitters fill in only what they know.
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class EngineRestart:
+    """Router hot-restarted an engine slot from its plan factory."""
+
+    kind = "engine_restart"
+    engine: Optional[str] = None
+    restarts: Optional[int] = None      # cumulative for this slot
+    leftover: Optional[int] = None      # undone items re-enqueued
+    trace_id: Optional[int] = None
+    tenant: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DriftDetected:
+    """Continual plan's prequential window crossed the drift threshold.
+    (The journal event — distinct from the ``repro_torch.runtime.continual``
+    exception of the same name, which is what ``submit()`` raises.)"""
+
+    kind = "drift_detected"
+    accuracy: Optional[float] = None
+    baseline_accuracy: Optional[float] = None
+    samples: Optional[int] = None
+    trace_id: Optional[int] = None
+    tenant: Optional[str] = None
+    engine: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class MergeApplied:
+    """Continual plan folded buffered online updates into serving state."""
+
+    kind = "merge_applied"
+    merges: Optional[int] = None        # cumulative merge count
+    strategy: Optional[str] = None
+    trace_id: Optional[int] = None
+    tenant: Optional[str] = None
+    engine: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RollbackApplied:
+    """Continual plan restored the last pre-merge snapshot after drift."""
+
+    kind = "rollback_applied"
+    rollbacks: Optional[int] = None
+    trace_id: Optional[int] = None
+    tenant: Optional[str] = None
+    engine: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DeadlineShed:
+    """Router shed a request whose deadline expired (DOA or in-queue)."""
+
+    kind = "deadline_shed"
+    waited_s: Optional[float] = None
+    trace_id: Optional[int] = None
+    tenant: Optional[str] = None
+    engine: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantShed:
+    """Router rejected a submit: the tenant's queue was at capacity (or
+    the tenant was shed wholesale, e.g. drift with shed_on_drift)."""
+
+    kind = "tenant_shed"
+    depth: Optional[int] = None
+    reason: Optional[str] = None        # "queue_full" | "drift"
+    trace_id: Optional[int] = None
+    tenant: Optional[str] = None
+    engine: Optional[str] = None
 
 
 class EventJournal:
@@ -186,8 +271,8 @@ class EventJournal:
 # --------------------------------------------------------------------------
 class Tracer:
     """Span ring + event journal + trace-id mint for one serving fabric
-    (or one training run).  Share ONE tracer across the service, its
-    engine and its plan so a request's hops land in one place.
+    (or one training run).  Share ONE tracer across the Router, its
+    engines, and their plans so a request's hops land in one place.
 
     Owns no lock: ``new_trace``/``record`` ride atomic ``itertools.count``
     ops and single slot stores; the journal locks internally.
@@ -239,7 +324,7 @@ class Tracer:
         """Spans + journal as a Chrome ``trace_event`` JSON object (open
         in Perfetto or ``chrome://tracing``).  Tracks (tids) are derived
         from span attrs: the ``engine`` attr names the lane, else the
-        span-name prefix ("engine", "train", ...)."""
+        span-name prefix ("router", "train", "plan", ...)."""
         spans = self._ring.snapshot()
         tracks: Dict[str, int] = {}
         events: List[Dict[str, Any]] = []

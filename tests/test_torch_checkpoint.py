@@ -4,8 +4,9 @@ crossing between the port and the JAX package in both directions.
 Both packages write ``<dir>/step_<n>/{arrays.npz,manifest.json}`` with the
 same keys, shapes and logical dtypes; bf16 traces (the quantized state
 tier) are stored as their uint16 bits, the SGD readout head as
-``readout/{w,b}``.  So every array read back must be
-bitwise equal to the one written, whichever package wrote it.
+``readout/{w,b}``, continual-learning adapters as
+``adapters/<tenant>/...``.  So every array read back must be bitwise equal
+to the one written, whichever package wrote it.
 """
 import json
 import os
@@ -24,9 +25,13 @@ from repro.core import UnitLayout as JUnitLayout
 from repro.core import onehot_layout as jonehot
 from repro.core.compiled import ExecutionConfig as JExecutionConfig
 from repro.precision import PrecisionPolicy as JPrecisionPolicy
+from repro.checkpoint import load_adapters as jload_adapters
+from repro.checkpoint import save_network as jsave_network
 from repro_torch.checkpoint import (
     flat_from_network_state,
+    load_adapters,
     load_network,
+    save_network,
     network_state_from_flat,
     latest_checkpoint,
     list_checkpoints,
@@ -268,5 +273,78 @@ def test_network_state_from_flat_carries_the_head(data):
         network_state_from_flat(
             {**flat, "readout/w": np.zeros((5, 10), np.float32)}, port.layers
         )
-    with pytest.raises(ValueError, match="adapters"):
-        network_state_from_flat({**flat, "adapters/t0/w": np.zeros(1, np.float32)}, port.layers)
+    # Adapters of the continual tier ride along in a snapshot's arrays; they
+    # are not the network's state and are left for load_adapters.
+    with_adapters = {**flat, **{f"adapters/t0/{k.split('/', 2)[2]}": v
+                                for k, v in flat.items() if k.startswith("layers/0/")}}
+    again = network_state_from_flat(with_adapters, port.layers)
+    assert sorted(flat_from_network_state(again)) == sorted(flat)
+    np.testing.assert_allclose(again.layers[0].w.numpy(), port.state.layers[0].w.numpy(), rtol=0)
+
+
+# -------------------------------------------------- continual-tier adapters
+def _adapter_states(states, n):
+    """``n`` distinct adapters forked from layer 0's state (each a copy
+    whose traces are scaled, so a mix-up between tenants shows)."""
+    return [s._replace(marginals=type(s.marginals)(*(t * (1 + k) for t in s.marginals)))
+            for k, s in enumerate([states[0]] * n)]
+
+
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_jax_adapters_load_into_the_port(data, tmp_path, tier):
+    """A JAX base+adapters snapshot (``save_network(..., adapters=)``, as
+    the continual tier writes at a merge) loads into the port: the base
+    through ``load``, each tenant's adapter through ``load_adapters``, bit
+    for bit."""
+    x, y, xt = data
+    jc = _jax_net().compile(JExecutionConfig(engine="scan", **TIERS[tier][1]))
+    jc.fit((x, y), **FIT_KW)
+    jadapters = dict(zip(("paid", "free.tier-1"), _adapter_states(jc.state.layers, 2)))
+    path = jsave_network(str(tmp_path), 3, jc.state, adapters=jadapters, adapter_layer=0)
+    port = _torch_net(seed=5).compile(ExecutionConfig(device="cpu", **TIERS[tier][0]))
+    port.load(path)
+    _assert_flat_bitwise(port.state, _jflat(jc.state.layers), _tier_dtype(tier))
+    adapters = load_adapters(path, port.state.layers[0])
+    assert sorted(adapters) == sorted(jadapters)
+    for name, got in adapters.items():
+        want = _jflat([jadapters[name]])
+        for k, v in flat_from_network_state(type(port.state)(layers=(got,))).items():
+            np.testing.assert_array_equal(_bits(v), _bits(want[k]), err_msg=f"{name} {k}")
+        assert got.marginals.cij.dtype == _tier_dtype(tier)
+        assert got.host_step == int(got.step) == int(jadapters[name].step)
+    assert load_manifest(path)["extra"]["adapter_layer"] == 0
+
+
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_port_adapters_load_into_jax(data, tmp_path, tier):
+    x, y, xt = data
+    port = _torch_net().compile(ExecutionConfig(device="cpu", **TIERS[tier][0]))
+    port.fit((x, y), **FIT_KW)
+    padapters = dict(zip(("t0", "t1"), _adapter_states(port.state.layers, 2)))
+    path = save_network(str(tmp_path), 5, port.state, adapters=padapters, adapter_layer=0)
+    jc = _jax_net(seed=9).compile(JExecutionConfig(engine="scan", **TIERS[tier][1]))
+    jc.load(path)
+    _assert_flat_bitwise(port.state, _jflat(jc.state.layers), _tier_dtype(tier))
+    jadapters = jload_adapters(path, jc.state.layers[0])
+    assert sorted(jadapters) == ["t0", "t1"]
+    for name, jstate in jadapters.items():
+        want = flat_from_network_state(type(port.state)(layers=(padapters[name],)))
+        for k, v in _jflat([jstate]).items():
+            np.testing.assert_array_equal(_bits(v), _bits(want[k]), err_msg=f"{name} {k}")
+    # ... and back through the port's own reader, bit for bit.
+    back = load_adapters(path, port.state.layers[0])
+    for name, got in back.items():
+        for a, b in zip((*got.marginals, got.w, got.b, got.step),
+                        (*padapters[name].marginals, padapters[name].w, padapters[name].b,
+                         padapters[name].step)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert load_adapters(port.save(str(tmp_path / "plain")), port.state.layers[0]) == {}
+
+
+@pytest.mark.parametrize("tenant", ["../evil", "a/b", "", "x y"])
+def test_unsafe_tenant_name_refused(data, tmp_path, tenant):
+    port = _torch_net().compile(ExecutionConfig(device="cpu"))
+    with pytest.raises(ValueError, match="checkpoint-safe"):
+        save_network(str(tmp_path), 0, port.state, adapters={tenant: port.state.layers[0]},
+                     adapter_layer=0)
+    assert list_checkpoints(str(tmp_path)) == []

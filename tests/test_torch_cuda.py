@@ -602,3 +602,76 @@ def test_serving_on_card_matches_cpu(card):
     for sg, sc in zip(gpu.state.layers, cpu.state.layers):
         torch.testing.assert_close(sg.w.cpu(), sc.w, rtol=1e-4, atol=1e-4)
         assert sg.host_step == sc.host_step
+
+
+# --- the continual tier's feedback micro-batch: B = 8 ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", ["hidden", "readout", "hidden_bf16_fused"])
+def test_continual_update_at_b8_matches_plain(card, layer):
+    """One continual update of 8 feedback rows at MNIST width on each
+    adapted layer: the hidden update (1568x3000, masked), the readout's
+    (3000x10, through the frozen prefix's codes) and the fused bf16-state
+    hidden phase, each against its plain version on the same inputs."""
+    if layer == "hidden":
+        ai, aj, ci, cj, cij, mask = _update_inputs(8, 1568, 3000, card, True)
+        got = bk.bcpnn_update(ai, aj, ci, cj, cij, 0.02, k_b=1.0, mask=mask)
+        want = ref.bcpnn_update(ai, aj, ci, cj, cij, 0.02, k_b=1.0, mask=mask)
+    elif layer == "readout":
+        ai, _, ci, cj, cij, _ = _update_inputs(8, 3000, 10, card, False)
+        aj = torch.nn.functional.one_hot(torch.arange(8, device=card) % 10, 10).float()
+        got = bk.bcpnn_update(ai, aj, ci, cj, cij, 0.02, k_b=1.0)
+        want = ref.bcpnn_update(ai, aj, ci, cj, cij, 0.02, k_b=1.0)
+    else:
+        shape = (8, 1568, 30, 100)
+        p = _problem(*shape, True, card)
+        # After a merge the traces are f32 while the policy stores bf16.
+        args = _phase_args(p, shape)
+        kw = dict(k_b=1.0, gain=4.0, mask=p["mask"], state_mantissa=7)
+        got = pk.bcpnn_phase(*args, state_dtype=torch.bfloat16, **kw)
+        want = ref.bcpnn_phase(*args, **kw)
+        torch.testing.assert_close(got[0], want[0], **TOL)
+        for g, w in zip(got[1:4], want[1:4]):
+            assert g.dtype == torch.bfloat16
+            _state_close(g, w, 7)
+        for g, w in zip(got[4:], want[4:]):
+            torch.testing.assert_close(g, w, rtol=0, atol=2.0**-6)
+        return
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [0, -1])
+def test_continual_tier_on_card_matches_cpu(card, layer):
+    """The continual plan's sync drain on the card against the same on the
+    CPU, from one fitted state, over one feedback stream with a label
+    flip: equal acks, and the adopted base within the kernels' tolerance."""
+    from repro_torch.runtime import ContinualConfig, Feedback, ServiceConfig
+
+    ds = mnist_like(n_train=256, n_test=64, n_features=24, seed=0, n_classes=4,
+                    prototypes_per_class=2, noise=0.05, informative_fraction=1.0)
+    x, layout = complementary_code(ds.x_train)
+    net = Network(seed=0)
+    net.add(StructuralPlasticityLayer(layout, UnitLayout(4, 10), fan_in=12, lam=0.05, gain=4.0))
+    net.add(DenseLayer(UnitLayout(4, 10), onehot_layout(4), lam=0.05))
+    cpu = net.compile(ExecutionConfig(device="cpu"))
+    cpu.fit((x, ds.y_train), epochs_hidden=2, epochs_readout=2, batch_size=64)
+    gpu = net.compile()
+    gpu.state = cpu.state._replace(layers=tuple(s.to(card) for s in cpu.state.layers))
+    cc = ContinualConfig(layer=layer, update_batch=8, update_budget=16, merge_every=2,
+                         drift_window=16, drift_min_samples=8, drift_threshold=0.4)
+    svcs = [c.serve(ServiceConfig(continual=cc)) for c in (gpu, cpu)]
+    y = np.concatenate([ds.y_train[:64], (ds.y_train[64:96] + 1) % 4, ds.y_train[96:128]])
+    for s in svcs:
+        for k in range(128):
+            s.submit(Feedback(x[k], int(y[k]), tenant="ab"[k % 2]))
+    acks_gpu, acks_cpu = (s.drain() for s in svcs)
+    for a, b in zip(acks_gpu, acks_cpu):
+        assert {k: v for k, v in a.items() if k != "confidence"} == \
+            {k: v for k, v in b.items() if k != "confidence"}
+    assert any(a["merged"] for a in acks_cpu)
+    for sg, sc in zip(gpu.state.layers, cpu.state.layers):
+        assert sg.host_step == sc.host_step == int(sg.step)
+        torch.testing.assert_close(sg.marginals.cij.cpu(), sc.marginals.cij, rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(sg.w.cpu(), sc.w, rtol=1e-4, atol=1e-4)

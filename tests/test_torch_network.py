@@ -307,8 +307,8 @@ def test_unported_options_raise_by_name(data):
     net = _torch_net().compile(ExecutionConfig(device="cpu"))
     with pytest.raises(ValueError, match="readout"):
         net.fit((x, ds.y_train), readout="svm", **FIT_KW)
-    # Streaming and serving are ported; the serving options of later slices
-    # are refused by name.
+    # Streaming and serving are ported; the continual option takes its config
+    # type only, and the fleet option and strict mode are refused by name.
     for method in ("streaming", "serve"):
         assert callable(getattr(net, method))
     from repro_torch.runtime import ServiceConfig
@@ -397,3 +397,40 @@ class TestPrecisionCliff:
             assert {t.dtype for t in s.marginals} == {torch.bfloat16}
             assert s.w.dtype == s.b.dtype == torch.float32
         assert abs(accs["bf20+bf16"] - accs["bf20"]) < 0.05, accs
+
+
+class TestAccuracy:
+    """EXPERIMENTS.md §Validation rows 1 and 3 on the port, each fit from
+    the port's own initial state (``Network(seed=...)``) at the reference's
+    configuration (``tests/test_network_e2e.py``: 64 features, 16x16 hidden,
+    4096 rows, B = 128)."""
+
+    @pytest.fixture(scope="class")
+    def e2e(self):
+        ds = mnist_like(n_train=4096, n_test=512, n_features=64, seed=0)
+        x, layout = complementary_code(ds.x_train)
+        xt, _ = complementary_code(ds.x_test)
+        return ds, x, xt, layout
+
+    @staticmethod
+    def _fit(e2e, gain=4.0, epochs=6, seed=0):
+        ds, x, xt, layout = e2e
+        net = Network(seed=seed)
+        net.add(StructuralPlasticityLayer(layout, UnitLayout(16, 16), fan_in=32, lam=0.02,
+                                          init_jitter=1.0, gain=gain))
+        net.add(DenseLayer(UnitLayout(16, 16), onehot_layout(10), lam=0.02))
+        compiled = net.compile(ExecutionConfig(device="cpu"))
+        compiled.fit((x, ds.y_train), epochs_hidden=epochs, epochs_readout=epochs, batch_size=128)
+        return compiled.evaluate((xt, ds.y_test))
+
+    def test_unsupervised_plus_bcpnn_readout(self, e2e):
+        """Row 1 (paper Fig. 2c): the BCPNN readout far above chance."""
+        acc = self._fit(e2e)
+        assert acc > 0.85, acc
+
+    @pytest.mark.parametrize("seed", [0, 1, 2])
+    def test_gain_matters(self, e2e, seed):
+        """Row 3: the soft-WTA gain drives the unsupervised clustering."""
+        acc_sharp = self._fit(e2e, gain=4.0, epochs=3, seed=seed)
+        acc_flat = self._fit(e2e, gain=1.0, epochs=3, seed=seed)
+        assert acc_sharp > acc_flat, (acc_sharp, acc_flat)

@@ -1,24 +1,33 @@
 """Observability of the port: request tracing and the event journal
-(``repro_torch.runtime.trace``), the metrics bundle
-(``repro_torch.runtime.metrics``), OpenMetrics export
-(``repro_torch.runtime.export``), the engine's request spans and the
-training program's ``train.<phase>`` spans.  The tracer, journal,
-chrome-trace, histogram-merge, render/parse and ``MetricsServer`` cases are
-those of the reference's ``tests/test_observability.py``; the port's
-modules copy the reference's serving instruments, so their snapshots and
-rendered text are also held equal to the reference's on the same inputs
-(the reference's bundle also carries the decode and continual tiers'
-instruments, which the port brings with those slices)."""
+(``repro_torch.runtime.trace``), the metrics bundles
+(``repro_torch.runtime.metrics``: the service's, the drift window, the
+router's per-tenant and per-engine roll-up, the latency line), OpenMetrics
+export and ``checkmetrics`` (``repro_torch.runtime.export``), the engine's,
+the router's and the continual plan's request spans, and the training
+program's ``train.<phase>`` spans.  The tracer, journal, chrome-trace,
+histogram-merge, latency-line, render/parse, ``MetricsServer``, fleet-trace
+and snapshot-consistency cases are those of the reference's
+``tests/test_observability.py``; the port's modules copy the reference's
+instruments, so their snapshots and rendered text are also held equal to
+the reference's on the same inputs (the reference's bundle also carries the
+decode plan's histograms, which the port brings with that slice)."""
 import dataclasses
 import json
+import os
+import subprocess
+import sys
 import threading
+import time
 import urllib.request
 
 import numpy as np
 import pytest
 import torch
 
+from repro.runtime import DriftWindow as JDriftWindow
+from repro.runtime import RouterMetrics as JRouterMetrics
 from repro.runtime import ServiceMetrics as JServiceMetrics
+from repro.runtime import format_latency_line as jformat_latency_line
 from repro.runtime import render_openmetrics as jrender_openmetrics
 from repro_torch.core import (
     DenseLayer,
@@ -30,18 +39,28 @@ from repro_torch.core import (
 )
 from repro_torch.data import complementary_code, mnist_like
 from repro_torch.runtime import (
+    DriftWindow,
+    EngineRestart,
     EventJournal,
     Histogram,
     MetricsServer,
     OpenMetricsError,
+    Router,
+    RouterConfig,
+    RouterMetrics,
     ServiceConfig,
     ServiceMetrics,
+    TenantConfig,
     TraceConfig,
     Tracer,
     build_tracer,
+    format_latency_line,
     parse_openmetrics,
     render_openmetrics,
 )
+from repro_torch.runtime.service import ServePlan
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -51,14 +70,51 @@ def data():
     return ds, np.asarray(x, np.float32), layout
 
 
-@dataclasses.dataclass(frozen=True)
-class _Restart:
-    """A journal event of the shape the reference's typed events have."""
+_Restart = EngineRestart
 
-    kind = "engine_restart"
-    engine: str = None
-    restarts: int = None
-    leftover: int = None
+
+# ----------------------------------------------------------- plan fixtures
+class SleepyPlan(ServePlan):
+    """Streaming plan with pure-sleep infer: deterministic fabric tests."""
+
+    name = "streaming"
+
+    def __init__(self, config, metrics=None, delay_s=0.002):
+        super().__init__(config, metrics=metrics)
+        self.delay_s = delay_s
+
+    def infer(self, x):
+        time.sleep(self.delay_s)
+        return int(x)
+
+
+class _Boom(BaseException):
+    """Escapes the per-item Exception handler: kills the engine loop."""
+
+
+def sleepy_factory(delay_s=0.002, crash_on=(), armed=None):
+    def factory(config, metrics):
+        plan = SleepyPlan(config, metrics=metrics, delay_s=delay_s)
+        if crash_on:
+            orig = plan.infer
+
+            def infer(x):
+                if int(x) in crash_on and armed.pop("on", None):
+                    raise _Boom(f"injected crash at {int(x)}")
+                return orig(x)
+
+            plan.infer = infer
+        return plan
+
+    return factory
+
+
+def traced_fleet(n=2, trace=None, max_queue=8, **factory_kw):
+    router = Router(RouterConfig(
+        routing="round_robin", trace=trace if trace is not None else TraceConfig()))
+    for i in range(n):
+        router.add_engine(f"e{i}", sleepy_factory(**factory_kw), ServiceConfig(max_queue=max_queue))
+    return router
 
 
 def _net(layout):
@@ -228,6 +284,71 @@ class TestHistogramMerge:
             h.merge(h)
 
 
+    def test_fleet_rollup_exposes_fabric_quantiles(self):
+        rm = RouterMetrics()
+        e0 = rm.register_engine("e0")
+        e1 = rm.register_engine("e1")
+        v0, v1 = [0.01 * i for i in range(50)], [0.5 + 0.01 * i for i in range(50)]
+        for v in v0:
+            e0.e2e_s.observe(v)
+        for v in v1:
+            e1.e2e_s.observe(v)
+        snap = rm.snapshot()
+        assert "fleet" in snap
+        fleet = snap["fleet"]["e2e_s"]
+        both = np.asarray(v0 + v1)
+        assert fleet["count"] == 100
+        assert fleet["p95"] == pytest.approx(float(np.percentile(both, 95)), rel=1e-6)
+
+
+# ------------------------------------------------- drift window and lines
+class TestDriftWindowParity:
+    def test_snapshots_equal_the_reference(self):
+        """The same prequential stream (a baseline, a degraded window, a
+        reset) gives the reference's snapshot and drift decision at every
+        step."""
+        rng = np.random.default_rng(3)
+        port, ref = DriftWindow(window=8, min_samples=4, threshold=0.25), \
+            JDriftWindow(window=8, min_samples=4, threshold=0.25)
+        seen_drift = False
+        for k in range(40):
+            correct, conf = bool(rng.random() < (0.9 if k < 16 else 0.3)), float(rng.random())
+            for dw in (port, ref):
+                dw.observe(correct, conf)
+                if k == 11:
+                    dw.freeze_baseline()
+                if k == 30:
+                    dw.reset_current()
+            assert port.snapshot() == ref.snapshot()
+            assert port.drifted() == ref.drifted()
+            assert (port.samples, port.baseline_samples) == (ref.samples, ref.baseline_samples)
+            seen_drift |= port.drifted()
+        assert seen_drift
+
+
+class TestFormatLatencyLine:
+    def test_explicit_names_shape_stable_at_zero(self):
+        snap = ServiceMetrics().snapshot()
+        line = format_latency_line(snap, "queue_wait_s", "e2e_s")
+        # both requested histograms render even with zero observations
+        assert "queue_wait p50=0.00ms p95=0.00ms p99=0.00ms" in line
+        assert "e2e p50=0.00ms" in line
+
+    def test_no_names_empty_still_summarizes(self):
+        line = format_latency_line(ServiceMetrics().snapshot())
+        assert "no latency samples" in line
+
+    @pytest.mark.parametrize("names", [(), ("queue_wait_s", "e2e_s"), ("update_s",)],
+                             ids=["all", "explicit", "update"])
+    def test_text_equals_the_reference(self, names):
+        port, ref = ServiceMetrics(), JServiceMetrics()
+        _fill_service(port)
+        _fill_service(ref)
+        line = format_latency_line(port.snapshot(), *names)
+        assert line == jformat_latency_line(ref.snapshot(), *names)
+        assert "online updates=3 shed=1 merges=1 rollbacks=1 drift=1" in line
+
+
 # ------------------------------------------------------------ openmetrics
 def _fill_service(m):
     m.submitted.inc(3)
@@ -237,6 +358,37 @@ def _fill_service(m):
     for v in (0.1, 0.25, 0.05):
         m.e2e_s.observe(v)
         m.batch_s.observe(v / 2)
+        m.update_s.observe(v / 4)
+    m.online_updates.inc(3)
+    m.updates_shed.inc()
+    m.merges.inc()
+    m.rollbacks.inc()
+    m.drift_events.inc()
+    m.configure_drift(8, 4, 0.3)
+    for k in range(6):
+        m.drift.observe(k % 3 != 0, 0.5 + 0.05 * k)
+    m.drift.freeze_baseline()
+    for k in range(5):
+        m.drift.observe(k == 0, 0.4)
+
+
+def _fill_router(rm):
+    rm.dispatched.inc(5)
+    rm.restarts.inc()
+    for tenant, n in (("paid", 4), ("free", 2)):
+        tm = rm.tenant(tenant)
+        tm.submitted.inc(n)
+        tm.completed.inc(n - 1)
+        tm.shed_deadline.inc()
+        tm.queue_depth.set(n)
+        for k in range(n):
+            tm.sched_wait_s.observe(0.001 * (k + 1))
+            tm.e2e_s.observe(0.01 * (k + 1))
+    for i, name in enumerate(("e0", "e1")):
+        em = rm.register_engine(name)
+        _fill_service(em)
+        for k in range(10 * (i + 1)):
+            em.queue_wait_s.observe(0.002 * k)
 
 
 def _without_time(snapshot):
@@ -260,12 +412,18 @@ class TestOpenMetrics:
         assert "repro_e2e_seconds_count" in names
         assert set(fams) == {
             "repro_submitted", "repro_completed", "repro_rejected", "repro_queue_depth",
-            "repro_queue_wait_seconds", "repro_batch_seconds", "repro_e2e_seconds"}
+            "repro_online_updates", "repro_updates_shed", "repro_merges", "repro_rollbacks",
+            "repro_drift_events", "repro_queue_wait_seconds", "repro_batch_seconds",
+            "repro_e2e_seconds", "repro_update_seconds", "repro_drift_accuracy",
+            "repro_drift_baseline_accuracy", "repro_drift_confidence", "repro_drift_samples",
+            "repro_drifted"}
 
     def test_snapshot_holds_the_served_instruments(self):
         snap = ServiceMetrics().snapshot()
         assert list(snap) == ["submitted", "completed", "rejected", "queue_depth",
-                              "queue_wait_s", "batch_s", "e2e_s"]
+                              "queue_wait_s", "batch_s", "e2e_s", "update_s",
+                              "online_updates", "updates_shed", "merges", "rollbacks",
+                              "drift_events", "drift"]
         assert snap["e2e_s"]["count"] == 0
 
     @pytest.mark.parametrize("fill", [lambda m: None, _fill_service], ids=["empty", "filled"])
@@ -279,6 +437,73 @@ class TestOpenMetrics:
         want = {k: v for k, v in _without_time(ref.snapshot()).items() if k in snap}
         assert snap == want
         assert render_openmetrics(snap) == jrender_openmetrics(want)
+
+    def test_router_render_parse_round_trip(self):
+        rm = RouterMetrics()
+        rm.dispatched.inc(5)
+        tm = rm.tenant("paid")
+        tm.submitted.inc(5)
+        tm.e2e_s.observe(0.2)
+        em = rm.register_engine("e0")
+        em.e2e_s.observe(0.2)
+        fams = parse_openmetrics(render_openmetrics(rm.snapshot()))
+        assert "repro_router_dispatched" in fams
+        tenant_samples = fams["repro_tenant_submitted"]["samples"]
+        assert any(labels.get("tenant") == "paid" for _, labels, _ in tenant_samples)
+        engine_samples = fams["repro_e2e_seconds"]["samples"]
+        assert any(labels.get("engine") == "e0" for _, labels, _ in engine_samples)
+        assert "repro_fleet_e2e_seconds" in fams
+
+    def test_router_snapshot_and_text_equal_the_reference(self):
+        """A router roll-up (tenants, engines, the fleet's merged windows)
+        equals the reference's on the same inputs, on the instruments both
+        carry, and its OpenMetrics text parses to the reference's."""
+        port, ref = RouterMetrics(), JRouterMetrics()
+        _fill_router(port)
+        _fill_router(ref)
+        snap, want = port.snapshot(), ref.snapshot()
+        for name in ("dispatched", "restarts", "tenants"):
+            assert snap[name] == want[name]
+        for engine, esnap in snap["engines"].items():
+            assert esnap == {k: v for k, v in want["engines"][engine].items() if k in esnap}
+        assert snap["fleet"] == {k: v for k, v in want["fleet"].items() if k in snap["fleet"]}
+        want = {**want, "fleet": snap["fleet"],
+                "engines": {e: {k: v for k, v in want["engines"][e].items() if k in esnap}
+                            for e, esnap in snap["engines"].items()}}
+        assert parse_openmetrics(render_openmetrics(snap)) == \
+            parse_openmetrics(jrender_openmetrics(want))
+
+    def test_checkmetrics_cli(self, tmp_path):
+        """``python -m repro_torch.runtime.export`` (the reference's
+        ``tools/checkmetrics``) validates the port's router text."""
+        rm = RouterMetrics()
+        _fill_router(rm)
+        path = tmp_path / "metrics.txt"
+        path.write_text(render_openmetrics(rm.snapshot()))
+        tracer = Tracer()
+        tid = tracer.new_trace()
+        tracer.record(tid, "router.sched", 0.0, 1.0, tenant="paid")
+        trace = tmp_path / "trace.json"
+        tracer.write_chrome_trace(str(trace))
+
+        def run(*args):
+            return subprocess.run(
+                [sys.executable, "-m", "repro_torch.runtime.export", *args],
+                capture_output=True, text=True, timeout=60, cwd=ROOT,
+                env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+            )
+
+        ok = run(str(path), "--require", "repro_router_dispatched",
+                 "--require", "repro_tenant_e2e_seconds", "--trace", str(trace),
+                 "--expect-trace-id", str(tid))
+        assert ok.returncode == 0, ok.stdout + ok.stderr
+        assert "checkmetrics: OK" in ok.stdout and "trace OK" in ok.stdout
+        assert run(str(path), "--require", "repro_missing").returncode == 1
+        assert run(str(path), "--trace", str(trace), "--expect-trace-id",
+                   str(tid + 1)).returncode == 1
+        invalid = tmp_path / "bad.txt"
+        invalid.write_text("repro_x 1\n")
+        assert run(str(invalid)).returncode == 1
 
     def test_rejected_submit_renders_as_a_counter(self, data):
         _, x, layout = data
@@ -456,3 +681,192 @@ def test_hammered_snapshots_never_tear():
         for t in threads:
             t.join(10)
     assert not any(t.is_alive() for t in threads)
+
+
+# ------------------------------------------------------------- fleet traces
+class TestFleetTracing:
+    def test_single_trace_id_spans_full_path(self):
+        r = traced_fleet(n=2).start()
+        futs = [r.submit(i, tenant="a") for i in range(8)]
+        [f.result(timeout=10) for f in futs]
+        tids = [f.trace_id for f in futs]
+        assert sorted(tids) == list(range(1, 9))  # minted per request
+        tr = r.tracer
+        for tid in tids:
+            names = {s.name for s in tr.trace(tid)}
+            assert {"router.sched", "engine.inbox", "router.e2e", "engine.e2e"} <= names
+        # the sched span names tenant + chosen engine
+        sched = tr.trace(tids[0])[0]
+        assert sched.name == "router.sched"
+        assert sched.attrs["tenant"] == "a"
+        assert sched.attrs["target"] in ("e0", "e1")
+        r.drain_and_stop(timeout=10)
+        doc = tr.chrome_trace()
+        assert len([e for e in doc["traceEvents"] if e["ph"] == "X"]) >= 32
+
+    def test_tenant_queue_full_journals_tenant_shed(self):
+        from repro_torch.runtime import TenantQueueFull
+
+        rr = Router(RouterConfig(tenants={"t": TenantConfig(max_queue=2)}, trace=TraceConfig()))
+        rr.add_engine("e0", sleepy_factory(delay_s=0.05), ServiceConfig(max_queue=1))
+        futs = [rr.submit(i, tenant="t") for i in range(2)]
+        with pytest.raises(TenantQueueFull):
+            rr.submit(99, tenant="t")
+        events = rr.tracer.events(kind="tenant_shed")
+        assert len(events) == 1
+        _, _, ev = events[0]
+        assert ev.tenant == "t" and ev.reason == "queue_full"
+        assert ev.trace_id is not None
+        rr.start()
+        [f.result(timeout=10) for f in futs]
+        rr.drain_and_stop(timeout=10)
+
+    def test_doa_deadline_journals_deadline_shed(self):
+        from repro_torch.runtime import DeadlineExceeded
+
+        r = traced_fleet(n=1)
+        fut = r.submit(1, deadline_s=0.0)
+        with pytest.raises(DeadlineExceeded):
+            fut.result(timeout=5)
+        events = r.tracer.events(kind="deadline_shed")
+        assert len(events) == 1
+        assert events[0][2].trace_id == fut.trace_id
+        r.drain_and_stop(timeout=10)
+
+    @pytest.mark.filterwarnings("ignore::pytest.PytestUnhandledThreadExceptionWarning")
+    def test_restart_survival_journals_engine_restart(self):
+        armed = {"on": True}
+        r = Router(RouterConfig(routing="round_robin", trace=TraceConfig()))
+        r.add_engine("e0", sleepy_factory(delay_s=0.001, crash_on={3}, armed=armed),
+                     ServiceConfig(max_queue=2))
+        r.start()
+        futs = [r.submit(i) for i in range(8)]
+        res = [f.result(timeout=15) for f in futs]
+        assert sorted(res) == list(range(8))  # crash victim redispatched
+        r.drain_and_stop(timeout=15)
+        assert r.metrics.snapshot()["restarts"] == 1
+        events = r.tracer.events(kind="engine_restart")
+        assert len(events) == 1
+        ev = events[0][2]
+        assert ev.engine == "e0" and ev.restarts == 1
+        # per-engine telemetry bundle survived the restart (same object)
+        snap = r.metrics.snapshot()
+        assert snap["engines"]["e0"]["completed"] >= 1
+
+    def test_tracing_disabled_is_zero_cost_and_unset(self):
+        r = Router(RouterConfig(routing="round_robin"))
+        r.add_engine("e0", sleepy_factory(), ServiceConfig(max_queue=4))
+        r.start()
+        futs = [r.submit(i) for i in range(4)]
+        [f.result(timeout=10) for f in futs]
+        assert r.tracer is None
+        assert all(getattr(f, "trace_id", None) is None for f in futs)
+        r.drain_and_stop(timeout=10)
+
+
+class TestRouterSnapshotConsistency:
+    def test_hammered_router_snapshots_never_tear(self):
+        rm = RouterMetrics()
+        bundles = [rm.register_engine(f"e{i}") for i in range(3)]
+        stop = threading.Event()
+        errors = []
+
+        def writer(m):
+            k = 0
+            while not stop.is_set():
+                m.submitted.inc()
+                m.completed.inc()
+                m.e2e_s.observe(0.001 * (k % 50))
+                rm.dispatched.inc()
+                k += 1
+
+        def reader():
+            last_dispatched = 0
+            try:
+                while not stop.is_set():
+                    snap = rm.snapshot()
+                    # counters are monotone across snapshots
+                    assert snap["dispatched"] >= last_dispatched
+                    last_dispatched = snap["dispatched"]
+                    for eng in snap["engines"].values():
+                        # per-bundle consistency: completed never exceeds
+                        # submitted (both incremented under one lock)
+                        assert eng["completed"] <= eng["submitted"]
+                        assert eng["e2e_s"]["count"] >= 0
+                    for h in snap["fleet"].values():
+                        assert h["count"] >= 0
+            except AssertionError as e:  # surfaced after join
+                errors.append(e)
+
+        threads = [threading.Thread(target=writer, args=(m,)) for m in bundles] + [
+            threading.Thread(target=reader) for _ in range(2)]
+        for t in threads:
+            t.start()
+        time.sleep(0.4)
+        stop.set()
+        for t in threads:
+            t.join(timeout=10)
+        assert not any(t.is_alive() for t in threads)
+        assert errors == []
+
+    def test_histogram_window_lengths_bounded_under_merge_race(self):
+        src = Histogram(window=64)
+        dst = Histogram(window=32)
+        stop = threading.Event()
+
+        def observe():
+            k = 0
+            while not stop.is_set():
+                src.observe(float(k % 10))
+                k += 1
+
+        t = threading.Thread(target=observe)
+        t.start()
+        try:
+            for _ in range(200):
+                dst.merge(src)
+                snap = dst.snapshot()
+                vals = dst._window_values()
+                assert len(vals) <= 32
+                assert snap["count"] >= len(vals)
+        finally:
+            stop.set()
+            t.join(timeout=10)
+        assert not t.is_alive()
+
+
+# --------------------------------------------------------- continual fleet
+class TestContinualFleetTrace:
+    def test_feedback_trace_covers_learn_hops(self):
+        """One trace id through a continual fleet covers router sched ->
+        engine inbox -> learn, with plan.update / plan.merge spans and
+        merge_applied journal events correlated."""
+        from test_torch_continual import _cc, _fitted
+
+        from repro_torch.runtime import ContinualPlan, Feedback
+
+        compiled, xs, ys = _fitted()
+
+        def factory(config, metrics):
+            return ContinualPlan(compiled, config, metrics)
+
+        router = Router(RouterConfig(routing="round_robin", trace=TraceConfig()))
+        cfg = ServiceConfig(continual=_cc(update_batch=2, merge_every=2))
+        router.add_engine("cl0", factory, cfg)
+        router.start()
+        futs = [router.submit(Feedback(xs[k], int(ys[k])), pool="continual") for k in range(8)]
+        acks = [f.result(timeout=30) for f in futs]
+        router.drain_and_stop(timeout=30)
+        assert any(a["applied"] for a in acks)
+        assert any(a["merged"] for a in acks)
+        tr = router.tracer
+        # the sample that applied an update carries the full hop chain
+        applied_tid = futs[[a["applied"] for a in acks].index(True)].trace_id
+        names = {s.name for s in tr.trace(applied_tid)}
+        assert {"router.sched", "engine.inbox", "engine.learn", "plan.update"} <= names
+        merged_tid = futs[[a["merged"] for a in acks].index(True)].trace_id
+        assert "plan.merge" in {s.name for s in tr.trace(merged_tid)}
+        merges = tr.events(kind="merge_applied")
+        assert merges and merges[0][2].trace_id == merged_tid
+        # the whole thing exports as valid Chrome trace JSON
+        json.loads(json.dumps(tr.chrome_trace()))
