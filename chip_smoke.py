@@ -26,7 +26,9 @@ the run with a non-zero exit:
    at the 8-row continual update of each layer; ``bcpnn_phase`` also at the
    flushes and the continual update with bf16 state, and with f32 traces
    in (an adapter forked after a merge); ``bf_round`` also at the served
-   chunks through both layers); then print where
+   chunks through both layers; the forward pair and ``bcpnn_update`` also
+   at the shapes of the launcher's ``--online`` classifier, ``online_rows``:
+   F = 64, H = 32, 64 / 4 / 1 rows, the head 32x4); then print where
    ``bcpnn_phase``'s time goes, phase by phase
    (``tools/bcpnn_phase_profile.py``);
 4. drive the main paths, the paper's Listing 1 at MNIST width (784
@@ -98,7 +100,30 @@ the run with a non-zero exit:
    against ``compiled.predict``, the forward pair checked after the run at
    every micro-batch size the engines formed.  Rates, latencies, the DRR
    share and the sheds are printed, not gated;
-7. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
+7. the LM zoo's dense decoder at full width: gemma3-1b as published
+   (26 layers, vocab 262144, a 512 window, bf16, random weights from
+   ``torch.Generator`` seed 0) through ``serve_model`` with four slots,
+   eight prompts of 5-700 tokens, 16 new tokens each: every request
+   completes; its tokens equal a single-slot plan's up to its first
+   near-tie, and the slot-batched logits are within NEAR_TIE / 2 of the
+   single-slot ones on every row of the same inputs; prefill + decode
+   logits within DEC_FORWARD_TOL x std of ``forward``'s over the whole
+   sequence (prompts 60 and 700); bucketed and exact-length prefills give
+   the same first token off near-ties; an EOS request ends where its
+   token is; prefill ms per bucket and decode-step ms at 1, 2 and 4 slots
+   (device from graph replays, host apart) against the bytes' bound.  Then
+   the same width at depth 6 in f32, the card against the CPU (weights
+   carried through the flat arrays; logits within 1e-4 relative + 1e-4 x
+   std, tokens equal up to the first near-tie); the async engine (four
+   client threads, 16 requests) and a fleet of two decode engines over the
+   one model (two tenants, deadlines, one crash and restart, one copy of
+   the weights in memory); and the launcher as a user runs it
+   (``python -m repro_torch.launch.serve --full ...``, ``--online``, and a
+   model too large for the card refused by its bytes), the ``--online``
+   path once more in this process with its launches counted and each
+   launch's shape among phase 3's.  The decode path launches none of the
+   five kernels;
+8. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
    ...}`` line.
 
 Without a CUDA device, or away from the rest of the repository, it exits
@@ -183,6 +208,44 @@ STREAM_MASK_COLUMNS = dict(unfused_f32=0, fused_bf16=1)
 # w 7.135e-3, b 2.906e-3.
 CONT_FUSED_TRACE_RTOL = 2.0 ** -6
 CONT_FUSED_W_TOL = 3 * CONT_FUSED_TRACE_RTOL
+# The launcher's --online path (phase 7d, repro_torch/launch/serve.py:
+# serve_online): 32 features complementary-coded (F = 64) -> 4x8 hidden
+# with fan_in 16 -> 4 classes.  It trains in batches and projection chunks
+# of 64 rows, adapts the readout through the frozen hidden layer in
+# feedback micro-batches of 4 rows, and infers one row at a time.
+ONLINE_F, ONLINE_HIDDEN, ONLINE_FAN_IN, ONLINE_CLASSES = 64, (4, 8), 16, 4
+# Phase 7: the LM zoo's dense decoder, gemma3-1b as published (26 layers,
+# d_model 1152, 4 q heads over one kv head of 256, geglu 6912, vocab
+# 262144, a local window of 512 with every 6th layer global), bf16, random
+# weights from torch.Generator seed 0, prompts from default_rng(7).  The
+# 520 and 700 prompts cross the window.
+DEC_ARCH = "gemma3-1b"
+DEC_MAX_BATCH, DEC_MAX_SEQ, DEC_NEW, DEC_EOS_STEP = 4, 1024, 16, 5
+DEC_BUCKETS = (64, 128, 256, 512, 768)
+DEC_LENGTHS = (5, 17, 60, 64, 130, 300, 520, 700)
+DEC_FORWARD_CHECK = (60, 700)  # prompts whose decode logits are held against forward's
+DEC_STEP_SLOTS = (1, 2, 4)  # a step's slots, all active (idle slots ride along all the same)
+DEC_REPS = 5  # graph replays of a prefill or a decode step, each milliseconds long
+# Near-ties: two computations of the same logits in other orders (other
+# GEMM shapes: one slot or four, a padded prompt or an exact one, the card
+# or the CPU) whose logits differ by at most E can pick different tokens
+# only where a run's top-two logits are closer than 2E.  Tokens are
+# compared up to the first step closer than NEAR_TIE, and the slot-batched
+# logits are held within NEAR_TIE / 2 of the single-slot ones on every row
+# of the same inputs, so the token gate is sound.  bf16 orders were read
+# 0.027 apart at most on an H100 (PERF.md §6).
+NEAR_TIE = 2.0 ** -3
+# prefill + decode logits against forward's over the whole sequence, bf16:
+# max |difference| at most this share of the logits' standard deviation.
+DEC_FORWARD_TOL = 2.0 ** -3
+# matmul_f32 on the card against the f32 product of widened operands:
+# |difference| at most this share of |a| @ |b| (f32 sums of at most 1152
+# exact products in another order: ~sqrt(1152) x 2^-24 ~ 2e-6 typical).
+MATMUL_F32_RTOL = 1e-5
+# 7b: depth 6 at full width in f32, the card against the CPU.
+DEC_F32_LAYERS, DEC_F32_LENGTHS, DEC_F32_NEW, DEC_F32_TOL = 6, (60, 520, 700), 8, 1e-4
+DEC_ASYNC_CLIENTS, DEC_ASYNC_REQUESTS = 4, 16
+DEC_FLEET_REQUESTS, DEC_FLEET_CRASH_AT = 16, 4
 
 
 class SmokeFailure(RuntimeError):
@@ -202,10 +265,10 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(torch, fn, flush) -> float:
+def device_ms(torch, fn, flush, reps: int = REPS) -> float:
     """Device time of one call of ``fn``, without the host's launch overhead.
 
-    REPS calls, each after an L2 flush (a read of 64 MB: the main path meets
+    ``reps`` calls, each after an L2 flush (a read of 64 MB: the main path meets
     every kernel with a mostly cold 50 MB L2, since the update between two
     forwards moves ~78 MB), are captured in one CUDA graph; the graph is
     replayed between CUDA events, and the time of the same graph of flushes
@@ -222,7 +285,7 @@ def device_ms(torch, fn, flush) -> float:
         torch.cuda.current_stream().wait_stream(side)
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
-            for _ in range(REPS):
+            for _ in range(reps):
                 flush.sum()
                 if with_fn:
                     fn()
@@ -242,7 +305,7 @@ def device_ms(torch, fn, flush) -> float:
         return statistics.median(times)
 
     both, flushes = graph(True), graph(False)
-    return max(replay_ms(both) - replay_ms(flushes), 0.0) / REPS
+    return max(replay_ms(both) - replay_ms(flushes), 0.0) / reps
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -345,6 +408,23 @@ def kernel_checks(torch, ops, ref, dev):
     x_s = uniform(most + 1, F)[1:]
     h_s = codes(most, n_hcu, n_mcu)
     s_sh, s_sr = 4 * normal(most, H), 4 * normal(most, N_CLASSES)
+    # The --online launcher's shapes (phase 7d), each a view at an odd row
+    # offset of a larger block.
+    on, (hcu_o, mcu_o) = online_rows(), ONLINE_HIDDEN
+    F_o, H_o, C_o = ONLINE_F, hcu_o * mcu_o, ONLINE_CLASSES
+    most_o = max(on["hidden"])
+    x_o = uniform(most_o + 1, F_o)[1:]
+    h_o = codes(most_o, hcu_o, mcu_o)
+    s_o, s_or = 4 * normal(most_o, H_o), 4 * normal(most_o, C_o)
+    mask_o = unit_mask(F_o // 2, 2, hcu_o, mcu_o, ONLINE_FAN_IN)
+    w_om, b_o = normal(F_o, H_o) * mask_o, 0.1 * normal(H_o)
+    w_or, b_or = normal(H_o, C_o), 0.1 * normal(C_o)
+    ci_o, cj_o = 0.25 + 0.5 * uniform(F_o), 0.02 + 0.04 * uniform(H_o)
+    cij_o = (ci_o[:, None] * cj_o[None, :]) * torch.exp(normal(F_o, H_o))
+    ci_or, cj_or = 0.02 + 0.04 * uniform(H_o), 0.2 + 0.05 * uniform(C_o)
+    cij_or = (ci_or[:, None] * cj_or[None, :]) * torch.exp(normal(H_o, C_o))
+    onehot_o = torch.nn.functional.one_hot(
+        torch.randint(0, C_o, (most_o,), generator=g, device=dev), C_o).float()
 
     def mm_case(a, w, b, m):
         (rows, k), n = a.shape, w.shape[1]
@@ -417,6 +497,16 @@ def kernel_checks(torch, ops, ref, dev):
                 4 * (rows * F + rows * H + 2 * F + 3 * H + 4 * F * H),
                 2 * rows * F * H + 7 * F * H)
 
+    def update_at(ai, aj, ci, cj, cij, m, tail):  # any f32 update, masked or not
+        (rows, f), h = ai.shape, aj.shape[1]
+        return (f"ai({rows},{f}) aj({rows},{h}) cij({f},{h}){' masked' if m is not None else ''}"
+                f"{tail}" + up_plan(ai, aj),
+                update(bk.bcpnn_update, ai, aj, ci, cj, cij, m),
+                update(ref.bcpnn_update, ai, aj, ci, cj, cij, m),
+                None,
+                4 * (rows * f + rows * h + 2 * f + 3 * h + (4 if m is not None else 3) * f * h),
+                2 * rows * f * h + (7 if m is not None else 6) * f * h)
+
     def phase_bf16_case(rows, tail=""):
         return (f"x({rows},{F}) {n_hcu}x{n_mcu}, bf16 state, mantissa 7{tail}",
                 phase(pk.bcpnn_phase, bf, xb=x[:rows], state_mantissa=7,
@@ -460,7 +550,10 @@ def kernel_checks(torch, ops, ref, dev):
             cases=[mm_case(*c) for c in (
                 (x, w_h, b_h, mask), (x_p, w_h, b_h, mask), (h_p, w_r, b_r, None),
                 *((x_s[:m], w_h, b_h, mask) for m in hidden_rows),
-                *((h_s[:m], w_r, b_r, None) for m in rows["head"]))],
+                *((h_s[:m], w_r, b_r, None) for m in rows["head"]),
+                # the --online launcher (phase 7d)
+                *((x_o[:m], w_om, b_o, mask_o) for m in on["hidden"]),
+                *((h_o[:m], w_or, b_or, None) for m in on["head"]))],
         ),
         dict(
             name="hcu_softmax",
@@ -470,7 +563,10 @@ def kernel_checks(torch, ops, ref, dev):
             cases=[sm_case(*c) for c in (
                 (s_h, n_hcu, n_mcu), (s_p, n_hcu, n_mcu), (s_r, 1, N_CLASSES),
                 *((s_sh[:m], n_hcu, n_mcu) for m in hidden_rows),
-                *((s_sr[:m], 1, N_CLASSES) for m in rows["head"]))],
+                *((s_sr[:m], 1, N_CLASSES) for m in rows["head"]),
+                # the --online launcher (phase 7d)
+                *((s_o[:m], hcu_o, mcu_o) for m in on["hidden"]),
+                *((s_or[:m], 1, C_o) for m in on["head"]))],
         ),
         dict(
             name="bcpnn_update",
@@ -504,6 +600,12 @@ def kernel_checks(torch, ops, ref, dev):
                 # the continual tier's feedback micro-batch (phase 6)
                 *(update_case(m, ", continual update") for m in cont["update"]),
                 *(readout_case(m, ", continual update") for m in cont["readout_update"]),
+                # the --online launcher (phase 7d): its hidden layer's fit, its
+                # readout's fit and continual update
+                *(update_at(x_o[:m], h_o[:m], ci_o, cj_o, cij_o, mask_o, ", --online")
+                  for m in on["update"]),
+                *(update_at(h_o[:m], onehot_o[:m], ci_or, cj_or, cij_or, None, ", --online")
+                  for m in on["readout_update"]),
             ],
         ),
         dict(
@@ -910,6 +1012,29 @@ def continual_rows():
     micro-batches depend on timing and are checked after its run."""
     return dict(hidden=[CONT_BATCH], update=[CONT_BATCH], readout_update=[CONT_BATCH],
                 flush=[CONT_BATCH])
+
+
+def online_rows():
+    """The row counts the --online launcher gives each kernel (phase 7d):
+    64-row training batches and projection chunks, 4-row feedback
+    micro-batches and single rows through the hidden forward; single rows
+    through the head; ``bcpnn_update`` on the hidden layer at 64 rows and
+    on the readout at 64 (fit) and 4 (the continual update)."""
+    return dict(hidden=[64, 4, 1], head=[1], update=[64], readout_update=[64, 4])
+
+
+def online_keys():
+    """(kernel, shape) of every launch phase 3 holds at the --online shapes,
+    in the keys ``record_shapes`` gives."""
+    rows, (n_hcu, n_mcu) = online_rows(), ONLINE_HIDDEN
+    H = n_hcu * n_mcu
+    keys = {("masked_matmul", (m, ONLINE_F, H, True)) for m in rows["hidden"]}
+    keys |= {("masked_matmul", (m, H, ONLINE_CLASSES, False)) for m in rows["head"]}
+    keys |= {("hcu_softmax", (m, n_hcu, n_mcu)) for m in rows["hidden"]}
+    keys |= {("hcu_softmax", (m, 1, ONLINE_CLASSES)) for m in rows["head"]}
+    keys |= {("bcpnn_update", (m, ONLINE_F, H)) for m in rows["update"]}
+    keys |= {("bcpnn_update", (m, H, ONLINE_CLASSES)) for m in rows["readout_update"]}
+    return keys
 
 
 def served_chunks(ns, buckets):
@@ -1671,6 +1796,592 @@ def fabric(torch, ops, ref, core, trained, card):
     return launches, report
 
 
+# ------------------------------------------------------------------ phase 7
+class LogitRecorder:
+    """Stands for a model in a plain ``DecodePlan``: passes ``prefill`` and
+    ``decode_step`` through to it and keeps, on the device, every call's
+    logits beside its inputs.  The plan runs its own code unchanged;
+    :meth:`logits` then finds each completion's rows by its inputs alone: its
+    prefill by its prompt, its steps as the run of consecutive fused steps
+    in which one slot was fed its tokens at its positions."""
+
+    def __init__(self, torch, model):
+        self.torch, self.model, self.device = torch, model, model.device
+        self.prefills, self.steps = [], []
+
+    def cache_shapes(self, batch, seq):
+        return self.model.cache_shapes(batch, seq)
+
+    def init_cache(self, batch, seq):
+        return self.model.init_cache(batch, seq)
+
+    def prefill(self, batch):
+        logits, cache = self.model.prefill(batch)
+        self.prefills.append((batch["tokens"][0, :batch["last_pos"] + 1], logits[0]))
+        return logits, cache
+
+    def decode_step(self, cache, token, cur_len):
+        logits, cache = self.model.decode_step(cache, token, cur_len)
+        self.steps.append((token[:, 0], cur_len, logits))
+        return logits, cache
+
+    def logits(self, done, prompts):
+        """rid -> (tokens, logits (steps, V) f32) of the completions, each
+        row the one its token was the argmax of."""
+        import numpy as np
+
+        torch = self.torch
+        feeds = [(t.cpu().numpy(), c.cpu().numpy()) for t, c, _ in self.steps]
+        out = {}
+        for c in done:
+            p = np.asarray(prompts[c.rid], np.int64)
+            pre = [lg for t, lg in self.prefills
+                   if len(t) == len(p) and np.array_equal(t.cpu().numpy(), p)]
+            n_steps = len(c.tokens) - 1  # the first token is the prefill's
+            runs = [(j, s) for j in range(len(feeds) - n_steps + 1)
+                    for s in range(len(feeds[j][0]))
+                    if all(feeds[j + k][1][s] == len(p) + k and feeds[j + k][0][s] == c.tokens[k]
+                           for k in range(n_steps))]
+            check(len(pre) == 1 and len(runs) == 1,
+                  f"request {c.rid}: {len(pre)} prefills and {len(runs)} runs of steps fed it")
+            j, s = runs[0]
+            lg = torch.stack([pre[0]] + [self.steps[j + k][2][s] for k in range(n_steps)]).float()
+            check(torch.equal(lg.argmax(-1).cpu(), torch.from_numpy(c.tokens).long()),
+                  f"request {c.rid}: its tokens are not its logits' argmax")
+            out[c.rid] = (c.tokens, lg)
+        return out
+
+
+def same_input_rows(a_tokens, b_tokens) -> int:
+    """The logits rows two runs computed from the same inputs: up to and
+    including the first step whose tokens differ."""
+    import numpy as np
+
+    differ = np.nonzero(np.asarray(a_tokens) != np.asarray(b_tokens))[0]
+    return int(differ[0]) + 1 if len(differ) else len(a_tokens)
+
+
+def first_tie(logits) -> int:
+    """The first step whose top-two logit margin is under NEAR_TIE (the
+    number of steps when none is)."""
+    top2 = logits.topk(2, dim=-1).values
+    ties = ((top2[:, 0] - top2[:, 1]) < NEAR_TIE).nonzero()
+    return int(ties[0, 0]) if len(ties) else logits.shape[0]
+
+
+def dec_requests(Request, prompts, new, n=None):
+    """``n`` requests (one a prompt by default) cycling over ``prompts``."""
+    n = len(prompts) if n is None else n
+    return [Request(rid=i, prompt=prompts[i % len(prompts)], max_new_tokens=new)
+            for i in range(n)]
+
+
+def wall_ms(torch, fn, n=10):
+    """Host clock per eager call, each synchronised: a served step's latency."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def enqueue_ms(torch, fn, n=10):
+    """Host clock per eager call without a synchronise: the enqueue alone."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e3
+
+
+def matmul_f32_on_card(torch, model, cfg, dev):
+    """``matmul_f32``'s card branch (``torch.mm``/``torch.bmm`` with
+    ``out_dtype=torch.float32`` on bf16 operands) against the f32 product of
+    the widened operands, at the shapes phase 7 gives it: the logits of four
+    slots (the tied table), the decode scores and PV of four slots over the
+    whole cache, and the prefill's score and PV tiles at the 768 bucket.
+    Both sum exact products in f32, so they differ by the order of the sums
+    alone: |difference| <= MATMUL_F32_RTOL x (|a| @ |b|) elementwise, where
+    an output rounded to bf16 would be off by up to 2^-9 of |a @ b|."""
+    from repro_torch.models.common import matmul_f32
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    kh, grp, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
+    qc, kc = min(cfg.q_chunk, DEC_BUCKETS[-1]), min(cfg.kv_chunk, DEC_BUCKETS[-1])
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
+
+    def probs(*shape):  # p, as the products meet it: a softmax cast to bf16
+        return torch.softmax(torch.randn(shape, generator=g, device=dev), -1).bfloat16()
+
+    cases = {
+        "logits (the tied table)": (rand(DEC_MAX_BATCH, 1, cfg.d_model),
+                                        model.embed.table.T),
+        "decode scores": (rand(DEC_MAX_BATCH, kh, grp, d), rand(DEC_MAX_BATCH, kh, d, DEC_MAX_SEQ)),
+        "decode PV": (probs(DEC_MAX_BATCH, kh, grp, DEC_MAX_SEQ),
+                      rand(DEC_MAX_BATCH, kh, DEC_MAX_SEQ, d)),
+        "prefill score tile": (rand(1, kh, grp * qc, d), rand(1, kh, d, kc)),
+        "prefill PV tile": (probs(1, kh, grp * qc, kc), rand(1, kh, kc, d)),
+    }
+    out = {}
+    for name, (a, b) in cases.items():
+        got = matmul_f32(a, b)
+        want = torch.matmul(a.float(), b.float())
+        scale = torch.matmul(a.float().abs(), b.float().abs())
+        err = (got - want).abs()
+        rel = float((err / scale.clamp_min(1e-30)).max())
+        out[name] = dict(shape=[list(a.shape), list(b.shape)], max_abs=float(err.max()),
+                         max_rel_to_abs_sum=rel)
+        check(got.dtype == torch.float32 and rel <= MATMUL_F32_RTOL,
+              f"7a: matmul_f32 {name} ({got.dtype}) {rel} of |a| @ |b| from the f32 product")
+        del got, want, scale, err
+    return out
+
+
+def decode_width(torch, model, cfg, dev, card):
+    """Phase 7a: gemma3-1b at its published width, bf16, through
+    ``serve_model``: the slot-batched plan against a single-slot plan, the
+    decode against ``forward`` over the whole sequence, bucketed against
+    exact-length prefills, an EOS exit; then the prefill and decode-step
+    times against the bytes' bound."""
+    import numpy as np
+
+    from repro_torch.runtime import Request, ServiceConfig, serve_model
+
+    from repro_torch.runtime import DecodePlan
+
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in DEC_LENGTHS]
+    sc = dict(plan="decode", max_seq=DEC_MAX_SEQ, buckets=DEC_BUCKETS)
+    serve_model(model, ServiceConfig(max_batch=DEC_MAX_BATCH, **sc)).generate(
+        dec_requests(Request, prompts, 2, n=1))  # warm-up: cuBLAS handles, the allocator
+    svc = serve_model(model, ServiceConfig(max_batch=DEC_MAX_BATCH, **sc))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched = sorted(svc.generate(dec_requests(Request, prompts, DEC_NEW)), key=lambda c: c.rid)
+    wall = time.perf_counter() - t0
+    n_tokens = sum(len(c.tokens) for c in batched)
+    check([c.rid for c in batched] == list(range(len(prompts))), "7a: a request did not complete")
+    for c in batched:
+        check(c.prefill_len == len(prompts[c.rid]) and c.steps == DEC_NEW
+              and len(c.tokens) == DEC_NEW, f"7a: request {c.rid} completed as {c}")
+
+    # The same slot-batched schedule and a single-slot plan, every logit
+    # kept: plain plans over a recorder of the model's calls.  The recorded
+    # slot-batched run repeats the served run's calls, so its tokens too.
+    runs = {}
+    for name, slots in (("batched", DEC_MAX_BATCH), ("single", 1)):
+        rec = LogitRecorder(torch, model)
+        done = DecodePlan(rec, ServiceConfig(max_batch=slots, **sc)).generate(
+            dec_requests(Request, prompts, DEC_NEW))
+        runs[name] = rec.logits(done, prompts)
+        del rec, done
+    single = runs["single"]
+    repeatable = all(np.array_equal(c.tokens, runs["batched"][c.rid][0]) for c in batched)
+    check(repeatable, "7a: the recorded slot-batched run's tokens differ from the served run's")
+    ties = {rid: first_tie(lg) for rid, (_, lg) in single.items()}
+    slot_err, rows_compared = 0.0, 0
+    for c in batched:
+        k = ties[c.rid]
+        check(np.array_equal(c.tokens[:k], single[c.rid][0][:k]),
+              f"7a: request {c.rid}: slot-batched tokens {c.tokens[:k]} != single-slot "
+              f"{single[c.rid][0][:k]} before its first near-tie (step {k})")
+        (bt, bl), (st, sl) = runs["batched"][c.rid], single[c.rid]
+        d = same_input_rows(bt, st)
+        slot_err = max(slot_err, float((bl[:d] - sl[:d]).abs().max()))
+        rows_compared += d
+    check(slot_err <= NEAR_TIE / 2,
+          f"7a: slot-batched logits {slot_err} from single-slot ones, over NEAR_TIE / 2")
+    compared = sum(min(ties[r], DEC_NEW) for r in ties)
+
+    # prefill + decode steps against forward over the whole sequence.
+    fwd_err = {}
+    for n in DEC_FORWARD_CHECK:
+        rid = DEC_LENGTHS.index(n)
+        toks, lg = single[rid]
+        seq = np.concatenate([prompts[rid], toks[:-1]]).astype(np.int64)
+        full, _ = model({"tokens": torch.from_numpy(seq)[None].to(dev)})
+        want = full[0, n - 1:].float()
+        err = float((lg - want).abs().max())
+        std = float(want.std())
+        fwd_err[n] = dict(max_abs=err, logit_std=std, ratio=err / std)
+        check(err <= DEC_FORWARD_TOL * std,
+              f"7a: prompt {n}: prefill + decode logits {err} from forward's (std {std})")
+        del full
+
+    # bucketed against exact-length prefills: the first token off near-ties.
+    bucket_err, bucket_ties = 0.0, 0
+    for rid, p in enumerate(prompts):
+        exact, _ = model.prefill({"tokens": torch.from_numpy(p.astype(np.int64))[None].to(dev)})
+        exact = exact[0].float()
+        bucket_err = max(bucket_err, float((single[rid][1][0] - exact).abs().max()))
+        top2 = exact.topk(2).values
+        if float(top2[0] - top2[1]) < NEAR_TIE:
+            bucket_ties += 1
+            continue
+        check(int(exact.argmax()) == int(single[rid][0][0]),
+              f"7a: prompt {len(p)}: the bucketed prefill's first token differs from the exact one")
+
+    # EOS: the token a request's undisturbed single-slot run first emits
+    # at DEC_EOS_STEP (or the nearest step with a token new there) ends the
+    # same request, served again by a single-slot plan (the same shapes, so
+    # the same logits), at that step.
+    cands = [(abs(k - DEC_EOS_STEP), rid, k, int(toks[k])) for rid, (toks, _) in single.items()
+             for k in range(1, len(toks)) if toks[k] not in toks[:k]]
+    check(bool(cands), "7a: no request emits a second distinct token")
+    _, rid, step, tok = min(cands)
+    done = serve_model(model, ServiceConfig(max_batch=1, **sc)).generate(
+        [Request(rid=rid, prompt=prompts[rid], max_new_tokens=DEC_NEW, eos_id=tok)])
+    check(len(done) == 1 and np.array_equal(done[0].tokens, single[rid][0][:step + 1])
+          and done[0].steps == step + 1, f"7a: the EOS request ended as {done}")
+
+    mm_f32 = matmul_f32_on_card(torch, model, cfg, dev)
+
+    # Times.  Device: CUDA-graph replays (device_ms); host: eager calls.
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache_slot_bytes = 2 * cfg.n_layers * DEC_MAX_SEQ * cfg.n_kv_heads * cfg.d_head * 2
+    prefill_ms = {}
+    for m in DEC_BUCKETS:
+        t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, m))).to(dev)
+
+        def fn(t=t, m=m):
+            return model.prefill({"tokens": t, "last_pos": m - 1})
+
+        prefill_ms[m] = dict(device_ms=device_ms(torch, fn, flush, reps=DEC_REPS),
+                             wall_ms=wall_ms(torch, fn, 5))
+    step_ms = {}
+    for S in DEC_STEP_SLOTS:
+        caches = model.init_cache(S, DEC_MAX_SEQ)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (S, 1))).to(dev)
+        cur = torch.full((S,), DEC_MAX_SEQ // 2, device=dev)
+
+        def fn(caches=caches, toks=toks, cur=cur):
+            return model.decode_step(caches, toks, cur)
+
+        dev_ms, host = device_ms(torch, fn, flush, reps=DEC_REPS), wall_ms(torch, fn, 20)
+        bound = (weight_bytes + S * cache_slot_bytes) / PEAK_BYTES_PER_S * 1e3
+        step_ms[S] = dict(device_ms=dev_ms, wall_ms=host, enqueue_ms=enqueue_ms(torch, fn, 20),
+                          bound_ms=bound, bound_by="bytes", device_share=dev_ms / host,
+                          tokens_per_s_at_wall=S / host * 1e3)
+        del caches
+    report = dict(
+        card=card, params=cfg.param_count(), weight_bytes=weight_bytes,
+        requests=len(prompts), prompt_lengths=list(DEC_LENGTHS), new_tokens=DEC_NEW,
+        generate_wall_s=wall, tokens=n_tokens, tokens_per_s=n_tokens / wall,
+        stats={k: v for k, v in svc.stats.items() if k != "telemetry"},
+        first_near_tie=ties, steps_compared=compared, near_tie=NEAR_TIE,
+        slot_batched_vs_single_max_abs=slot_err, logit_rows_compared=rows_compared,
+        repeatable=repeatable,
+        forward_vs_decode=fwd_err, bucketed_vs_exact_max_abs=bucket_err,
+        bucketed_near_ties=bucket_ties, eos=dict(rid=rid, step=step, token=tok),
+        prefill_ms=prefill_ms, decode_step=step_ms, matmul_f32=mm_f32,
+    )
+    print(f"7a [{card}] gemma3-1b full width, bf16: {len(prompts)} requests x {DEC_NEW} tokens "
+          f"in {wall:.3f} s ({n_tokens / wall:.1f} tok/s, {svc.stats['fused_steps']} fused "
+          f"steps); tokens equal the single-slot plan's over {compared} steps before near-ties "
+          f"{json.dumps(ties)}, logits {slot_err:.4g} apart over {rows_compared} rows of the "
+          f"same inputs (the recorded rerun repeats the tokens); forward vs decode "
+          f"{json.dumps(fwd_err)}; bucketed vs exact "
+          f"prefill max_abs {bucket_err:.4g} ({bucket_ties} near-ties); matmul_f32 on the card "
+          f"against the f32 product {json.dumps(mm_f32)}; EOS at step {step} of "
+          f"request {rid}; prefill ms {json.dumps(prefill_ms)}; decode step ms "
+          f"{json.dumps(step_ms)}")
+    return report, prompts, {c.rid: c.tokens for c in batched}, ties
+
+
+def decode_f32_twin(torch, cfg, dev, card):
+    """Phase 7b: the card against the CPU, full width at depth 6 (five local
+    layers, then one global), f32, the card's weights carried to the CPU
+    through the flat arrays; three requests in one slot batch."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.checkpoint import causal_lm_params_from_flat, flat_from_causal_lm
+    from repro_torch.models import build_model
+    from repro_torch.runtime import DecodePlan, Request, ServiceConfig
+
+    cfg32 = dataclasses.replace(cfg, n_layers=DEC_F32_LAYERS, dtype="float32")
+    card_m = build_model(cfg32, dev).init(torch.Generator(device=dev).manual_seed(0))
+    cpu_m = causal_lm_params_from_flat(cfg32, flat_from_causal_lm(card_m), device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in DEC_F32_LENGTHS]
+    runs, walls = {}, {}
+    for name, m in (("card", card_m), ("cpu", cpu_m)):
+        rec = LogitRecorder(torch, m)
+        plan = DecodePlan(rec, ServiceConfig(plan="decode", max_batch=len(prompts),
+                                             max_seq=DEC_MAX_SEQ, buckets=DEC_BUCKETS))
+        t0 = time.perf_counter()
+        done = sorted(plan.generate(dec_requests(Request, prompts, DEC_F32_NEW)), key=lambda c: c.rid)
+        walls[name] = time.perf_counter() - t0
+        runs[name] = rec.logits(done, prompts)
+    worst, compared = {}, 0
+    for rid in range(len(prompts)):
+        (ct, cl), (pt, pl) = runs["card"][rid], runs["cpu"][rid]
+        k = first_tie(pl)
+        check(np.array_equal(ct[:k], pt[:k]),
+              f"7b: request {rid}: card tokens {ct[:k]} != CPU tokens {pt[:k]} before step {k}")
+        rows = same_input_rows(ct, pt)
+        got, want = cl[:rows].cpu(), pl[:rows]
+        std = float(want.std())
+        err = (got - want).abs()
+        check(bool((err <= DEC_F32_TOL * want.abs() + DEC_F32_TOL * std).all()),
+              f"7b: request {rid}: card logits {float(err.max())} from the CPU's (std {std})")
+        worst[DEC_F32_LENGTHS[rid]] = dict(max_abs=float(err.max()), logit_std=std,
+                                           steps=rows, first_near_tie=k)
+        compared += rows
+    print(f"7b [{card}] gemma3-1b full width, depth {DEC_F32_LAYERS}, f32: card against CPU over "
+          f"{compared} steps of {len(prompts)} requests: {json.dumps(worst)}; generate wall s "
+          f"{json.dumps(walls)}")
+    del card_m
+    return dict(per_prompt=worst, steps_compared=compared, generate_wall_s=walls)
+
+
+class _Crash(BaseException):
+    """Escapes the engine's per-request Exception handler: kills its loop."""
+
+
+def decode_async_fleet(torch, model, prompts, batched, ties, dev, card):
+    """Phase 7c: the async engine (four client threads, 16 requests) and a
+    fleet of two decode engines over the one model (tenants free:1 and
+    paid:4, a 5 ms deadline on a quarter of the free requests, one engine
+    crashing at its 4th request)."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.runtime import (
+        Completion,
+        EngineStopped,
+        Request,
+        RouterConfig,
+        RouterError,
+        ServiceConfig,
+        TenantConfig,
+        serve_fleet,
+        serve_model,
+    )
+
+    sc = dict(plan="decode", max_batch=DEC_MAX_BATCH, max_seq=DEC_MAX_SEQ, buckets=DEC_BUCKETS)
+
+    def agrees(c) -> bool:
+        i = c.rid % len(prompts)
+        k = min(ties[i], DEC_NEW)
+        return np.array_equal(c.tokens[:k], batched[i][:k])
+
+    reqs = dec_requests(Request, prompts, DEC_NEW, n=DEC_ASYNC_REQUESTS)
+    svc = serve_model(model, ServiceConfig(async_mode=True, **sc))
+    results, errors = {}, []
+
+    def client(t):
+        try:
+            futs = [svc.submit(r) for r in reqs[t::DEC_ASYNC_CLIENTS]]
+            for f in futs:
+                c = f.result(timeout=300)
+                results[c.rid] = c
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(DEC_ASYNC_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    svc.drain_and_stop()
+    check(not errors and sorted(results) == list(range(len(reqs))), f"7c async: {errors[:1]!r}")
+    check(all(agrees(c) for c in results.values()), "7c async: tokens differ off near-ties")
+    tel = svc.stats["telemetry"]
+    check(tel["prefill_s"]["count"] == len(reqs) and tel["decode_step_s"]["count"] > 0,
+          "7c async: prefill_s / decode_step_s not recorded")
+    n_tok = sum(len(c.tokens) for c in results.values())
+    async_report = dict(
+        requests=len(reqs), wall_s=wall, tokens_per_s=n_tok / wall,
+        admitted=svc.engine.admitted, mean_occupancy=svc.stats["mean_occupancy"],
+        latency_s=percentiles(tel, "queue_wait_s", "prefill_s", "decode_step_s", "e2e_s"))
+
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    router = serve_fleet(model, ServiceConfig(**sc, router=RouterConfig(tenants={
+        "free": TenantConfig(weight=1), "paid": TenantConfig(weight=4)})), fleet=2)
+    # The first engine to reach its DEC_FLEET_CRASH_AT-th request crashes, once.
+    armed, seen = {"on": True}, {}
+    for name in ("decode0", "decode1"):
+        plan = router._slots[name].engine.plan
+
+        def crash_at(prompt, name=name, real=plan._prefill_one):
+            seen[name] = seen.get(name, 0) + 1
+            if seen[name] == DEC_FLEET_CRASH_AT and armed.pop("on", None):
+                raise _Crash(f"injected crash in {name} at its request {seen[name]}")
+            return real(prompt)
+
+        plan._prefill_one = crash_at
+    futs = []
+    t0 = time.perf_counter()
+    for i, r in enumerate(dec_requests(Request, prompts, DEC_NEW, n=DEC_FLEET_REQUESTS)):
+        free = i % 2 == 0
+        deadline = FLEET_DEADLINE_S if free and (i // 2) % 4 == 0 else None
+        futs.append(router.submit(r, tenant="free" if free else "paid", deadline_s=deadline))
+    outcomes = []
+    for f in futs:
+        try:
+            outcomes.append(f.result(timeout=300))
+        except (RouterError, EngineStopped) as e:
+            outcomes.append(e)
+    wall_f = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    during = torch.cuda.memory_allocated(dev)
+    router.drain_and_stop(timeout=300)
+    stats = router.stats
+    done = [o for o in outcomes if isinstance(o, Completion)]
+    check(len(outcomes) == DEC_FLEET_REQUESTS, "7c fleet: a future did not resolve")
+    check(stats["telemetry"]["restarts"] == 1 and not armed,
+          f"7c fleet: restarts {stats['telemetry']['restarts']}, requests by engine {seen}")
+    check(all(agrees(c) for c in done), "7c fleet: tokens differ off near-ties")
+    check(during - before < weight_bytes // 2,
+          f"7c fleet: {during - before} bytes more after the fleet started: a second copy "
+          f"of the {weight_bytes} bytes of weights?")
+    n_tok = sum(len(c.tokens) for c in done)
+    fleet_report = dict(
+        requests=DEC_FLEET_REQUESTS, completed=len(done),
+        typed_errors=sorted({type(o).__name__ for o in outcomes if not isinstance(o, Completion)}),
+        restarts=stats["telemetry"]["restarts"], wall_s=wall_f, tokens_per_s=n_tok / wall_f,
+        memory_before=before, memory_during=during, weight_bytes=weight_bytes)
+    print(f"7c [{card}] async: {len(reqs)} requests from {DEC_ASYNC_CLIENTS} threads in "
+          f"{wall:.3f} s ({async_report['tokens_per_s']:.1f} tok/s, occupancy "
+          f"{async_report['mean_occupancy']:.2f}), latency s "
+          f"{json.dumps(async_report['latency_s'])}; fleet of 2: {len(done)} of "
+          f"{DEC_FLEET_REQUESTS} completed, errors {fleet_report['typed_errors']}, "
+          f"{fleet_report['restarts']} restart, {fleet_report['tokens_per_s']:.1f} tok/s, "
+          f"memory {before} -> {during} bytes (weights {weight_bytes})")
+    return dict(async_engine=async_report, fleet=fleet_report)
+
+
+def record_shapes(mods):
+    """Wrap each kernel module's wrapper to count its calls by shape, keyed
+    as ``online_keys`` names them; returns (the counts, a function restoring
+    the wrappers)."""
+    import collections
+
+    shapes, saved = collections.Counter(), []
+
+    def wrap(mod, name, key):
+        real = getattr(mod, name)
+
+        def recorded(*a, **kw):
+            shapes[(name, key(*a, **kw))] += 1
+            return real(*a, **kw)
+
+        saved.append((mod, name, real))
+        setattr(mod, name, recorded)
+
+    mk, sk, bk = mods
+    wrap(mk, "masked_matmul", lambda x, w, b, mask=None: (x.shape[0], *w.shape, mask is not None))
+    wrap(sk, "hcu_softmax", lambda s, n_hcu, n_mcu: (s.shape[0], n_hcu, n_mcu))
+    wrap(bk, "bcpnn_update", lambda ai, aj, *a, **kw: (ai.shape[0], ai.shape[1], aj.shape[1]))
+
+    def restore():
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+    return shapes, restore
+
+
+def decode_launcher(torch, ops, card):
+    """Phase 7d: ``python -m repro_torch.launch.serve`` on the card as a
+    user runs it (the published gemma3-1b; the --online classifier), a
+    model too large for the card refused by its bytes; then the --online
+    path once more in this process, its launches counted from zero and
+    each launch's shape held to those phase 3 checked."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch.kernels import bcpnn_update as bk
+    from repro_torch.kernels import hcu_softmax as sk
+    from repro_torch.kernels import masked_matmul as mk
+    from repro_torch.launch import serve
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {}
+    for name, args, ok in (
+        ("full", ["--arch", DEC_ARCH, "--full", "--requests", "8", "--max-batch", "4",
+                  "--max-seq", "1024"], True),
+        ("online", ["--online"], True),
+        ("too_large", ["--arch", "deepseek-v2-236b", "--full"], False),
+    ):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args],
+                           capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in r.stdout.splitlines() if ln.startswith(("[serve", "[telemetry]"))]
+        if ok:
+            check(r.returncode == 0 and any(ln.startswith("[telemetry]") for ln in lines),
+                  f"7d {name}: rc {r.returncode}: {r.stderr[-2000:]}")
+        else:
+            check(r.returncode != 0 and "bytes" in r.stderr, f"7d {name}: not refused: {r.stderr}")
+            lines = r.stderr.strip().splitlines()[-1:]
+        runs[name] = dict(rc=r.returncode, wall_s=wall, lines=lines)
+        for ln in lines:
+            print(f"7d [{card}] {name}: {ln}")
+    ops.reset_launches()
+    shapes, restore = record_shapes((mk, sk, bk))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            serve.main(["--online"])
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    unchecked = sorted(set(shapes) - online_keys())
+    check(not unchecked, f"7d: --online launched shapes phase 3 did not check: {unchecked}")
+    check(all(counts[k] > 0 for k in ("masked_matmul", "hcu_softmax", "bcpnn_update"))
+          and counts["bcpnn_phase"] == counts["bf_round"] == 0, f"7d: --online launches {counts}")
+    check(all(counts[k] == sum(n for (name, _), n in shapes.items() if name == k)
+              for k in ("masked_matmul", "hcu_softmax", "bcpnn_update")),
+          f"7d: --online launches {counts} against calls by shape {dict(shapes)}")
+    by_shape = {f"{name} {key}": n for (name, key), n in sorted(shapes.items())}
+    print(f"7d [{card}] --online in this process: launches {json.dumps(counts)}, by shape "
+          f"{json.dumps(by_shape)}, every shape checked in phase 3")
+    return counts, dict(runs=runs, online_launches=counts, online_launches_by_shape=by_shape)
+
+
+def decoder(torch, ops, card, dev, cfg=None):
+    """Phase 7: the LM zoo's dense decoder at full width (7a-7d); the
+    decode path launches none of the five kernels, the --online launcher
+    the three of the forward and the update."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = cfg if cfg is not None else get_config(DEC_ARCH)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)  # the peak from here on, weights included
+    report, prompts, batched, ties = decode_width(torch, model, cfg, dev, card)
+    report["init_s"] = init_s
+    report["f32_twin"] = decode_f32_twin(torch, cfg, dev, card)
+    report.update(decode_async_fleet(torch, model, prompts, batched, ties, dev, card))
+    torch.cuda.synchronize()
+    decode_counts = ops.launch_counts()
+    check(not any(decode_counts.values()), f"7: the decode path launched {decode_counts}")
+    report["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    del model
+    online_counts, report["launcher"] = decode_launcher(torch, ops, card)
+    print(f"7 [{card}] peak memory {report['max_memory_allocated']} bytes")
+    return {"decode": decode_counts, "online": online_counts}, report
+
+
 def main() -> int:
     import torch
 
@@ -1733,7 +2444,14 @@ def main() -> int:
     fabric_report["wall_s"] = time.perf_counter() - t0
     print(f"phase 6 (the serving fabric) wall: {fabric_report['wall_s']:.2f} s")
 
-    # Phase 7: the records.
+    # Phase 7: the LM zoo's dense decoder at full width, and the launcher.
+    t0 = time.perf_counter()
+    dec_launches, dec_report = decoder(torch, ops, card, dev)
+    launches.update(dec_launches)
+    dec_report["wall_s"] = time.perf_counter() - t0
+    print(f"phase 7 (the dense decoder) wall: {dec_report['wall_s']:.2f} s")
+
+    # Phase 8: the records.
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in launches.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -1753,6 +2471,7 @@ def main() -> int:
         "batch_device_ms": per_batch,
         "serving": served,
         "fabric": fabric_report,
+        "decoder": dec_report,
     }))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

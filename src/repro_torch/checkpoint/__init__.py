@@ -1,6 +1,11 @@
 # Whole-network checkpoints in the reference's layout, and carrying weights
-# across from its flat arrays.
-from repro_torch.checkpoint.convert import flat_from_network_state, network_state_from_flat
+# (BCPNN states and the LM zoo's parameters) across from its flat arrays.
+from repro_torch.checkpoint.convert import (
+    causal_lm_params_from_flat,
+    flat_from_causal_lm,
+    flat_from_network_state,
+    network_state_from_flat,
+)
 from repro_torch.checkpoint.network import load_adapters, load_network, save_network
 from repro_torch.checkpoint.store import (
     latest_checkpoint,
@@ -12,6 +17,7 @@ from repro_torch.checkpoint.store import (
 )
 
 __all__ = [
+    "causal_lm_params_from_flat", "flat_from_causal_lm",
     "flat_from_network_state", "network_state_from_flat",
     "load_adapters", "load_network", "save_network",
     "latest_checkpoint", "list_checkpoints", "load_flat", "load_manifest",

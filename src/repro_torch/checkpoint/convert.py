@@ -11,6 +11,16 @@ so a state trained by either package, or read from such a checkpoint,
 loads into the other.  Arrays keep their dtype: bf16 traces of the
 quantized state tier (``ml_dtypes.bfloat16`` arrays on the reference's
 side, viewed through their bits here) stay bf16.
+
+The LM zoo's weights cross under the keys that the reference's
+``save_checkpoint`` writes for ``CausalLM.init``'s pytree:
+
+    embed/table   final_norm/{scale,bias}   unembed (untied only)
+    layers/{ln1,ln2}/{scale,bias}   layers/attn/{wq,wk,wv,wo}
+    layers/mlp/{gate,up,down}
+
+where every ``layers/...`` array is stacked over the layers on its leading
+axis; here each is one parameter of one ``nn.ModuleList`` entry.
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ from repro_torch.core.compiled import NetworkState
 from repro_torch.core.layers import LayerState, StructuralPlasticityLayer
 from repro_torch.core.learning import MarginalState
 from repro_torch.core.plasticity import PlasticityState
+from repro_torch.models.lm import CausalLM, build_model
 
 
 def network_state_from_flat(
@@ -92,4 +103,53 @@ def flat_from_network_state(state: NetworkState) -> Dict[str, np.ndarray]:
     if state.readout is not None:
         for name, t in state.readout.items():
             flat["readout/" + name] = t.detach().cpu().numpy()
+    return flat
+
+
+def _lm_key(name: str):
+    """A parameter's ``state_dict`` name -> (the reference's flat key, the
+    layer index its stacked array is cut at, or None)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return "layers/" + "/".join(parts[2:]), int(parts[1])
+    return "/".join(parts), None
+
+
+def causal_lm_params_from_flat(cfg, flat: Dict, device="cuda") -> CausalLM:
+    """A ``CausalLM`` for ``cfg`` on ``device`` (the card by default) holding the weights of flat
+    arrays (numpy or CPU tensors, as ``load_flat`` gives them) under the
+    reference's keys.  Each array is cast to the parameter's dtype: the
+    compute dtype for matrices, which the reference casts to at each use,
+    and f32 for the norms."""
+    model = build_model(cfg, device)
+    want = {_lm_key(name)[0] for name, _ in model.named_parameters()}
+    missing, extra = sorted(want - set(flat)), sorted(set(flat) - want)
+    if missing or extra:
+        raise KeyError(f"{cfg.name}: flat arrays missing {missing}, unexpected {extra}")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            key, layer = _lm_key(name)
+            v = flat[key]
+            t = v if isinstance(v, torch.Tensor) else decode_array(np.asarray(v))
+            if layer is not None:
+                t = t[layer]
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{key}: shape {tuple(t.shape)} != expected {tuple(p.shape)}")
+            p.copy_(t.to(p.dtype))
+    return model
+
+
+def flat_from_causal_lm(model: CausalLM) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`causal_lm_params_from_flat`: host f32 arrays
+    under the reference's keys, the layers' stacked (bf16 weights widen
+    to f32 exactly)."""
+    flat, stacks = {}, {}
+    for name, p in model.named_parameters():
+        key, layer = _lm_key(name)
+        a = p.detach().float().cpu().numpy()
+        if layer is None:
+            flat[key] = a
+        else:
+            stacks.setdefault(key, []).append(a)
+    flat.update({k: np.stack(v) for k, v in stacks.items()})
     return flat

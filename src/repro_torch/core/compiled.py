@@ -177,8 +177,8 @@ def resolve_device(device) -> torch.device:
         raise ValueError(f"device {str(dev)!r}: want 'cuda' or 'cpu'")
     if not torch.cuda.is_available():
         raise RuntimeError(
-            f"ExecutionConfig(device={str(device)!r}) needs a CUDA device and none "
-            "is available; pass device='cpu' to run the kernels' plain versions"
+            f"device={str(device)!r} needs a CUDA device and none is available; "
+            "pass device='cpu' to run on the CPU (the kernels' plain versions)"
         )
     dev = torch.device("cuda", dev.index if dev.index is not None else torch.cuda.current_device())
     cap = torch.cuda.get_device_capability(dev)
@@ -503,6 +503,11 @@ class CompiledNetwork:
 
         config = config if config is not None else ServiceConfig()
         plan_name = config.plan or ("continual" if config.continual is not None else "batched")
+        if plan_name == "decode":
+            raise ValueError(
+                "CompiledNetwork.serve supports plans 'batched'/'streaming'/'continual'; "
+                "'decode' serves token decoding (use serve_model)"
+            )
         plan = SERVE_PLANS[plan_name](self, config)
         service = InferenceService(plan, config)
         if config.async_mode:

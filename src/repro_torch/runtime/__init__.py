@@ -1,12 +1,13 @@
 # Execution plans (device-resident epoch stacks + the per-batch reference
 # loop), the phase-program runner and the project-once activation store,
 # and the serving subsystem (ServiceConfig -> InferenceService -> ServePlan:
-# batched / streaming / continual) with the async engine, latency
-# telemetry, request tracing and OpenMetrics export, the Router serving
-# fabric (per-tenant SLO scheduling over N engines), and the
-# continual-learning tier (online Hebbian updates under live traffic with
-# per-tenant adapters, drift detection, and snapshot/rollback).  The
-# reference's decode plan and training loop wait for later slices.
+# batched / decode / streaming / continual, serve_model / serve_fleet for
+# the LM zoo) with the async engine, latency telemetry, request tracing and
+# OpenMetrics export, the Router serving fabric (per-tenant SLO scheduling
+# over N engines), and the continual-learning tier (online Hebbian updates
+# under live traffic with per-tenant adapters, drift detection, and
+# snapshot/rollback).  The reference's training loop waits for a later
+# slice.
 from repro_torch.runtime.activations import ActivationStore, store_for
 from repro_torch.runtime.engine import AsyncEngine, EngineStopped, QueueFull
 from repro_torch.runtime.epoch_engine import (
@@ -45,10 +46,17 @@ from repro_torch.runtime.program import (
 from repro_torch.runtime.service import (
     SERVE_PLANS,
     BatchedPlan,
+    Completion,
+    DecodePlan,
+    DecodeSession,
     InferenceService,
+    Request,
     ServePlan,
     ServiceConfig,
     StreamingPlan,
+    pad_cache_like,
+    serve_fleet,
+    serve_model,
 )
 from repro_torch.runtime.trace import (
     DeadlineShed,
@@ -102,7 +110,8 @@ __all__ = [
     "Router", "RouterConfig", "RouterError", "RouterStopped", "TenantConfig",
     "TenantQueueFull", "DeadlineExceeded", "NoEngineAvailable",
     "SERVE_PLANS", "BatchedPlan", "InferenceService", "ServePlan", "ServiceConfig",
-    "StreamingPlan",
+    "StreamingPlan", "DecodePlan", "DecodeSession", "Request", "Completion",
+    "pad_cache_like", "serve_model", "serve_fleet",
     # The trace module's DriftDetected *event* is not re-exported: the
     # continual tier's exception keeps that name here.
     "TraceConfig", "Tracer", "build_tracer", "SpanRecord", "EventJournal",

@@ -1,7 +1,6 @@
-"""Async serving engine: deadline micro-batching, futures, backpressure.
+"""Async serving engine: continuous batching, deadline micro-batching, futures, backpressure.
 
-The port of the JAX package's ``repro/runtime/engine.py`` for the batched,
-streaming and continual plans.  The synchronous
+The port of the JAX package's ``repro/runtime/engine.py``.  The synchronous
 :class:`~repro_torch.runtime.service.InferenceService` path is a
 hand-crank: callers ``submit()`` into a deque and block on ``drain()``.
 This module gives a :class:`~repro_torch.runtime.service.ServePlan` a
@@ -12,8 +11,17 @@ serving runtime:
   runs under ``torch.cuda.device(plan.device)`` when the plan lives on a
   card, so every launch goes to that card's current stream.
   ``submit(item)`` returns a ``concurrent.futures.Future`` that resolves to
-  a host numpy array (a score row, or a streaming inference's
-  activations).
+  a ``Completion`` (decode) or a host numpy array (a score row, or a
+  streaming inference's activations).
+* **Continuous batching (DecodePlan):** the loop admits new requests into
+  free decode slots *between* steps: a request submitted while others are
+  mid-generation lands in the next freed slot instead of waiting for the
+  whole queue to drain.  The loop drives the same
+  :class:`~repro_torch.runtime.service.DecodeSession` admit/evict/step
+  schedule as the synchronous ``generate()``, so under deterministic
+  arrivals the two are token-identical.  ``policy="sjf"`` admits the
+  shortest queued prompt first.  ``torch.inference_mode`` is thread-local,
+  so the loop enters it on its own thread.
 * **Deadline micro-batching (BatchedPlan):** requests aggregate until
   ``max_batch`` is reached or ``max_wait_s`` has elapsed since the batch
   opened.
@@ -33,9 +41,8 @@ serving runtime:
   :mod:`repro_torch.runtime.router` Router) re-enqueues them onto a
   replacement engine built from the same plan factory (hot restart).
 
-The decode loop (continuous batching of the LM zoo) is not ported: an
-engine over such a plan raises by name.
-Latency telemetry (queue wait, batch, end to end) records into the plan's
+Latency telemetry (queue wait, prefill, per-token decode, batch, end to
+end) records into the plan's
 shared :class:`~repro_torch.runtime.metrics.ServiceMetrics` bundle.
 """
 from __future__ import annotations
@@ -82,16 +89,8 @@ class AsyncEngine:
 
     _POLL_S = 0.05  # idle wakeup so state changes are never missed
 
-    # Plans whose loops wait for a later slice of the port.
-    _UNPORTED_LOOPS = {"decode": "token decoding of the LM zoo (Slice F)"}
-
     def __init__(self, plan, config, metrics=None, name: str = "engine",
                  tracer=None):
-        if plan.name in self._UNPORTED_LOOPS:
-            raise ValueError(
-                f"AsyncEngine has no loop for the {plan.name!r} plan yet: it waits for "
-                f"{self._UNPORTED_LOOPS[plan.name]}"
-            )
         self.plan = plan
         self.config = config
         self.name = name  # thread / diagnostics label
@@ -111,6 +110,7 @@ class AsyncEngine:
         # supervisors via drain_and_stop()'s return value.
         self._leftover: List[Any] = []
         # Engine-level counters (plan/latency stats live in self.metrics).
+        self.admitted = 0  # decode requests placed into slots
         self.batches = 0  # batched micro-batches dispatched
 
     # ---------------------------------------------------------------- state
@@ -134,6 +134,7 @@ class AsyncEngine:
             "name": self.name,
             "state": self.state,
             "inbox": self.inbox_depth,
+            "admitted": self.admitted,
             "batches": self.batches,
         }
 
@@ -258,7 +259,9 @@ class AsyncEngine:
         )
         try:
             with on_card:
-                if self.plan.name == "batched":
+                if self.plan.name == "decode":
+                    self._loop_decode()
+                elif self.plan.name == "batched":
                     self._loop_batched()
                 elif self.plan.name == "continual":
                     self._loop_continual()
@@ -312,6 +315,70 @@ class AsyncEngine:
             return
         if work.future.running() or work.future.set_running_or_notify_cancel():
             work.future.set_exception(exc)
+
+    # ------------------------------------------------------------- decode
+    def _pop_next_decode(self) -> _Work:
+        """Next request under the configured policy (caller holds _cv)."""
+        if self.config.policy == "sjf":
+            i = min(range(len(self._inbox)), key=lambda j: len(self._inbox[j].item.prompt))
+            w = self._inbox[i]
+            del self._inbox[i]
+            return w
+        return self._inbox.popleft()
+
+    @torch.inference_mode()
+    def _loop_decode(self) -> None:
+        """Continuous batching: admission happens between steps, so a
+        request submitted mid-flight lands in the next freed slot."""
+        sess = self.plan.session()
+        inflight: Dict[int, _Work] = {}  # tag -> work
+        popped: Deque[_Work] = deque()  # taken from the inbox, not yet admitted
+        try:
+            while True:
+                # Pop as many queued requests as there are free slots
+                # (under the lock), then prefill and admit outside it:
+                # submitters must not block behind a prefill.
+                with self._cv:
+                    while not self._inbox and not sess.has_active() and self._state == "running":
+                        self._cv.wait(self._POLL_S)
+                    if not self._inbox and not sess.has_active() and self._state != "running":
+                        break
+                    n_free = sess.free_slots()
+                    while self._inbox and len(popped) < n_free:
+                        popped.append(self._pop_next_decode())
+                    self.metrics.queue_depth.set(len(self._inbox))
+                now = time.perf_counter()
+                admitted_now = 0
+                while popped:
+                    w = popped[0]  # leaves only once admitted or failed
+                    if self._claim(w):  # else the caller cancelled it while queued
+                        self.metrics.queue_wait_s.observe(now - w.t_submit)
+                        self._span_inbox(w, now)
+                        try:
+                            sess.admit(w.item, tag=w.tag)
+                            inflight[w.tag] = w
+                            admitted_now += 1
+                        except Exception as e:  # noqa: BLE001 — per-request failure
+                            w.future.set_exception(e)
+                    popped.popleft()
+                if admitted_now:
+                    with self._cv:
+                        self.admitted += admitted_now
+                if sess.has_active():
+                    for tag, completion in sess.step():
+                        self._complete(inflight.pop(tag), completion)
+        except BaseException as e:
+            # A crash must not strand a future: the admitted requests and
+            # those taken from the inbox but not admitted yet (a crash in
+            # a prefill) fail with the real cause, and count as undone
+            # work for the restart seam.  (The reference fails only the
+            # admitted ones, and the others' futures never resolve.)
+            undone = list(inflight.values()) + list(popped)
+            with self._cv:
+                self._leftover.extend(w.item for w in undone)
+            for w in undone:
+                self._fail(w, self._crash_exc("engine loop crashed with requests in flight", e))
+            raise
 
     # ------------------------------------------------- batched (micro-batch)
     def _loop_batched(self) -> None:

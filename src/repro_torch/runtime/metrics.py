@@ -4,12 +4,13 @@ A copy of the JAX package's ``repro/runtime/metrics.py`` (it is pure numpy
 and threading).  The serving subsystem (sync ``InferenceService`` drains,
 the :mod:`repro_torch.runtime.engine` async loops, and the
 :mod:`repro_torch.runtime.router` fleet scheduler) records where every
-request's wall-time goes (queue wait, micro-batch execution, online
-updates, end to end) into one :class:`ServiceMetrics` bundle shared by the
-plan, the service front door and the engine; ``service.stats["telemetry"]``
-surfaces the snapshot, and the Router reads per-engine ``queue_wait_s``
-percentiles to pick the least-loaded engine.  The reference's decode
-histograms (``prefill_s``, ``decode_step_s``) come with the LM zoo's slice.
+request's wall-time goes (queue wait, prefill, per-token decode,
+micro-batch execution, online updates, end to end) into one
+:class:`ServiceMetrics` bundle shared by the plan, the service front door
+and the engine; ``service.stats["telemetry"]`` (and the
+``launch/serve.py`` command line) surfaces the snapshot, and the Router
+reads per-engine ``queue_wait_s`` percentiles to pick the least-loaded
+engine.
 
 Design constraints, in order:
 
@@ -341,8 +342,12 @@ class ServiceMetrics:
     Gauges
       ``queue_depth``: items waiting (sync queue + engine inbox).
     Histograms (seconds)
-      ``queue_wait_s``:  submit -> batch formation (batched) / claim
-                         (streaming, continual) / drain start (sync path).
+      ``queue_wait_s``:  submit -> admission (decode) / batch formation
+                         (batched) / claim (streaming, continual) / drain
+                         start (sync path).
+      ``prefill_s``:     per-request prompt prefill (decode plans).
+      ``decode_step_s``: one fused decode step == one token per active
+                         request (inter-token latency).
       ``batch_s``:       one padded micro-batch forward (batched plans).
       ``e2e_s``:         submit -> completion, the caller-visible latency.
       ``update_s``:      one online Hebbian micro-batch update (continual
@@ -360,7 +365,10 @@ class ServiceMetrics:
     ``queue_wait_s`` p95 vs ``completed`` counts) rely on this.
     """
 
-    HISTOGRAMS: Sequence[str] = ("queue_wait_s", "batch_s", "e2e_s", "update_s")
+    HISTOGRAMS: Sequence[str] = (
+        "queue_wait_s", "prefill_s", "decode_step_s", "batch_s", "e2e_s",
+        "update_s",
+    )
     ONLINE_COUNTERS: Sequence[str] = (
         "online_updates", "updates_shed", "merges", "rollbacks",
         "drift_events",

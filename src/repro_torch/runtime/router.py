@@ -2,20 +2,21 @@
 
 The port of the JAX package's ``repro/runtime/router.py``.  One
 :class:`~repro_torch.runtime.engine.AsyncEngine` owns exactly one
-ServePlan: one batched head, one streaming session, one continual
-learner.  The Router is the fabric that turns those single-plan engines
-into a multi-tenant service on one box, all behind one futures API::
+ServePlan: one decode loop, one batched head, one streaming session, one
+continual learner.  The Router is the fabric that turns those single-plan
+engines into a multi-tenant service on one box (several decode engines
+over one shared model, beside batched, streaming and continual engines),
+all behind one futures API::
 
     router = Router(RouterConfig(tenants={"free": TenantConfig(weight=1),
                                           "paid": TenantConfig(weight=4)}))
-    router.add_engine("batched0", factory, config)   # factory -> ServePlan
-    router.add_engine("batched1", factory, config)
+    router.add_engine("decode0", factory, config)   # factory -> ServePlan
+    router.add_engine("decode1", factory, config)
     router.start()
-    fut = router.submit(row, tenant="paid", priority=1, deadline_s=0.5)
+    fut = router.submit(request, tenant="paid", priority=1, deadline_s=0.5)
 
 The scheduler thread launches no kernel: it only moves work into engine
 inboxes, and each engine's own thread runs its plan on the plan's device.
-The reference's decode pool (token decoding of the LM zoo) is not ported.
 
 The scheduling model, from the outside in:
 
@@ -35,8 +36,8 @@ The scheduling model, from the outside in:
   a low-weight tenant always makes progress under a flood (weighted
   fairness, not priority starvation).
 * **Telemetry-driven engine selection.**  Within the target pool (engines
-  grouped by plan name: batched / streaming / continual), the Router routes
-  to the engine with the lowest p95 queue-wait read from the engine's
+  grouped by plan name: decode / batched / streaming / continual), the
+  Router routes to the engine with the lowest p95 queue-wait read from the engine's
   histograms (:meth:`ServiceMetrics.snapshot` — one consistent lock
   acquisition), tie-broken by inbox depth then least-recently-used.
   ``RouterConfig(routing="round_robin")`` keeps the naive policy as the
@@ -462,8 +463,9 @@ class Router:
         pool: Optional[str] = None,
     ) -> Future:
         """Queue one request; returns a Future resolving to the plan's
-        result (a score row for batched, activations for streaming, an ack
-        dict or a score row for continual).
+        result (a Completion for decode, a score row for batched,
+        activations for streaming, an ack dict or a score row for
+        continual).
 
         tenant:     per-tenant queue + fair-share identity (auto-registered
                     with ``default_tenant`` config when unknown).
@@ -471,10 +473,11 @@ class Router:
         deadline_s: SLO budget from now; expiry in the router queue sheds
                     the request with :class:`DeadlineExceeded` ON THE
                     FUTURE (already-expired submits shed immediately).
-        pool:       target engine pool ("batched"/"streaming"/
-                    "continual"); when omitted, a sample goes to the
-                    batched pool, else the streaming pool (``Feedback``
-                    names ``pool="continual"``).
+        pool:       target engine pool ("decode"/"batched"/"streaming"/
+                    "continual"); when omitted, a decode ``Request`` goes
+                    to the decode pool, and a sample to the batched pool,
+                    else the streaming pool (``Feedback`` names
+                    ``pool="continual"``).
 
         Raises :class:`TenantQueueFull` (typed per-tenant backpressure),
         :class:`NoEngineAvailable` (no engine serves the pool), and
@@ -563,7 +566,16 @@ class Router:
 
     # ------------------------------------------------------- submit helpers
     def _infer_pool_locked(self, item: Any) -> str:
+        from repro_torch.runtime.service import Request
+
         pools = {s.pool for s in self._slots.values() if not s.dead}
+        if isinstance(item, Request):
+            if "decode" not in pools:
+                raise NoEngineAvailable(
+                    "decode Request submitted but no decode engine is "
+                    f"registered (pools: {sorted(pools) or 'none'})"
+                )
+            return "decode"
         for pool in ("batched", "streaming"):
             if pool in pools:
                 return pool

@@ -7,7 +7,10 @@ serving binds a compiled network to one :class:`ServePlan`::
     service = compiled.serve(ServiceConfig(max_batch=64, buckets=(16, 64)))
     scores  = service.predict(x)             # class scores, on the compiled device
 
-Three strategies of the JAX package's ``repro/runtime/service.py`` are
+    service = serve_model(model, ServiceConfig(max_batch=8, max_seq=256))
+    done    = service.generate(requests)     # LM decode (DecodePlan)
+
+Four strategies of the JAX package's ``repro/runtime/service.py`` are
 ported:
 
 * :class:`BatchedPlan`: BCPNN classification through the compiled
@@ -19,6 +22,16 @@ ported:
   pay only the head.  Zero-padding rows never change real outputs: the
   forward is row-independent, and the kernels zero-fill the rows of a tile
   past the batch.
+* :class:`DecodePlan`: prefill + continuous slot-batched decode for the LM
+  zoo's dense decoders.  The per-slot caches live stacked in one
+  ``(max_batch, ...)`` cache, and every active slot advances through ONE
+  ``decode_step`` call with per-slot positions (the reference ``vmap``s a
+  scalar-position step; the port's step takes a position per row).  The
+  admit/evict/step machinery lives in :class:`DecodeSession`, which both
+  the synchronous ``generate()`` and the async engine drive, so the two
+  are token-identical under deterministic arrivals.  Prompt-length
+  padding buckets bound the prefill shapes; prefill gathers the logits at
+  the *true* prompt end (``last_pos``), so bucketing is token-exact.
 * :class:`StreamingPlan`: the latency path, over the compiled network's
   :class:`~repro_torch.core.streaming.StreamingSession` (host-side
   coalescing, LRU-bounded per-size cells, state adoption on close).
@@ -26,19 +39,20 @@ ported:
   "continual"`` or ``continual=ContinualConfig(...)``): batched
   classification that keeps learning from labeled ``Feedback``.
 
-Token decoding (``plan="decode"``) is not ported: it raises a
-``ValueError`` that names it and the slice that will bring it.  The
-reference's ``strict=`` and ``router=`` options are absent, so passing
-either raises a ``TypeError`` that names it: ``router=`` is read only by
-the reference's ``serve_fleet``, which serves the LM zoo and waits for
-Slice F.  A fleet of engines is built with
-:class:`~repro_torch.runtime.router.Router` directly.
+``serve_fleet`` binds a model to a :class:`~repro_torch.runtime.router.Router`
+fronting N decode engines over the one shared model (``ServiceConfig(
+router=RouterConfig(...))``).  The reference's ``strict=`` option is
+absent, so passing it raises a ``TypeError`` that names it: it comes with
+the port's strict slice.
 
 :class:`InferenceService` owns the request queue (admission control via
-``max_queue``, ``policy="fcfs"``) and delegates execution to its plan.
+``max_queue``; ordering via ``policy``: "fcfs" arrival order, or "sjf"
+shortest-prompt-first for decode plans, which other plans refuse at bind
+time) and delegates execution to its plan.
 ``service.start()`` (or ``ServiceConfig(async_mode=True)``) hands the queue
 to the executor thread of :class:`repro_torch.runtime.engine.AsyncEngine`:
-``submit()`` then returns a ``concurrent.futures.Future``.  Every plan
+``submit()`` then returns a ``concurrent.futures.Future``, and new decode
+requests are admitted into freed slots mid-flight, between steps.  Every plan
 records latency telemetry (:mod:`repro_torch.runtime.metrics`), surfaced
 through ``service.stats["telemetry"]``.
 """
@@ -49,7 +63,7 @@ import hashlib
 import threading
 import time
 from collections import OrderedDict, deque
-from typing import Any, Deque, Dict, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,31 +73,81 @@ from repro_torch.runtime.metrics import ServiceMetrics
 
 POLICIES = ("fcfs", "sjf")
 
-# Plans of the reference that wait for a later slice of the port: the
-# plan's name -> what brings it.
-_UNPORTED_PLANS = {"decode": "token decoding of the LM zoo (Slice F)"}
-
 
 def _sync(device: Optional[torch.device]) -> None:
     if device is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
+# --------------------------------------------------------------- requests
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # (len,) int32
+    max_new_tokens: int = 16
+    eos_id: Optional[int] = None
+    # Trace correlation: minted by the fabric front door (Router/engine)
+    # when tracing is on, so plan-level spans (prefill, per-token decode)
+    # join the same trace as the scheduling hops.  None when tracing is off.
+    trace_id: Optional[int] = None
+
+
+@dataclasses.dataclass
+class Completion:
+    rid: int
+    tokens: np.ndarray  # generated tokens
+    prefill_len: int
+    steps: int
+
+
+# ---------------------------------------------------------- cache padding
+def pad_cache_like(cache: Dict[str, torch.Tensor], template) -> Dict[str, torch.Tensor]:
+    """Grow every tensor of ``cache`` to its ``template`` shape (trailing
+    zero-pad per axis).  ``template`` maps each name to a shape, or to
+    anything with a ``.shape`` (``model.cache_shapes(1, max_seq)``, or
+    tensors on the ``meta`` device): purely structural, so a cache pads
+    without a registry of its names."""
+
+    def pad(a: torch.Tensor, t) -> torch.Tensor:
+        ts = tuple(getattr(t, "shape", t))
+        if tuple(a.shape) == ts:
+            return a
+        if a.dim() != len(ts) or any(s > x for s, x in zip(a.shape, ts)):
+            raise ValueError(
+                f"cache leaf of shape {tuple(a.shape)} cannot grow to template shape {ts}"
+            )
+        widths = []
+        for s, x in reversed(list(zip(a.shape, ts))):
+            widths += [0, x - s]
+        return torch.nn.functional.pad(a, widths)
+
+    if set(cache) != set(template):
+        raise ValueError(f"cache {sorted(cache)} and template {sorted(template)} differ")
+    return {name: pad(a, template[name]) for name, a in cache.items()}
+
+
 # ------------------------------------------------------------------ config
 @dataclasses.dataclass(frozen=True)
 class ServiceConfig:
-    """Everything about *how* a network serves, none of *what* it serves.
+    """Everything about *how* a model serves, none of *what* it serves.
 
-    max_batch:  padding chunk cap (BatchedPlan, without buckets), the
-                coalescing micro-batch (StreamingPlan), and the async
-                engine's micro-batch.
-    buckets:    ascending batch-size padding buckets for BatchedPlan; the
-                largest is the chunk cap.  None = exact sizes.
-    policy:     queue admission order: "fcfs" (arrival).  "sjf" orders
-                decode requests by prompt length, so these plans refuse it.
-    cache_size: LRU bound on the streaming plan's per-size cells.
-    plan:       "batched" | "streaming" | "continual"; None picks
-                "continual" when ``continual`` is set, else "batched".
+    max_batch:  concurrent capacity: decode slots (DecodePlan), the padding
+                chunk cap (BatchedPlan, without buckets), the coalescing
+                micro-batch (StreamingPlan), and the async engine's
+                micro-batch.
+    max_seq:    decode cache length (prompt + generated), DecodePlan only.
+    buckets:    ascending padding buckets: prompt lengths for DecodePlan
+                prefill, batch sizes for BatchedPlan (the largest is its
+                chunk cap).  None = exact sizes.
+    policy:     queue admission order: "fcfs" (arrival) or "sjf"
+                (shortest-prompt-first; decode plans only, the others
+                refuse it at bind time).
+    cache_size: LRU bound on the streaming plan's per-size cells (the
+                decode plan prefills eagerly and keeps no cells).
+    plan:       "batched" | "decode" | "streaming" | "continual"; None lets
+                the entry point pick its default (``compiled.serve()`` ->
+                "continual" when ``continual`` is set, else "batched";
+                ``serve_model()`` -> "decode").
     max_wait_s: micro-batch aggregation deadline: the async engine (and the
                 streaming plan's coalescing buffer) waits at most this long
                 to fill ``max_batch`` before dispatching a partial batch.
@@ -91,8 +155,13 @@ class ServiceConfig:
                 (None = unbounded); it also bounds the async engine's inbox.
     layer:      the streaming plan's target hidden layer.
     async_mode: start the executor thread at bind time: ``submit()`` returns
-                a ``Future``.  For streaming plans the async surface serves
-                per-item INFERENCE (sync submit+drain feeds training samples).
+                a ``Future`` and decode slots admit new requests mid-flight.
+                For streaming plans the async surface serves per-item
+                INFERENCE (sync submit+drain feeds training samples).
+    router:     a ``repro_torch.runtime.router.RouterConfig`` for the fleet
+                front door: ``serve_fleet()`` builds N decode engines over
+                the one shared model behind one Router (per-tenant queues,
+                deadlines, hot restart).  None = single-engine serving.
     continual:  a ``repro_torch.runtime.continual.ContinualConfig``
                 enabling the online-learning tier: the bound plan becomes
                 :class:`~repro_torch.runtime.continual.ContinualPlan`
@@ -106,6 +175,7 @@ class ServiceConfig:
     """
 
     max_batch: int = 4
+    max_seq: int = 256
     buckets: Optional[Tuple[int, ...]] = None
     policy: str = "fcfs"
     cache_size: int = 8
@@ -114,6 +184,7 @@ class ServiceConfig:
     max_queue: Optional[int] = None
     layer: int = 0
     async_mode: bool = False
+    router: Optional[Any] = None
     continual: Optional[Any] = None
     trace: Optional[Any] = None
 
@@ -132,25 +203,16 @@ class ServiceConfig:
                 raise ValueError(
                     f"continual learning serves through plan='continual', got plan={self.plan!r}"
                 )
-        if self.plan in _UNPORTED_PLANS:
-            raise ValueError(
-                f"ServiceConfig(plan={self.plan!r}) is not ported yet: it waits for "
-                f"{_UNPORTED_PLANS[self.plan]}"
-            )
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
         if self.layer < 0:
             raise ValueError(f"layer must be >= 0, got {self.layer}")
+        if self.max_seq < 1:
+            raise ValueError(f"max_seq must be >= 1, got {self.max_seq}")
         if self.policy not in POLICIES:
             raise ValueError(f"Unknown policy {self.policy!r} (want one of {POLICIES})")
         if self.plan is not None and self.plan not in SERVE_PLANS:
             raise ValueError(f"Unknown plan {self.plan!r} (want one of {sorted(SERVE_PLANS)})")
-        if self.policy == "sjf":  # every ported plan: only decode requests have a length
-            raise ValueError(
-                f"policy='sjf' orders decode Requests by prompt length; the "
-                f"{self.plan or 'batched'!r} plan has no request length to order by "
-                f"(use policy='fcfs')"
-            )
         if self.max_queue is not None and self.max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {self.max_queue}")
         if self.max_wait_s < 0:
@@ -162,6 +224,12 @@ class ServiceConfig:
                     f"buckets must be strictly ascending positive ints, got {self.buckets!r}"
                 )
             object.__setattr__(self, "buckets", b)
+        if self.router is not None:
+            # Imported here: the router imports this module for Request.
+            from repro_torch.runtime.router import RouterConfig
+
+            if not isinstance(self.router, RouterConfig):
+                raise TypeError(f"router must be a RouterConfig, got {type(self.router).__name__}")
         if self.trace is not None:
             from repro_torch.runtime.trace import TraceConfig
 
@@ -208,6 +276,9 @@ class ServePlan:
     # capability surface -------------------------------------------------
     def predict(self, x):
         self._unsupported("predict()")
+
+    def generate(self, requests: List[Request]) -> List[Completion]:
+        self._unsupported("generate()")
 
     def feed(self, sample) -> None:
         self._unsupported("feed()")
@@ -335,6 +406,247 @@ class BatchedPlan(ServePlan):
             }
 
 
+class DecodeSession:
+    """Mutable slot state for one continuously-batched decode run.
+
+    The admit / evict / fused-step cycle lives HERE, so the synchronous
+    whole-queue ``DecodePlan.generate`` and the async engine's mid-flight
+    admission loop drive the same schedule: admission fills the lowest free
+    slot, eviction retires finished slots, and one ``decode_step`` call
+    advances every active slot.  ``tag`` is an opaque caller handle (the
+    engine keys futures on it); completions come back as ``(tag,
+    Completion)`` pairs.  Every method runs under ``torch.inference_mode``
+    (thread-local, so whichever thread drives the session enters it)."""
+
+    @torch.inference_mode()
+    def __init__(self, plan: "DecodePlan"):
+        self.plan = plan
+        S = plan.config.max_batch
+        self.S = S
+        self.active: List[Optional[Dict]] = [None] * S
+        self.caches = plan.model.init_cache(S, plan.config.max_seq)
+
+    def free_slots(self) -> int:
+        return sum(a is None for a in self.active)
+
+    def has_active(self) -> bool:
+        return any(a is not None for a in self.active)
+
+    @torch.inference_mode()
+    def admit(self, req: Request, tag: Any = None) -> bool:
+        """Prefill ``req`` into the lowest free slot; False when full."""
+        slot = next((s for s in range(self.S) if self.active[s] is None), None)
+        if slot is None:
+            return False
+        plan = self.plan
+        t0 = time.perf_counter()
+        first, cache_one = plan._prefill_one(req.prompt)
+        plan._write_slot(self.caches, cache_one, slot)
+        if plan.tracer is not None:
+            tid = getattr(req, "trace_id", None)
+            if tid is not None:
+                plan.tracer.record(tid, "plan.prefill", t0, time.perf_counter(),
+                                   slot=slot, prompt_len=len(req.prompt))
+        self.active[slot] = {
+            "req": req,
+            "cur_len": len(req.prompt),
+            "tokens": [first],
+            "steps": 1,
+            "tag": tag,
+        }
+        plan._count_admit()
+        return True
+
+    @torch.inference_mode()
+    def step(self) -> List[Tuple[Any, Completion]]:
+        """One engine cycle minus admission: retire finished slots, then
+        advance every remaining active slot through ONE fused step.
+        Returns the ``(tag, Completion)`` pairs retired this call."""
+        plan = self.plan
+        cfg = plan.config
+        done: List[Tuple[Any, Completion]] = []
+
+        # Eviction: retire finished slots (freed slots refill on the next
+        # admission pass: continuous batching at step granularity).
+        advancing = []
+        for slot in range(self.S):
+            st = self.active[slot]
+            if st is None:
+                continue
+            req = st["req"]
+            if (
+                len(st["tokens"]) >= req.max_new_tokens
+                or (req.eos_id is not None and st["tokens"][-1] == req.eos_id)
+                or st["cur_len"] + 1 >= cfg.max_seq
+            ):
+                done.append((st["tag"], Completion(
+                    rid=req.rid,
+                    tokens=np.asarray(st["tokens"], np.int32),
+                    prefill_len=len(req.prompt),
+                    steps=st["steps"],
+                )))
+                plan._count_retired(len(st["tokens"]))
+                self.active[slot] = None
+                continue
+            advancing.append(slot)
+
+        if not advancing:
+            return done
+
+        # The fused hot path: ONE decode_step advances every slot.  Idle
+        # slots ride along at position 0 with a dead cache: their outputs
+        # are discarded and their cache is overwritten at the next
+        # admission, so the step keeps the shape (S, ...).
+        tokens = np.zeros(self.S, np.int64)
+        cur_lens = np.zeros(self.S, np.int64)
+        for slot in advancing:
+            tokens[slot] = self.active[slot]["tokens"][-1]
+            cur_lens[slot] = self.active[slot]["cur_len"]
+        t0 = time.perf_counter()
+        nxt = plan._fused_step(self.caches, torch.from_numpy(tokens), torch.from_numpy(cur_lens))
+        nxt = nxt.cpu().numpy()  # greedy tokens steer EOS and admission: one read back a step
+        t1 = time.perf_counter()
+        plan.metrics.decode_step_s.observe(t1 - t0)
+        if plan.tracer is not None:
+            # One span per advancing request per token; the fused step is
+            # shared, so concurrent slots show the same span bounds.
+            for slot in advancing:
+                tid = getattr(self.active[slot]["req"], "trace_id", None)
+                if tid is not None:
+                    plan.tracer.record(tid, "plan.decode_step", t0, t1, slot=slot,
+                                       token=self.active[slot]["steps"])
+        for slot in advancing:
+            st = self.active[slot]
+            st["tokens"].append(int(nxt[slot]))
+            st["cur_len"] += 1
+            st["steps"] += 1
+        plan._count_step(len(advancing))
+        return done
+
+
+class DecodePlan(ServePlan):
+    """Continuous slot-batched LM serving with a fused decode step.
+
+    Slots are admission units (one request each); their caches live
+    stacked on the slot axis of ONE ``(L, max_batch, max_seq, ...)`` cache.
+    Every step, all slots advance together through one ``decode_step``
+    with per-slot positions: token-exact against the reference's ``vmap``
+    of its per-slot step (parity-tested), one call per token instead of
+    ``max_batch``.  :meth:`session` exposes the admit/step machinery for
+    continuous callers (the async engine).  The plan reads its model and
+    never writes it, so many plans (a fleet's engines) share one."""
+
+    name = "decode"
+
+    def __init__(self, model, config: ServiceConfig,
+                 metrics: Optional[ServiceMetrics] = None):
+        super().__init__(config, metrics)
+        if config.buckets is not None and config.buckets[-1] > config.max_seq:
+            raise ValueError(
+                f"prompt buckets {config.buckets} exceed max_seq={config.max_seq}: a "
+                "bucketed prefill cache could not fit the decode cache"
+            )
+        self.model = model
+        self.device = model.device
+        self._cache_template = model.cache_shapes(1, config.max_seq)
+        # The padded prefill lengths seen: the reference compiles one
+        # prefill for each; the eager port only counts them.
+        self._prefill_lengths = set()
+        self._fused_steps = 0
+        self._slot_steps = 0
+        self._requests = 0
+        self._tokens = 0
+
+    # ------------------------------------------------------- stat counters
+    # DecodeSession (driven by the engine's executor thread) counts through
+    # these, so every mutation shares one lock with the ``stats`` reader.
+    def _count_admit(self) -> None:
+        with self._lock:
+            self._requests += 1
+
+    def _count_retired(self, n_tokens: int) -> None:
+        with self._lock:
+            self._tokens += n_tokens
+
+    def _count_step(self, n_slots: int) -> None:
+        with self._lock:
+            self._fused_steps += 1
+            self._slot_steps += n_slots
+
+    # ----------------------------------------------------------- the step
+    def _fused_step(self, caches, tokens: torch.Tensor, cur_lens: torch.Tensor) -> torch.Tensor:
+        """One decode step for ALL slots: (S,) tokens and per-slot
+        positions -> (S,) next greedy tokens; the caches are written in
+        place."""
+        dev = self.device
+        logits, _ = self.model.decode_step(caches, tokens.to(dev)[:, None], cur_lens.to(dev))
+        return torch.argmax(logits, dim=-1)
+
+    @staticmethod
+    def _write_slot(caches, cache_one, slot: int) -> None:
+        """Install one admitted request's (L, 1, max_seq, ...) cache at
+        ``slot``."""
+        for name, c in cache_one.items():
+            caches[name][:, slot] = c[:, 0]
+
+    # ------------------------------------------------------------- prefill
+    def _prefill_one(self, prompt: np.ndarray):
+        """(first greedy token, structurally padded (L, 1, max_seq, ...) cache)."""
+        n = len(prompt)
+        if n < 1:
+            raise ValueError("empty prompt")
+        if n > self.config.max_seq:
+            raise ValueError(f"prompt length {n} exceeds max_seq={self.config.max_seq}")
+        t0 = time.perf_counter()
+        m = self.config.bucket_for(n)
+        with self._lock:
+            self._prefill_lengths.add(m)
+        tokens = np.zeros((1, m), np.int64)
+        tokens[0, :n] = prompt
+        # last_pos gathers the logits at the true prompt end: causal
+        # attention makes positions <= last_pos independent of the
+        # right-padding, so the bucketed prefill equals an exact-length one.
+        logits, cache = self.model.prefill({"tokens": torch.from_numpy(tokens).to(self.device),
+                                            "last_pos": n - 1})
+        cache = pad_cache_like(cache, self._cache_template)
+        first = int(torch.argmax(logits[0]))  # steers admission: one read back a prefill
+        self.metrics.prefill_s.observe(time.perf_counter() - t0)
+        return first, cache
+
+    # ------------------------------------------------------------ generate
+    def session(self) -> DecodeSession:
+        """A fresh slot state for continuous admission (the async engine's
+        substrate; ``generate`` opens one per call)."""
+        return DecodeSession(self)
+
+    def generate(self, requests: List[Request]) -> List[Completion]:
+        """Whole-queue continuous batching: admit into free slots, advance
+        all active slots through the fused step, evict on EOS or limits,
+        refill: the same DecodeSession schedule the async engine drives."""
+        sess = self.session()
+        pending: Deque[Request] = deque(requests)
+        done: List[Completion] = []
+        while pending or sess.has_active():
+            while pending and sess.admit(pending[0]):
+                pending.popleft()
+            done.extend(c for _, c in sess.step())
+        return done
+
+    @property
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "requests": self._requests,
+                "tokens_generated": self._tokens,
+                "fused_steps": self._fused_steps,
+                "slot_steps": self._slot_steps,
+                "mean_occupancy": (
+                    self._slot_steps / self._fused_steps if self._fused_steps else 0.0
+                ),
+                "prefill_cells": len(self._prefill_lengths),
+            }
+
+
 class StreamingPlan(ServePlan):
     """The latency path: online BCPNN updates and inference through the
     compiled network's StreamingSession (coalescing buffer, shared
@@ -375,6 +687,7 @@ class StreamingPlan(ServePlan):
 
 SERVE_PLANS = {
     BatchedPlan.name: BatchedPlan,
+    DecodePlan.name: DecodePlan,
     StreamingPlan.name: StreamingPlan,
 }
 
@@ -390,10 +703,16 @@ class InferenceService:
       everything queued through the plan in one call;
     * the async path: ``start()`` hands the plan to a dedicated executor
       thread (:class:`repro_torch.runtime.engine.AsyncEngine`) and
-      ``submit()`` returns a ``concurrent.futures.Future``.
+      ``submit()`` returns a ``concurrent.futures.Future``; decode
+      requests are admitted into freed slots mid-flight, between steps.
     """
 
     def __init__(self, plan: ServePlan, config: ServiceConfig):
+        if config.policy == "sjf" and plan.name != "decode":
+            raise ValueError(
+                f"policy='sjf' orders decode Requests by prompt length; the {plan.name!r} "
+                "plan has no request length to order by (use policy='fcfs')"
+            )
         self.plan = plan
         self.config = config
         self.metrics = plan.metrics
@@ -461,11 +780,16 @@ class InferenceService:
         self.metrics.queue_depth.set(len(self._queue))
         return True
 
+    def _ordered(self, requests: List[Request]) -> List[Request]:
+        if self.config.policy == "sjf":
+            return sorted(requests, key=lambda r: len(r.prompt))  # stable
+        return list(requests)
+
     def drain(self):
-        """Run everything queued through the plan: stacked scores
-        (batched), a flush (streaming), or one result per item in arrival
-        order (continual: an ack dict per ``Feedback``, a score row per
-        other item)."""
+        """Run everything queued through the plan: completions (decode),
+        stacked scores (batched), a flush (streaming), or one result per
+        item in arrival order (continual: an ack dict per ``Feedback``, a
+        score row per other item)."""
         if self.engine is not None and not self.engine.stopped:
             raise RuntimeError(
                 "the async engine owns this service's queue; submit() returns "
@@ -481,8 +805,12 @@ class InferenceService:
             self.metrics.queue_wait_s.observe(now - t)
         if not items:
             self.plan.flush()
-            return None
-        if self.plan.name == "streaming":
+            # Decode plans always answer with completions, even for an
+            # empty queue (callers iterate the result).
+            return [] if self.plan.name == "decode" else None
+        if isinstance(items[0], Request):
+            out = self.plan.generate(self._ordered(items))
+        elif self.plan.name == "streaming":
             for s in items:
                 self.plan.feed(s)
             self.plan.flush()
@@ -508,6 +836,9 @@ class InferenceService:
     # -------------------------------------------------- direct conveniences
     def predict(self, x):
         return self.plan.predict(x)
+
+    def generate(self, requests: List[Request]) -> List[Completion]:
+        return self.plan.generate(self._ordered(requests))
 
     def feed(self, sample) -> None:
         self.plan.feed(sample)
@@ -539,12 +870,84 @@ class InferenceService:
         return out
 
 
+def serve_model(model, config: Optional[ServiceConfig] = None) -> InferenceService:
+    """Bind an LM (a ``CausalLM`` holding its weights) to an
+    InferenceService: the LM zoo's twin of ``CompiledNetwork.serve``.  Only
+    the decode plan applies.  ``ServiceConfig(async_mode=True)`` starts the
+    executor thread at bind time (``submit()`` then returns Futures).  The
+    reference's ``serve_model(model, params, config)`` passes the weights
+    apart; here the model holds them."""
+    config = config if config is not None else ServiceConfig()
+    plan_name = config.plan or "decode"
+    if plan_name != "decode":
+        raise ValueError(
+            f"serve_model() serves token decoding; plan {plan_name!r} needs a "
+            "CompiledNetwork (use compiled.serve)"
+        )
+    service = InferenceService(DecodePlan(model, config), config)
+    if config.async_mode:
+        service.start()
+    return service
+
+
+def serve_fleet(model, config: Optional[ServiceConfig] = None, *, fleet: int = 2):
+    """Bind an LM to a started :class:`~repro_torch.runtime.router.Router`
+    fronting ``fleet`` decode engines over the ONE shared model: one copy of
+    the weights, N independent decode loops;
+    ``router.submit(request, tenant=..., deadline_s=...)`` returns a Future
+    as the single-engine async path does.
+
+    ``config.router`` (a RouterConfig) carries the scheduling knobs
+    (tenants, routing policy, restart budgets); the rest of the
+    ServiceConfig applies per engine.  Engine inboxes are kept shallow
+    (``max_queue`` defaults to ``max_batch`` here), so queueing, and with
+    it tenant and deadline policy, lives in the Router."""
+    from repro_torch.runtime.router import Router, RouterConfig
+
+    config = config if config is not None else ServiceConfig()
+    if fleet < 1:
+        raise ValueError(f"fleet must be >= 1, got {fleet}")
+    plan_name = config.plan or "decode"
+    if plan_name != "decode":
+        raise ValueError(
+            f"serve_fleet() serves token decoding; plan {plan_name!r} needs a "
+            "CompiledNetwork front door"
+        )
+    router_config = config.router if config.router is not None else RouterConfig()
+    if router_config.trace is None and config.trace is not None:
+        # The fleet shares ONE tracer, owned by the Router, so engine and
+        # plan spans correlate with the router's sched-wait spans.
+        router_config = dataclasses.replace(router_config, trace=config.trace)
+    engine_config = dataclasses.replace(
+        config, router=None,
+        max_queue=config.max_batch if config.max_queue is None else config.max_queue,
+    )
+
+    def factory(cfg, metrics):
+        # Closes over the model only: called again on hot restart, and the
+        # rebuilt plan reads the same weights (nothing is copied or moved).
+        return DecodePlan(model, cfg, metrics=metrics)
+
+    router = Router(router_config)
+    for i in range(fleet):
+        router.add_engine(f"decode{i}", factory, engine_config)
+    router.start()
+    return router
+
+
 __all__ = [
     "POLICIES",
+    "Request",
+    "Completion",
+    "pad_cache_like",
     "ServiceConfig",
     "ServePlan",
     "BatchedPlan",
+    "DecodeSession",
+    "DecodePlan",
     "StreamingPlan",
     "SERVE_PLANS",
     "InferenceService",
+    "serve_model",
+    "serve_fleet",
 ]

@@ -1,7 +1,8 @@
 """Request tracing + structured event journal (the observability spine).
 
 A copy of the JAX package's ``repro/runtime/trace.py`` (stdlib only); the
-port records the router's, the engine's and the continual plan's spans and
+port records the router's, the engine's, the decode plan's
+(``plan.prefill``, ``plan.decode_step``) and the continual plan's spans and
 the training program's ``train.<phase>`` spans.  The reference's
 ``RecompileRebaseline`` event belongs to its strict mode, not ported.
 
@@ -12,10 +13,11 @@ the per-request view:
 * A :class:`Tracer` owns a ring of **spans** — ``(trace_id, name,
   t_start, t_end, attrs)`` tuples recorded at every hop a request takes
   (Router sched-wait, engine inbox, micro-batch aggregation, the batch,
-  continual learn/update/merge, end to end, training phases).  One
-  ``trace_id``, minted at the fabric front door (the Router's or the
-  engine's ``submit``) and threaded through ``Feedback`` and the dispatch
-  seams, reconstructs the full path.  Spans export as Chrome
+  prefill, per-token decode, continual learn/update/merge, end to end,
+  training phases).  One ``trace_id``, minted at the fabric front door
+  (the Router's or the engine's ``submit``) and threaded through
+  ``Request``/``Feedback`` and the dispatch seams, reconstructs the full
+  path.  Spans export as Chrome
   ``trace_event`` JSON — load the file in
   Perfetto (https://ui.perfetto.dev) or ``chrome://tracing``.
 * An :class:`EventJournal` records typed operational **events**

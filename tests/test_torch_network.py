@@ -307,17 +307,18 @@ def test_unported_options_raise_by_name(data):
     net = _torch_net().compile(ExecutionConfig(device="cpu"))
     with pytest.raises(ValueError, match="readout"):
         net.fit((x, ds.y_train), readout="svm", **FIT_KW)
-    # Streaming and serving are ported; the continual option takes its config
-    # type only, and the fleet option and strict mode are refused by name.
+    # Streaming and serving are ported; the continual and fleet options take
+    # their config types only, strict mode is refused by name, and the
+    # decode plan (the LM zoo's) is accepted.
     for method in ("streaming", "serve"):
         assert callable(getattr(net, method))
-    from repro_torch.runtime import ServiceConfig
+    from repro_torch.runtime import RouterConfig, ServiceConfig
 
-    for name in ("router", "continual", "strict"):
+    for name in ("continual", "strict"):
         with pytest.raises(TypeError, match=name):
             ServiceConfig(**{name: True})
-    with pytest.raises(ValueError, match="decode"):
-        ServiceConfig(plan="decode")
+    assert ServiceConfig(router=RouterConfig()).router == RouterConfig()
+    assert ServiceConfig(plan="decode").plan == "decode"
     with pytest.raises(ValueError, match="engine"):
         ExecutionConfig(engine="pipelined")
 

@@ -413,7 +413,8 @@ class TestOpenMetrics:
         assert set(fams) == {
             "repro_submitted", "repro_completed", "repro_rejected", "repro_queue_depth",
             "repro_online_updates", "repro_updates_shed", "repro_merges", "repro_rollbacks",
-            "repro_drift_events", "repro_queue_wait_seconds", "repro_batch_seconds",
+            "repro_drift_events", "repro_queue_wait_seconds", "repro_prefill_seconds",
+            "repro_decode_step_seconds", "repro_batch_seconds",
             "repro_e2e_seconds", "repro_update_seconds", "repro_drift_accuracy",
             "repro_drift_baseline_accuracy", "repro_drift_confidence", "repro_drift_samples",
             "repro_drifted"}
@@ -421,7 +422,8 @@ class TestOpenMetrics:
     def test_snapshot_holds_the_served_instruments(self):
         snap = ServiceMetrics().snapshot()
         assert list(snap) == ["submitted", "completed", "rejected", "queue_depth",
-                              "queue_wait_s", "batch_s", "e2e_s", "update_s",
+                              "queue_wait_s", "prefill_s", "decode_step_s", "batch_s",
+                              "e2e_s", "update_s",
                               "online_updates", "updates_shed", "merges", "rollbacks",
                               "drift_events", "drift"]
         assert snap["e2e_s"]["count"] == 0

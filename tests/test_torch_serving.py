@@ -277,12 +277,12 @@ class TestServiceFrontDoor:
         (dict(strict=True), TypeError), (dict(plan="decode"), ValueError),
         (dict(plan="continual"), None),
     ], ids=["router", "continual", "strict", "decode", "continual_plan"])
-    def test_unported_options_raise_by_name(self, option, error):
-        """``continual`` takes its config type and refuses anything else by
-        name; ``router`` (read only by the LM zoo's ``serve_fleet``) and
-        ``strict`` are not ported and are refused by name; ``plan="decode"``
-        waits for the LM zoo; ``plan="continual"`` binds the continual
-        tier."""
+    def test_unported_options_raise_by_name(self, option, error, data):
+        """``continual`` and ``router`` take their config types and refuse
+        anything else by name; ``strict`` is not ported and is refused by
+        name; ``plan="decode"`` serves the LM zoo (``serve_model``), so a
+        BCPNN network's ``serve`` refuses it; ``plan="continual"`` binds
+        the continual tier."""
         (name, value), = option.items()
         if error is None:
             from repro_torch.runtime import ContinualPlan
@@ -290,7 +290,15 @@ class TestServiceFrontDoor:
 
             assert SERVE_PLANS[ServiceConfig(**option).plan] is ContinualPlan
             return
-        with pytest.raises(error, match=str(value) if name == "plan" else name):
+        if name == "plan":
+            from repro_torch.runtime import DecodePlan
+            from repro_torch.runtime.service import SERVE_PLANS
+
+            assert SERVE_PLANS[ServiceConfig(**option).plan] is DecodePlan
+            with pytest.raises(error, match="decod.*serve_model"):
+                _compiled_bcpnn(data[2]).serve(ServiceConfig(**option))
+            return
+        with pytest.raises(error, match=name):
             ServiceConfig(**option)
 
     def test_plan_capability_mismatch(self, data):
@@ -358,6 +366,16 @@ class TestAsyncBatched:
             compiled.serve(ServiceConfig(plan="batched", policy="sjf"))
         with pytest.raises(ValueError, match="sjf"):
             compiled.serve(ServiceConfig(plan="streaming", policy="sjf"))
+        # A decode plan orders its Requests by prompt length.
+        import torch
+
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models import build_model
+        from repro_torch.runtime import serve_model
+
+        lm = build_model(get_smoke_config("yi-9b"), device="cpu")
+        lm.init(torch.Generator().manual_seed(0))
+        assert serve_model(lm, ServiceConfig(policy="sjf")).config.policy == "sjf"
 
     def test_failed_batch_fails_its_futures_and_serving_goes_on(self, data):
         """Every future resolves: a batch whose predict raises fails its
@@ -513,10 +531,23 @@ class TestEngineLifecycle:
         assert eng.stats["state"] == "stopped"
 
     def test_engine_over_an_unported_plan_raises_by_name(self, compiled):
-        plan = BatchedPlan(compiled, ServiceConfig())
-        plan.name = "decode"
-        with pytest.raises(ValueError, match="decode"):
-            AsyncEngine(plan, plan.config)
+        """The decode loop, once refused by name, is ported: an engine over
+        a DecodePlan serves a Request to its Completion."""
+        import torch
+
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models import build_model
+        from repro_torch.runtime import Completion, DecodePlan, Request
+
+        lm = build_model(get_smoke_config("yi-9b"), device="cpu")
+        lm.init(torch.Generator().manual_seed(0))
+        plan = DecodePlan(lm, ServiceConfig(max_batch=1, max_seq=16))
+        eng = AsyncEngine(plan, plan.config)
+        fut = eng.submit(Request(rid=7, prompt=np.arange(5, dtype=np.int32), max_new_tokens=3))
+        eng.drain_and_stop()
+        done = fut.result(timeout=30)
+        assert isinstance(done, Completion) and done.rid == 7 and len(done.tokens) == 3
+        assert eng.stats["admitted"] == 1
 
     def test_engine_thread_serves_while_callers_wait(self, data, compiled):
         """Submits from many threads while the loop runs: every future
