@@ -131,7 +131,8 @@ def _forward(
 ) -> torch.Tensor:
     """s = x @ (w o mask) + b, times the gain, then softmax per HCU.  The
     gain multiply between the two kernels stays a plain elementwise op.  A
-    reduced datapath rounds every stage (``quantized_forward``)."""
+    reduced datapath rounds every stage (``quantized_forward``: the same two
+    kernels in their rounding modes, the gain inside ``masked_matmul``)."""
     if _datapath_policy(spec) is not None:
         from repro_torch.precision.policy import quantized_forward
 
@@ -149,9 +150,9 @@ def _learn(
     mask: Optional[torch.Tensor],
 ) -> LayerState:
     """n_cycles of the EWMA marginal -> weight update (Alg.1 L10-16): the
-    ``bcpnn_update`` kernel, or the rounded stages of a reduced datapath
-    (``quantized_learning_cycle``; the kernel would round m_ij after its
-    EWMA, another function)."""
+    ``bcpnn_update`` kernel, or on a reduced datapath the rounded stages of
+    ``quantized_learning_cycle``, one ``bcpnn_update`` launch in its
+    datapath mode a cycle."""
     marg, w, b = state.marginals, state.w, state.b
     datapath, sfmt = _datapath_policy(spec), _state_format(spec)
     for _ in range(spec.n_cycles):

@@ -26,6 +26,13 @@ the batch over a thread-block cluster whose partial tiles are summed in
 rank order through distributed shared memory, so the readout fills the
 card.  Every output element is written once; the launch plan is the pure
 function :func:`plan`.
+
+The datapath mode (``datapath_mantissa=``) is the reduced datapath's whole
+learning cycle in this one launch (``repro/precision/policy.py:103-142``,
+then the state tier's rounding): a_i and a_j rounded where they are staged,
+each mean rounded after the (cluster's) batch sum, each EWMA rounded before
+the state tier's rounding, w and the bias rounded.  It moves the bytes of
+the f32 update.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.masked_matmul import MAX_CLUSTER, _cdiv, n_sm
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launches)
+datapath_launches = 0  # ... of them in the datapath mode
 
 
 @dataclass(frozen=True)
@@ -116,7 +124,7 @@ def plan(b: int, f: int, h: int, n_sm: int) -> Plan:
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
-    + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 )
 _fn = None
 
@@ -132,6 +140,7 @@ def bcpnn_update(
     mask: Optional[torch.Tensor] = None,
     state_mantissa: Optional[int] = None,
     state_dtype: Optional[torch.dtype] = None,
+    datapath_mantissa: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """ai (B, F), aj (B, H), ci (F,), cj (H,), cij and mask (F, H) ->
     (ci', cj', cij', w, bias), all fresh tensors.
@@ -139,18 +148,25 @@ def bcpnn_update(
     The traces ci/cj/cij share one dtype, f32 or bf16.  With
     ``state_mantissa`` the new traces are rounded to that many mantissa
     bits; they come back in ``state_dtype`` (None: f32), which may be bf16
-    only for a mantissa of at most 7.  w and bias are f32.
+    only for a mantissa of at most 7.  w and bias are f32.  With
+    ``datapath_mantissa`` every stage of the cycle is rounded to that many
+    bits first (the datapath mode).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
     out_dtype = check_state(ci, cj, cij, state_mantissa, state_dtype)
+    if datapath_mantissa is not None and not (1 <= datapath_mantissa <= 23):
+        raise ValueError(
+            f"datapath_mantissa must be in [1, 23] or None, got {datapath_mantissa}"
+        )
     state = _build.STATE
     f32 = _build.F32
     if _build.on_cpu(
         "bcpnn_update", ai, aj, ci, cj, cij, mask, dtypes=(f32, f32, state, state, state, f32)
     ):
         ci_n, cj_n, cij_n, w, bias = ref.bcpnn_update(
-            ai, aj, ci, cj, cij, lam, k_b=k_b, mask=mask, state_mantissa=state_mantissa
+            ai, aj, ci, cj, cij, lam, k_b=k_b, mask=mask, state_mantissa=state_mantissa,
+            datapath_mantissa=datapath_mantissa,
         )
         return ci_n.to(out_dtype), cj_n.to(out_dtype), cij_n.to(out_dtype), w, bias
     bsz, f = ai.shape
@@ -166,15 +182,15 @@ def bcpnn_update(
         )
     return launch_planned(
         ai, aj, ci, cj, cij, lam, k_b, mask, state_mantissa, out_dtype,
-        plan(bsz, f, h, n_sm(ai.device)),
+        plan(bsz, f, h, n_sm(ai.device)), datapath_mantissa=datapath_mantissa,
     )
 
 
 def launch_planned(ai, aj, ci, cj, cij, lam, k_b, mask, state_mantissa, out_dtype,
-                   p: Plan):
+                   p: Plan, datapath_mantissa: Optional[int] = None):
     """Launch the kernel with the plan ``p``; the wrapper's checks are the
     caller's.  Returns (ci', cj', cij', w, bias)."""
-    global launches, _fn
+    global launches, datapath_launches, _fn
     if _fn is None:
         _fn = _build.function("bcpnn_update", "bcpnn_update_f32", _ARGTYPES)
     bsz = ai.shape[0]
@@ -190,9 +206,12 @@ def launch_planned(ai, aj, ci, cj, cij, lam, k_b, mask, state_mantissa, out_dtyp
         ci_n.data_ptr(), cj_n.data_ptr(), cij_n.data_ptr(), w.data_ptr(),
         bias.data_ptr(), bsz, ai.shape[1], aj.shape[1], float(lam), 1.0 - float(lam), float(k_b),
         int(state_mantissa or 0), int(ci.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), CONFIGS[p.config].index, p.cl, p.bslice,
+        int(out_dtype == torch.bfloat16), int(datapath_mantissa or 0),
+        CONFIGS[p.config].index, p.cl, p.bslice,
     )
     launches += 1
+    if datapath_mantissa is not None:
+        datapath_launches += 1
     return ci_n, cj_n, cij_n, w, bias
 
 

@@ -3,12 +3,18 @@
 Replaces the TPU kernel ``repro/kernels/bf_round.py:bf_round``
 (``pl.pallas_call`` at line 63).  Source: ``csrc/bf_round.cu``; the
 rounding (``rne_round``) lives in ``csrc/rne_round.cuh``, shared with the
-epilogues of ``bcpnn_update.cu`` and ``bcpnn_phase.cu``.
+state tier's epilogues of ``bcpnn_update.cu`` and ``bcpnn_phase.cu`` and
+with the reduced datapath's modes of ``masked_matmul.cu``,
+``hcu_softmax.cu`` and ``bcpnn_update.cu``, which round each datapath
+stage where it is made.  This kernel serves the state tier's rounding of
+the initial traces (``precision.policy.quantize_marginals``) and
+``PrecisionPolicy.q``.
 
 Bound on an H100: one read and one write of every element, so bytes (at
 C_ij's 4,704,000 f32 of the MNIST hidden layer, 37.6 MB: ~0.011 ms at
-3.35 TB/s).  Design: a grid-stride loop with 16-byte vector loads and
-scalar tails; no padding to the TPU's (rows, 128) tiles.
+3.35 TB/s).  Design: one full wave of blocks in a grid-stride loop, each
+thread with two 16-byte loads in flight before its stores, streaming
+cache hints, scalar tails; no padding to the TPU's (rows, 128) tiles.
 """
 from __future__ import annotations
 

@@ -12,6 +12,16 @@
 // The epilogue (epilogue4) finishes four consecutive elements of one row:
 //   C_ij' = rne(one_m C_ij + lam (C / B)),   w = [log C_ij' - log c_i' - log c_j'] * mask
 // (every log of max(., EPS); rne is the state tier's rounding, rne_round.cuh).
+// The datapath modes (template argument DP, bcpnn_update.cu only) round
+// every stage to the datapath format as well, with q = rne to dp_mantissa
+// bits (repro/precision/policy.py:quantized_learning_cycle):
+//   C_ij' = rne(q(one_m C_ij + lam q(C / B))),   w = q(log C_ij' - log c_i' - log c_j') * mask
+// the EWMA's products and sum each rounded to f32 on their own (no FMA), as
+// the reference's elementwise ops are.  The mean is the IEEE quotient by B:
+// a product with 1/B, the same value, when B is a power of two (DP_POW2),
+// else a division (DP_DIV).  They are two instantiations because the
+// division's code in the epilogue, taken or not, slowed the MNIST hidden
+// update on an H100 from 0.092 to 0.111 ms.
 // With VEC it makes one 16-byte load of C_ij (8-byte for bf16 traces) and of
 // the mask and one 16-byte store of C_ij' (8-byte for bf16) and of w; without
 // it, 4-byte accesses for rows whose stride or base is not 16-byte aligned.
@@ -32,11 +42,30 @@ struct Update {
   float lam, one_m, inv_b;  // EWMA weight, 1 - lam, 1 / B
   int mantissa;             // rounding of the new traces (0: none)
   int in_bf16, out_bf16;    // storage of the old and of the new traces
+  int dp_mantissa;          // the datapath format (read only in a datapath mode) ...
+  float batch;              // ... and B, which DP_DIV's means divide by
 };
 
+// The update's modes: f32 (with the state tier's rounding, if any), and the
+// datapath's, for a batch of a power of two and for any other batch.
+constexpr int DP_OFF = 0, DP_POW2 = 1, DP_DIV = 2;
+
 // A new trace from its old value and its batch sum.
+template <int DP = DP_OFF>
 __device__ __forceinline__ float trace(const Update& u, float old, float sum) {
-  return rne_round(u.one_m * old + u.lam * (sum * u.inv_b), u.mantissa);
+  if constexpr (DP != DP_OFF) {
+    float mean;
+    if constexpr (DP == DP_POW2) {
+      mean = __fmul_rn(sum, u.inv_b);
+    } else {
+      mean = __fdiv_rn(sum, u.batch);
+    }
+    const float m = rne_round(mean, u.dp_mantissa);
+    const float c = __fadd_rn(__fmul_rn(u.one_m, old), __fmul_rn(u.lam, m));
+    return rne_round(rne_round(c, u.dp_mantissa), u.mantissa);
+  } else {
+    return rne_round(u.one_m * old + u.lam * (sum * u.inv_b), u.mantissa);
+  }
 }
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -139,15 +168,16 @@ __device__ __forceinline__ void store4(void* p, size_t i, const float (&v)[4], i
 // without MASK), the batch sums of a_i^T a_j, lci = log c_i'[gf] and lcj =
 // log c_j' of the four columns.  A kernel may load c and m early (load4), so
 // that the loads fly while it does other work, and finish the run later.
-template <bool VEC, bool MASK>
+template <bool VEC, bool MASK, int DP = DP_OFF>
 __device__ __forceinline__ void finish4(const Update& u, const float (&c)[4], const float (&m)[4],
                                         const float (&sum)[4], float lci, const float* lcj,
                                         void* cij_out, float* w_out, size_t idx, int n) {
   float cn[4], w[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    cn[q] = trace(u, c[q], sum[q]);
+    cn[q] = trace<DP>(u, c[q], sum[q]);
     w[q] = logf(fmaxf(cn[q], EPS)) - lci - lcj[q];
+    if constexpr (DP != DP_OFF) w[q] = rne_round(w[q], u.dp_mantissa);
     if constexpr (MASK) w[q] *= m[q];
   }
   store4<VEC>(cij_out, idx, cn, u.out_bf16, n);
@@ -156,14 +186,14 @@ __device__ __forceinline__ void finish4(const Update& u, const float (&c)[4], co
 
 // The whole epilogue of the n elements at idx: C_ij and the mask loaded
 // from device memory, then finish4.
-template <bool VEC, bool MASK>
+template <bool VEC, bool MASK, int DP = DP_OFF>
 __device__ __forceinline__ void epilogue4(const Update& u, const void* cij, const float* mask,
                                           void* cij_out, float* w_out, size_t idx, int n,
                                           const float (&sum)[4], float lci, const float* lcj) {
   float c[4], m[4];
   load4<VEC>(c, cij, idx, u.in_bf16, n);
   if constexpr (MASK) load4<VEC>(m, mask, idx, 0, n);
-  finish4<VEC, MASK>(u, c, m, sum, lci, lcj, cij_out, w_out, idx, n);
+  finish4<VEC, MASK, DP>(u, c, m, sum, lci, lcj, cij_out, w_out, idx, n);
 }
 
 }  // namespace bcpnn_tile

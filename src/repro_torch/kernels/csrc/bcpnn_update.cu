@@ -15,6 +15,20 @@
 // in theirs (state_out_bf16): bf16 only when m <= 7, where the rounded
 // values are exact, so no separate cast pass over C_ij is needed.
 //
+// The datapath mode (datapath_mantissa d > 0; the template argument DP) is the
+// whole reduced-precision learning cycle of the paper's Fig. 3 in this one
+// launch, repro/precision/policy.py:quantized_learning_cycle followed by
+// :state_quantized_cycle, with q = RNE rounding to d mantissa bits:
+//   a_i, a_j rounded once where they are staged (each thread rounds the
+//   elements it copied, after its cp.async group lands, before the
+//   stage's __syncthreads), so the product and the column sums see q(a);
+//   m = q(sum / B) for m_i, m_j and m_ij (after the cluster's rank-order
+//   sum, never a partial), each trace q(one_m c + lam m) then the state
+//   tier's rounding, w = q(log C_ij' - log c_i' - log c_j') * mask and
+//   bias = q(k_b log c_j').  No rounded copy of a_i, a_j or of any stage
+//   reaches device memory.  The f32 and state-tier instantiations (DP_OFF)
+//   are the code of the f32 kernel.
+//
 // What bounds it on an H100 (67 TFLOP/s f32 FMA, 3.35 TB/s):
 //   - hidden (B=128, F=1568, H=3000, f32 traces, mask): 1.2 GFLOP against
 //     ~78 MB (C_ij and the mask in, C_ij' and w out): bytes, 0.023 ms;
@@ -57,6 +71,7 @@
 #include <cuda_pipeline.h>
 
 #include <cstdint>
+#include <type_traits>
 #include <utility>
 
 #include "bcpnn_tile.cuh"
@@ -109,7 +124,7 @@ struct Args {
 template <class T>
 __host__ __device__ constexpr int smem_floats() { return T::RING + 2 * (T::TF + T::TH); }
 
-template <class T, bool MASK, bool VA, bool VH>
+template <class T, bool MASK, bool VA, bool VH, int DP>
 __global__ void __launch_bounds__(T::THREADS, T::MINB) bcpnn_update_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int TF = T::TF, TH = T::TH, RM = T::RM, RN = T::RN, BK = T::BK;
@@ -166,6 +181,40 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB) bcpnn_update_kernel(Args 
     }
   };
 
+  // The datapath's q(a_i), q(a_j) on the elements this thread copied into
+  // buffer buf (the same indices as fetch, 16-byte accesses where fetch
+  // made them; zero fill rounds to zero).
+  auto round_stage = [&](int buf) {
+    float* As = ring + buf * STAGE;
+    float* Bs = As + BK * TF;
+    const int dm = a.u.dp_mantissa;
+    auto round_run = [dm](float* p, auto vec) {
+      if constexpr (decltype(vec)::value) {
+        float4 v = *reinterpret_cast<float4*>(p);
+        v.x = rne_round(v.x, dm); v.y = rne_round(v.y, dm);
+        v.z = rne_round(v.z, dm); v.w = rne_round(v.w, dm);
+        *reinterpret_cast<float4*>(p) = v;
+      } else {
+        *p = rne_round(*p, dm);
+      }
+    };
+    constexpr int VA_N = VA ? 4 : 1, VH_N = VH ? 4 : 1;
+#pragma unroll
+    for (int u = 0; u < cdiv(BK * TF / VA_N, THREADS); ++u) {
+      const int e = tid + u * THREADS;
+      if (e < BK * TF / VA_N)
+        round_run(As + (e / (TF / VA_N)) * TF + (e % (TF / VA_N)) * VA_N,
+                  std::integral_constant<bool, VA>{});
+    }
+#pragma unroll
+    for (int u = 0; u < cdiv(BK * TH / VH_N, THREADS); ++u) {
+      const int e = tid + u * THREADS;
+      if (e < BK * TH / VH_N)
+        round_run(Bs + (e / (TH / VH_N)) * TH + (e % (TH / VH_N)) * VH_N,
+                  std::integral_constant<bool, VH>{});
+    }
+  };
+
   float acc[RM][RN];
 #pragma unroll
   for (int i = 0; i < RM; ++i)
@@ -185,6 +234,7 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB) bcpnn_update_kernel(Args 
   for (int kt = 0; kt < nk; ++kt) {
     const int buf = kt % NSTAGE;
     __pipeline_wait_prior(NSTAGE - 2);
+    if constexpr (DP != DP_OFF) round_stage(buf);
     __syncthreads();  // stage kt is visible; buffer (kt - 1) % NSTAGE is free
     if (kt + NSTAGE - 1 < nk) fetch(kt + NSTAGE - 1, (kt + NSTAGE - 1) % NSTAGE);
     __pipeline_commit();
@@ -229,17 +279,17 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB) bcpnn_update_kernel(Args 
     float s = 0.f;
     for (int q = 0; q < CL; ++q) s += CL > 1 ? cluster.map_shared_rank(sums, q)[c] : sums[c];
     if (row) {
-      const float v = trace(a.u, load_state(a.ci, f0 + c, a.u.in_bf16), s);
+      const float v = trace<DP>(a.u, load_state(a.ci, f0 + c, a.u.in_bf16), s);
       log_ci[c] = logf(fmaxf(v, EPS));
       if (h0 == 0) store_state(a.ci_out, f0 + c, v, a.u.out_bf16);
     } else {
       const int gh = h0 + c - TF;
-      const float v = trace(a.u, load_state(a.cj, gh, a.u.in_bf16), s);
+      const float v = trace<DP>(a.u, load_state(a.cj, gh, a.u.in_bf16), s);
       const float lc = logf(fmaxf(v, EPS));
       log_cj[c - TF] = lc;
       if (f0 == 0 && rank == 0) {
         store_state(a.cj_out, gh, v, a.u.out_bf16);
-        a.bias_out[gh] = a.k_b * lc;
+        a.bias_out[gh] = DP != DP_OFF ? rne_round(a.k_b * lc, a.u.dp_mantissa) : a.k_b * lc;
       }
     }
   }
@@ -255,9 +305,9 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB) bcpnn_update_kernel(Args 
         const int lc = (h * TX + tx) * 4;
         if (lc >= cols) continue;
         const float s4[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]};
-        epilogue4<VH, MASK>(a.u, a.cij, a.mask, a.cij_out, a.w_out,
-                            static_cast<size_t>(f0 + lr) * H + h0 + lc, min(4, cols - lc), s4,
-                            log_ci[lr], log_cj + lc);
+        epilogue4<VH, MASK, DP>(a.u, a.cij, a.mask, a.cij_out, a.w_out,
+                                static_cast<size_t>(f0 + lr) * H + h0 + lc, min(4, cols - lc),
+                                s4, log_ci[lr], log_cj + lc);
       }
     }
     return;
@@ -272,17 +322,17 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB) bcpnn_update_kernel(Args 
       const float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(ring, q) + lr * PS + lc);
       s4[0] += v.x; s4[1] += v.y; s4[2] += v.z; s4[3] += v.w;
     }
-    epilogue4<VH, MASK>(a.u, a.cij, a.mask, a.cij_out, a.w_out,
-                        static_cast<size_t>(f0 + lr) * H + h0 + lc, min(4, cols - lc), s4,
-                        log_ci[lr], log_cj + lc);
+    epilogue4<VH, MASK, DP>(a.u, a.cij, a.mask, a.cij_out, a.w_out,
+                            static_cast<size_t>(f0 + lr) * H + h0 + lc, min(4, cols - lc), s4,
+                            log_ci[lr], log_cj + lc);
   }
   cluster.sync();  // no CTA leaves while another reads its shared memory
 }
 
-template <class T, bool MASK, bool VA, bool VH>
+template <class T, bool MASK, bool VA, bool VH, int DP>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_floats<T>() * sizeof(float);
-  auto kernel = bcpnn_update_kernel<T, MASK, VA, VH>;
+  auto kernel = bcpnn_update_kernel<T, MASK, VA, VH, DP>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -306,11 +356,12 @@ int launch(const Args& a, cudaStream_t stream) {
 
 using Launcher = int (*)(const Args&, cudaStream_t);
 
-// Variant I: bit 2 = mask, bit 1 = 16-byte a_i rows, bit 0 = 16-byte H rows
-// (a_j, C_ij, mask, C_ij', w).
+// Variant I: I / 8 = the mode (DP_OFF, DP_POW2, DP_DIV), bit 2 = mask, bit
+// 1 = 16-byte a_i rows, bit 0 = 16-byte H rows (a_j, C_ij, mask, C_ij', w).
 template <class T, int... I>
 int dispatch(const Args& a, int variant, cudaStream_t stream, std::integer_sequence<int, I...>) {
-  static constexpr Launcher table[] = {launch<T, (I & 4) != 0, (I & 2) != 0, (I & 1) != 0>...};
+  static constexpr Launcher table[] = {
+      launch<T, (I & 4) != 0, (I & 2) != 0, (I & 1) != 0, I / 8>...};
   return table[variant](a, stream);
 }
 
@@ -319,29 +370,32 @@ bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 
 }  // namespace
 
 // config: 0 wide (64 x 64 tiles), 1 narrow (64 x 16, H <= 16); cl: CTAs of
-// the cluster that split the batch, bs batch rows each (a multiple of 16).
-// Returns cudaErrorInvalidValue for a plan that leaves a slice empty or does
-// not cover the batch, else the launch's error.
+// the cluster that split the batch, bs batch rows each (a multiple of 16);
+// datapath_mantissa: 0 for the f32 and state-tier update, 1..23 for the
+// datapath mode.  Returns cudaErrorInvalidValue for a plan that leaves a
+// slice empty or does not cover the batch, else the launch's error.
 extern "C" int bcpnn_update_f32(const float* ai, const float* aj, const void* ci,
                                 const void* cj, const void* cij, const float* mask,
                                 void* ci_out, void* cj_out, void* cij_out,
                                 float* w_out, float* bias_out, int B, int F, int H,
                                 float lam, float one_m, float k_b, int state_mantissa,
-                                int state_in_bf16, int state_out_bf16, int config, int cl,
-                                int bs, cudaStream_t stream) {
-  if (B <= 0 || F <= 0 || H <= 0 || cl < 1 || cl > 8 || bs <= 0 || bs % 16 != 0)
+                                int state_in_bf16, int state_out_bf16, int datapath_mantissa,
+                                int config, int cl, int bs, cudaStream_t stream) {
+  if (B <= 0 || F <= 0 || H <= 0 || cl < 1 || cl > 8 || bs <= 0 || bs % 16 != 0 ||
+      datapath_mantissa < 0 || datapath_mantissa > 23)
     return cudaErrorInvalidValue;
   if (static_cast<long long>(cl) * bs < B || (cl > 1 && static_cast<long long>(cl - 1) * bs >= B))
     return cudaErrorInvalidValue;
   const Update u{lam, one_m, 1.0f / static_cast<float>(B), state_mantissa, state_in_bf16,
-                 state_out_bf16};
+                 state_out_bf16, datapath_mantissa, static_cast<float>(B)};
   const Args a{ai, aj, ci, cj, cij, mask, ci_out, cj_out, cij_out, w_out, bias_out,
                B, F, H, cl, bs, k_b, u};
   const bool va = F % 4 == 0 && aligned16(ai);
   const bool vh = H % 4 == 0 && aligned16(aj) && aligned16(cij) && aligned16(cij_out) &&
                   aligned16(w_out) && (mask == nullptr || aligned16(mask));
-  const int variant = (mask != nullptr ? 4 : 0) | (va ? 2 : 0) | (vh ? 1 : 0);
-  const auto all = std::make_integer_sequence<int, 8>{};
+  const int mode = datapath_mantissa == 0 ? DP_OFF : (B & (B - 1)) == 0 ? DP_POW2 : DP_DIV;
+  const int variant = 8 * mode + (mask != nullptr ? 4 : 0) + (va ? 2 : 0) + (vh ? 1 : 0);
+  const auto all = std::make_integer_sequence<int, 24>{};
   switch (config) {
     case 0: return dispatch<Wide>(a, variant, stream, all);
     case 1: return dispatch<Narrow>(a, variant, stream, all);

@@ -18,8 +18,17 @@
 // pass, a sum pass and a write pass, which read the hypercolumn again from
 // the caches.  expf, not __expf: the plain version's tolerance is 1e-5 /
 // 1e-6.
+//
+// The rounding mode (round_mantissa d > 0; the template flag ROUND) is the
+// softmax stage of the reduced datapath (paper Fig. 3,
+// repro/precision/policy.py:quantized_forward): each output is RNE-rounded
+// to d mantissa bits (rne_round.cuh) at its one store, in registers, so the
+// mode moves the bytes of the f32 softmax.  The f32 instantiation (ROUND
+// false) is the code of the f32 kernel.
 
 #include <cuda_runtime.h>
+
+#include "rne_round.cuh"
 
 namespace {
 
@@ -55,9 +64,20 @@ __device__ __forceinline__ float max4(const float (&v)[4]) {
   return fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
 }
 
+// The value stored: q(v) in the rounding mode.
+template <bool ROUND>
+__device__ __forceinline__ float stored(float v, int d) {
+  if constexpr (ROUND) {
+    return rne_round(v, d);
+  } else {
+    return v;
+  }
+}
+
+template <bool ROUND>
 __global__ void __launch_bounds__(THREADS)
 hcu_softmax_kernel(const float* __restrict__ s, float* __restrict__ out,
-                   long long n_groups, int n_mcu) {
+                   long long n_groups, int n_mcu, int round_m) {
   const long long group = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (group >= n_groups) return;  // the whole warp leaves together
@@ -77,7 +97,7 @@ hcu_softmax_kernel(const float* __restrict__ s, float* __restrict__ out,
     const float inv = 1.f / warp_sum(z);
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      if (lane + 32 * r < n_mcu) dst[lane + 32 * r] = v[r] * inv;
+      if (lane + 32 * r < n_mcu) dst[lane + 32 * r] = stored<ROUND>(v[r] * inv, round_m);
     return;
   }
 
@@ -100,17 +120,25 @@ hcu_softmax_kernel(const float* __restrict__ s, float* __restrict__ out,
     load_chunk(src + c, n, lane, v);
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      if (lane + 32 * r < n) dst[c + lane + 32 * r] = expf(v[r] - m) * inv;
+      if (lane + 32 * r < n)
+        dst[c + lane + 32 * r] = stored<ROUND>(expf(v[r] - m) * inv, round_m);
   }
 }
 
 }  // namespace
 
+// round_mantissa: 0 for the f32 softmax, 1..23 for the rounding mode.
 extern "C" int hcu_softmax_f32(const float* s, float* out, int rows, int n_hcu,
-                               int n_mcu, cudaStream_t stream) {
+                               int n_mcu, int round_mantissa, cudaStream_t stream) {
+  if (round_mantissa < 0 || round_mantissa > 23) return cudaErrorInvalidValue;
   const long long n_groups = (long long)rows * n_hcu;
   if (n_groups <= 0 || n_mcu <= 0) return cudaSuccess;
   const unsigned blocks = static_cast<unsigned>((n_groups + WARPS - 1) / WARPS);
-  hcu_softmax_kernel<<<blocks, THREADS, 0, stream>>>(s, out, n_groups, n_mcu);
+  if (round_mantissa > 0) {
+    hcu_softmax_kernel<true><<<blocks, THREADS, 0, stream>>>(s, out, n_groups, n_mcu,
+                                                             round_mantissa);
+  } else {
+    hcu_softmax_kernel<false><<<blocks, THREADS, 0, stream>>>(s, out, n_groups, n_mcu, 0);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,12 +39,29 @@
 // mask == nullptr and bias == nullptr are compile-time variants, as are the
 // 16-byte paths of x and of w/mask/out.  Ragged M, N and K are zero-filled
 // on load (cp.async with a source size of 0) and skipped on store.
+//
+// The rounding mode (round_mantissa d > 0; the template flag ROUND) is the
+// support stage of the reduced datapath (paper Fig. 3,
+// repro/precision/policy.py:quantized_forward), with q = RNE rounding of
+// the f32 mantissa to d bits (rne_round.cuh):
+//   s = q(q(q(x) @ q(w * mask) + q(b)) * gain)
+// The operands are rounded once per staged element: each thread rounds the
+// x and w elements it copied after its cp.async group lands and before the
+// stage's __syncthreads, with the mask multiply (q(w) * mask equals
+// q(w * mask) bit for bit for a 0/1 mask).  The bias, the sum and the gain
+// are rounded in store4, which a split-K cluster reaches only with the
+// rank-order sum of the partial tiles, never with a partial.  No rounded
+// copy of an operand reaches device memory, so the mode moves the bytes of
+// the f32 product.  The f32 instantiations (ROUND false) are the code of
+// the f32 kernel.
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 
 #include <cstdint>
 #include <utility>
+
+#include "rne_round.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -100,9 +117,11 @@ struct Args {
   const float* bias;
   float* out;
   int M, K, N, CL, KS;
+  int round_m;  // the rounding mode's mantissa (read only with ROUND) ...
+  float gain;   // ... and the gain it applies to the rounded support
 };
 
-template <class T, bool VA, bool VN, bool MASK, bool BIAS>
+template <class T, bool VA, bool VN, bool MASK, bool BIAS, bool ROUND>
 __global__ void __launch_bounds__(T::THREADS, T::MINB) masked_matmul_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int BM = T::BM, BN = T::BN, BK = T::BK, TM = T::TM, TN = T::TN;
@@ -191,6 +210,53 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB) masked_matmul_kernel(Args
     }
   };
 
+  // The rounding mode's q(x) and q(w) (times the mask) on the elements this
+  // thread copied into buffer buf: the indices of fetch.
+  auto round_stage = [&](int buf) {
+    float* As = smem + buf * STAGE;
+    float* Bs = As + BM * AP;
+    const float* Ms = Bs + BK * BN;
+    const int d = a.round_m;
+    if constexpr (VA) {
+#pragma unroll
+      for (int u = 0; u < BM * BK / 4 / THREADS; ++u) {
+        const int e = tid + u * THREADS;
+        float4* p = reinterpret_cast<float4*>(As + (e / (BK / 4)) * AP + (e % (BK / 4)) * 4);
+        float4 v = *p;
+        v.x = rne_round(v.x, d); v.y = rne_round(v.y, d); v.z = rne_round(v.z, d); v.w = rne_round(v.w, d);
+        *p = v;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < BM * BK / THREADS; ++u) {
+        const int e = tid + u * THREADS;
+        float* p = As + (e / BK) * AP + e % BK;
+        *p = rne_round(*p, d);
+      }
+    }
+    if constexpr (VN) {
+#pragma unroll
+      for (int u = 0; u < BK * BN / 4 / THREADS; ++u) {
+        const int e = 4 * (tid + u * THREADS);
+        float4 b = *reinterpret_cast<float4*>(Bs + e);
+        b.x = rne_round(b.x, d); b.y = rne_round(b.y, d); b.z = rne_round(b.z, d); b.w = rne_round(b.w, d);
+        if constexpr (MASK) {
+          const float4 m = *reinterpret_cast<const float4*>(Ms + e);
+          b.x *= m.x; b.y *= m.y; b.z *= m.z; b.w *= m.w;
+        }
+        *reinterpret_cast<float4*>(Bs + e) = b;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < BK * BN / THREADS; ++u) {
+        const int e = tid + u * THREADS;
+        float b = rne_round(Bs[e], d);
+        if constexpr (MASK) b *= Ms[e];
+        Bs[e] = b;
+      }
+    }
+  };
+
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
@@ -208,7 +274,11 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB) masked_matmul_kernel(Args
   for (int kt = 0; kt < nk; ++kt) {
     const int buf = kt % NSTAGE;
     __pipeline_wait_prior(NSTAGE - 2);
-    if constexpr (MASK) apply_mask(buf);
+    if constexpr (ROUND) {
+      round_stage(buf);
+    } else if constexpr (MASK) {
+      apply_mask(buf);
+    }
     __syncthreads();  // stage kt is visible; buffer (kt - 1) % NSTAGE is free
     if (kt + NSTAGE - 1 < nk) fetch(kt + NSTAGE - 1, (kt + NSTAGE - 1) % NSTAGE);
     __pipeline_commit();
@@ -239,20 +309,37 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB) masked_matmul_kernel(Args
     }
   }
 
-  // Store 4 consecutive columns of row gm starting at gn (bias added).
+  // The bias as the support adds it: q(b) in the rounding mode.
+  auto qb = [&](float b) {
+    if constexpr (ROUND) {
+      return rne_round(b, a.round_m);
+    } else {
+      return b;
+    }
+  };
+
+  // Store 4 consecutive columns of row gm starting at gn (bias added; in
+  // the rounding mode v = q(q(v + q(b)) * gain)).
   auto store4 = [&](int gm, int gn, float4 v) {
     if (gm >= M || gn >= N) return;
     float* dst = a.out + static_cast<size_t>(gm) * N + gn;
     if constexpr (BIAS) {
       if constexpr (VN) {
         const float4 b = *reinterpret_cast<const float4*>(a.bias + gn);
-        v.x += b.x; v.y += b.y; v.z += b.z; v.w += b.w;
+        v.x += qb(b.x); v.y += qb(b.y); v.z += qb(b.z); v.w += qb(b.w);
       } else {
-        v.x += a.bias[gn];
-        if (gn + 1 < N) v.y += a.bias[gn + 1];
-        if (gn + 2 < N) v.z += a.bias[gn + 2];
-        if (gn + 3 < N) v.w += a.bias[gn + 3];
+        v.x += qb(a.bias[gn]);
+        if (gn + 1 < N) v.y += qb(a.bias[gn + 1]);
+        if (gn + 2 < N) v.z += qb(a.bias[gn + 2]);
+        if (gn + 3 < N) v.w += qb(a.bias[gn + 3]);
       }
+    }
+    if constexpr (ROUND) {
+      const int d = a.round_m;
+      v.x = rne_round(rne_round(v.x, d) * a.gain, d);
+      v.y = rne_round(rne_round(v.y, d) * a.gain, d);
+      v.z = rne_round(rne_round(v.z, d) * a.gain, d);
+      v.w = rne_round(rne_round(v.w, d) * a.gain, d);
     }
     if constexpr (VN) {
       *reinterpret_cast<float4*>(dst) = v;
@@ -304,10 +391,10 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB) masked_matmul_kernel(Args
   cluster.sync();  // no CTA leaves while another reads its shared memory
 }
 
-template <class T, bool VA, bool VN, bool MASK, bool BIAS>
+template <class T, bool VA, bool VN, bool MASK, bool BIAS, bool ROUND>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_floats<T, MASK>() * sizeof(float);
-  auto kernel = masked_matmul_kernel<T, VA, VN, MASK, BIAS>;
+  auto kernel = masked_matmul_kernel<T, VA, VN, MASK, BIAS, ROUND>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -331,11 +418,11 @@ int launch(const Args& a, cudaStream_t stream) {
 
 using Launcher = int (*)(const Args&, cudaStream_t);
 
-// Variant I: bit 3 = 16-byte x, bit 2 = 16-byte w/mask/out, bit 1 = mask,
-// bit 0 = bias.
+// Variant I: bit 4 = the rounding mode, bit 3 = 16-byte x, bit 2 = 16-byte
+// w/mask/out, bit 1 = mask, bit 0 = bias.
 template <class T, int I>
 int launch_variant(const Args& a, cudaStream_t stream) {
-  return launch<T, (I & 8) != 0, (I & 4) != 0, (I & 2) != 0, (I & 1) != 0>(a, stream);
+  return launch<T, (I & 8) != 0, (I & 4) != 0, (I & 2) != 0, (I & 1) != 0, (I & 16) != 0>(a, stream);
 }
 
 template <class T, int... I>
@@ -350,21 +437,26 @@ bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 
 
 // config: 0 wide (128x64 tiles), 1 narrow (64x16, N <= 16); cl: CTAs of
 // the cluster that split K, each over ks elements of it (a multiple of the
-// configuration's BK, so a multiple of 4).  Returns cudaErrorInvalidValue for a plan that
-// leaves a slice empty or does not cover K, else the launch's error.
+// configuration's BK, so a multiple of 4); round_mantissa: 0 for the f32
+// product, 1..23 for the rounding mode, whose support is multiplied by gain.
+// Returns cudaErrorInvalidValue for a plan that leaves a slice empty or
+// does not cover K, else the launch's error.
 extern "C" int masked_matmul_f32(const float* x, const float* w, const float* mask,
                                  const float* bias, float* out, int M, int K, int N,
-                                 int config, int cl, int ks, cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K < 0 || cl < 1 || cl > 8 || ks <= 0 || ks % 4 != 0)
+                                 int config, int cl, int ks, int round_mantissa, float gain,
+                                 cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K < 0 || cl < 1 || cl > 8 || ks <= 0 || ks % 4 != 0 ||
+      round_mantissa < 0 || round_mantissa > 23)
     return cudaErrorInvalidValue;
   if (static_cast<long long>(cl) * ks < K || (cl > 1 && static_cast<long long>(cl - 1) * ks >= K))
     return cudaErrorInvalidValue;
-  const Args a{x, w, mask, bias, out, M, K, N, cl, ks};
+  const Args a{x, w, mask, bias, out, M, K, N, cl, ks, round_mantissa, gain};
   const bool va = K % 4 == 0 && aligned16(x);
   const bool vn = N % 4 == 0 && aligned16(w) && aligned16(out) &&
                   (mask == nullptr || aligned16(mask)) && (bias == nullptr || aligned16(bias));
-  const int variant = (va ? 8 : 0) | (vn ? 4 : 0) | (mask != nullptr ? 2 : 0) | (bias != nullptr ? 1 : 0);
-  const auto all = std::make_integer_sequence<int, 16>{};
+  const int variant = (round_mantissa > 0 ? 16 : 0) | (va ? 8 : 0) | (vn ? 4 : 0) |
+                      (mask != nullptr ? 2 : 0) | (bias != nullptr ? 1 : 0);
+  const auto all = std::make_integer_sequence<int, 32>{};
   switch (config) {
     case 0: return dispatch<Wide>(a, variant, stream, all);
     case 1: return dispatch<Narrow>(a, variant, stream, all);

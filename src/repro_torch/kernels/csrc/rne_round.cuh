@@ -1,11 +1,15 @@
-// The quantized state tier on Hopper: RNE mantissa rounding and the
-// storage of traces in f32 or bf16.
+// The reduced-precision rounding on Hopper: RNE mantissa rounding, and the
+// storage of the quantized state tier's traces in f32 or bf16.
 //
 // rne_round is the counterpart of repro/kernels/bf_round.py:rne_round, which
 // the reference shares between its bf_round, bcpnn_update and bcpnn_phase
 // kernels so that every reduced-precision path rounds identically.  Here
-// the same holds: bf_round.cu, bcpnn_update.cu and bcpnn_phase.cu all
-// include this header.
+// the same holds, and every rounding of the port is this function:
+// bf_round.cu; the state tier's epilogue of bcpnn_update.cu and
+// bcpnn_phase.cu (through bcpnn_tile.cuh); and the reduced datapath's
+// stages, rounded inside the kernels that make them (the rounding modes of
+// masked_matmul.cu and hcu_softmax.cu, the datapath mode of
+// bcpnn_update.cu).
 //
 // Rounding to m mantissa bits: add (1 << (shift-1)) - 1 plus the LSB of the
 // kept mantissa to the bit pattern, then clear the low shift = 23 - m bits.

@@ -13,6 +13,13 @@ thread-block cluster whose partial tiles are summed in rank order through
 distributed shared memory (see the note at the head of the source).  The
 launch plan (tile configuration, cluster size, K slice) is the pure
 function :func:`plan`.
+
+The rounding mode (``round_mantissa=``) is the reduced datapath's support
+stage, ``q(q(q(x) @ q(w ∘ mask) + q(b)) * gain)`` with ``q`` the RNE
+rounding to that many mantissa bits (``repro/precision/policy.py:94-97``):
+each staged operand element is rounded where it lands in shared memory,
+and the bias, the sum and the gain in the store, after a split-K
+cluster's sum, so the mode moves the f32 product's bytes.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launches)
+datapath_launches = 0  # ... of them in the rounding mode
 
 
 @dataclass(frozen=True)
@@ -105,7 +113,9 @@ def plan(m: int, k: int, n: int, n_sm: int) -> Plan:
     return min(candidates, key=lambda c: c[:3])[-1]
 
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = (
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_void_p]
+)
 _fn = None
 _n_sm: Dict[int, int] = {}
 
@@ -122,13 +132,21 @@ def masked_matmul(
     w: torch.Tensor,
     b: Optional[torch.Tensor] = None,
     mask: Optional[torch.Tensor] = None,
+    round_mantissa: Optional[int] = None,
+    gain: float = 1.0,
 ) -> torch.Tensor:
-    """x (M, K) @ (w (K, N) ∘ mask (K, N)) + b (N,) -> (M, N) f32.
+    """x (M, K) @ (w (K, N) ∘ mask (K, N)) + b (N,) -> (M, N) f32; with
+    ``round_mantissa`` the datapath's support, every stage rounded and the
+    result times ``gain`` rounded again.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
+    if round_mantissa is None and gain != 1.0:  # the f32 product leaves the gain to its caller
+        raise ValueError(f"gain={gain} needs the rounding mode (round_mantissa=)")
+    if round_mantissa is not None and not (1 <= round_mantissa <= 23):
+        raise ValueError(f"round_mantissa must be in [1, 23] or None, got {round_mantissa}")
     if _build.on_cpu("masked_matmul", x, w, b, mask):
-        return ref.masked_matmul(x, w, b, mask)
+        return ref.masked_matmul(x, w, b, mask, round_mantissa=round_mantissa, gain=gain)
     m, k = x.shape
     if w.shape[0] != k or (mask is not None and mask.shape != w.shape):
         raise ValueError(
@@ -141,13 +159,15 @@ def masked_matmul(
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    return launch_planned(x, w, b, mask, out, plan(m, k, n, n_sm(x.device)))
+    return launch_planned(x, w, b, mask, out, plan(m, k, n, n_sm(x.device)),
+                          round_mantissa=round_mantissa, gain=gain)
 
 
-def launch_planned(x, w, b, mask, out, p: Plan) -> torch.Tensor:
+def launch_planned(x, w, b, mask, out, p: Plan, round_mantissa: Optional[int] = None,
+                   gain: float = 1.0) -> torch.Tensor:
     """Launch the kernel with the plan ``p`` into ``out``; the wrapper's
     checks are the caller's."""
-    global launches, _fn
+    global launches, datapath_launches, _fn
     if _fn is None:
         _fn = _build.function("masked_matmul", "masked_matmul_f32", _ARGTYPES)
     m, k = x.shape
@@ -157,6 +177,9 @@ def launch_planned(x, w, b, mask, out, p: Plan) -> torch.Tensor:
         None if mask is None else mask.data_ptr(),
         None if b is None else b.data_ptr(),
         out.data_ptr(), m, k, w.shape[1], CONFIGS[p.config].index, p.cl, p.kslice,
+        int(round_mantissa or 0), float(gain),
     )
     launches += 1
+    if round_mantissa is not None:
+        datapath_launches += 1
     return out

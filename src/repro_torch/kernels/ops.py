@@ -7,7 +7,9 @@ Hopper kernel, and anything else raises.  There is no fallback and no
 
 ``state_format`` (None, a format name or a ``BFFormat``) selects the
 quantized state tier: the new traces come back rounded to the format's
-mantissa, in bf16 when that is exact.
+mantissa, in bf16 when that is exact.  ``round_mantissa`` (the forward
+pair) and ``datapath_mantissa`` (the update) select the reduced datapath's
+modes, every stage rounded inside the kernel that makes it.
 """
 from __future__ import annotations
 
@@ -25,16 +27,25 @@ KERNELS = {
     "masked_matmul": _mk, "hcu_softmax": _sk, "bcpnn_update": _bk,
     "bcpnn_phase": _pk, "bf_round": _bfk,
 }
+# The kernels with a datapath mode: launch_counts() also counts their
+# launches in it under "<kernel>.datapath".
+DATAPATH_MODES = ("masked_matmul", "hcu_softmax", "bcpnn_update")
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per kernel since the last :func:`reset_launches`."""
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    """Kernel launches per kernel since the last :func:`reset_launches`
+    (every mode), and under ``"<kernel>.datapath"`` those of them in the
+    datapath mode."""
+    counts = {name: mod.launches for name, mod in KERNELS.items()}
+    counts.update({f"{name}.datapath": KERNELS[name].datapath_launches for name in DATAPATH_MODES})
+    return counts
 
 
 def reset_launches() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+    for name in DATAPATH_MODES:
+        KERNELS[name].datapath_launches = 0
 
 
 def _state_spec(state_format) -> Tuple[Optional[int], Optional[torch.dtype]]:
@@ -48,8 +59,11 @@ def _state_spec(state_format) -> Tuple[Optional[int], Optional[torch.dtype]]:
     return state_spec(fmt)
 
 
-def hcu_softmax(s: torch.Tensor, n_hcu: int, n_mcu: int) -> torch.Tensor:
-    return _sk.hcu_softmax(s, n_hcu, n_mcu)
+def hcu_softmax(
+    s: torch.Tensor, n_hcu: int, n_mcu: int, round_mantissa: Optional[int] = None
+) -> torch.Tensor:
+    """``round_mantissa``: the datapath's softmax stage, rounded at the store."""
+    return _sk.hcu_softmax(s, n_hcu, n_mcu, round_mantissa=round_mantissa)
 
 
 def masked_matmul(
@@ -57,9 +71,13 @@ def masked_matmul(
     w: torch.Tensor,
     b: Optional[torch.Tensor],
     mask: Optional[torch.Tensor] = None,
+    round_mantissa: Optional[int] = None,
+    gain: float = 1.0,
 ) -> torch.Tensor:
-    """``mask=None`` reaches the kernel as a null pointer: no ones matrix."""
-    return _mk.masked_matmul(x, w, b, mask=mask)
+    """``mask=None`` reaches the kernel as a null pointer: no ones matrix.
+    ``round_mantissa``: the datapath's support stage, every operand, the
+    sum and then the sum times ``gain`` rounded inside the kernel."""
+    return _mk.masked_matmul(x, w, b, mask=mask, round_mantissa=round_mantissa, gain=gain)
 
 
 def bf_round(x: torch.Tensor, mantissa_bits: int) -> torch.Tensor:
@@ -74,17 +92,19 @@ def bcpnn_update(
     k_b: float = 1.0,
     mask: Optional[torch.Tensor] = None,
     state_format=None,
+    datapath_mantissa: Optional[int] = None,
 ):
     """Full Alg.1 L11-16 cycle: returns (new MarginalState, w, b), matching
     ``learning.learning_cycle``.  The vector EWMAs, the bias and, with
     ``state_format``, the rounding run inside the kernel beside the C_ij
-    outer product."""
+    outer product.  With ``datapath_mantissa`` it is the reduced datapath's
+    cycle, every stage rounded, in the same one launch."""
     from repro_torch.core.learning import MarginalState
 
     mant, sdtype = _state_spec(state_format)
     ci, cj, cij, w, bias = _bk.bcpnn_update(
         ai, aj, marginals.ci, marginals.cj, marginals.cij, lam, k_b=k_b, mask=mask,
-        state_mantissa=mant, state_dtype=sdtype,
+        state_mantissa=mant, state_dtype=sdtype, datapath_mantissa=datapath_mantissa,
     )
     return MarginalState(ci=ci, cj=cj, cij=cij), w, bias
 

@@ -6,7 +6,10 @@ Each function is the semantic ground truth of one Hopper kernel
 tensors that lie on the CPU.  They repeat the arithmetic of
 ``repro/kernels/ref.py`` operation for operation, in f32.  Traces stored in
 bf16 (the quantized state tier) are upcast before any arithmetic, as the
-TPU kernels do.
+TPU kernels do.  The reduced datapath's modes of the forward pair and of
+the update (``round_mantissa=`` / ``datapath_mantissa=``) are the staged
+compositions of ``repro/precision/policy.py``, every stage one
+:func:`bf_round`.
 """
 from __future__ import annotations
 
@@ -17,11 +20,15 @@ import torch
 EPS = 1e-8
 
 
-def hcu_softmax(s: torch.Tensor, n_hcu: int, n_mcu: int) -> torch.Tensor:
-    """Softmax within each hypercolumn: s (..., n_hcu*n_mcu)."""
+def hcu_softmax(
+    s: torch.Tensor, n_hcu: int, n_mcu: int, round_mantissa: Optional[int] = None
+) -> torch.Tensor:
+    """Softmax within each hypercolumn: s (..., n_hcu*n_mcu); with
+    ``round_mantissa``, each output rounded to that mantissa."""
     blocked = s.reshape(*s.shape[:-1], n_hcu, n_mcu)
     e = torch.exp(blocked - blocked.amax(dim=-1, keepdim=True))
-    return (e / e.sum(dim=-1, keepdim=True)).reshape(s.shape)
+    a = (e / e.sum(dim=-1, keepdim=True)).reshape(s.shape)
+    return a if round_mantissa is None else bf_round(a, round_mantissa)
 
 
 def bcpnn_update(
@@ -34,35 +41,45 @@ def bcpnn_update(
     k_b: float = 1.0,
     mask: Optional[torch.Tensor] = None,
     state_mantissa: Optional[int] = None,
+    datapath_mantissa: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Alg.1 L11-16: EWMA marginals then Bayesian weights/bias.
 
     With ``state_mantissa`` the new traces are RNE-rounded to that mantissa
     width and w/bias derive from the rounded traces (the kernels' epilogue,
-    ``repro/kernels/bcpnn_update.py:110-113``).  Returns (ci', cj', cij', w,
-    bias), all f32.
+    ``repro/kernels/bcpnn_update.py:110-113``).  With ``datapath_mantissa``
+    it is the reduced datapath's cycle (``repro/precision/policy.py:103-142``
+    then ``:state_quantized_cycle``): q, the rounding to that mantissa, of
+    a_i and a_j, of each mean, of each EWMA before the state tier's
+    rounding, and of w and the bias.  The a_i^T a_j product runs in full
+    f32.  Returns (ci', cj', cij', w, bias), all f32.
     """
-    b = ai.shape[0]
+    from repro_torch.core.learning import full_f32_matmul
+
+    def q(t):
+        return t if datapath_mantissa is None else bf_round(t, datapath_mantissa)
+
+    ai, aj = q(ai), q(aj)
     one_m = 1.0 - lam
-    mi = ai.mean(dim=0)
-    mj = aj.mean(dim=0)
-    mij = (ai.T @ aj) / b
-    ci_n = one_m * ci.float() + lam * mi
-    cj_n = one_m * cj.float() + lam * mj
-    cij_n = one_m * cij.float() + lam * mij
+    mi = q(ai.mean(dim=0))
+    mj = q(aj.mean(dim=0))
+    mij = q(full_f32_matmul(ai.T, aj) / ai.shape[0])
+    ci_n = q(one_m * ci.float() + lam * mi)
+    cj_n = q(one_m * cj.float() + lam * mj)
+    cij_n = q(one_m * cij.float() + lam * mij)
     if state_mantissa is not None:
         ci_n = bf_round(ci_n, state_mantissa)
         cj_n = bf_round(cj_n, state_mantissa)
         cij_n = bf_round(cij_n, state_mantissa)
     log_cj = torch.log(torch.clamp_min(cj_n, EPS))
-    w = (
+    w = q(
         torch.log(torch.clamp_min(cij_n, EPS))
         - torch.log(torch.clamp_min(ci_n, EPS))[:, None]
         - log_cj[None, :]
     )
     if mask is not None:
         w = w * mask
-    return ci_n, cj_n, cij_n, w, k_b * log_cj
+    return ci_n, cj_n, cij_n, w, q(k_b * log_cj)
 
 
 def bcpnn_phase(
@@ -99,8 +116,19 @@ def masked_matmul(
     w: torch.Tensor,
     b: Optional[torch.Tensor] = None,
     mask: Optional[torch.Tensor] = None,
+    round_mantissa: Optional[int] = None,
+    gain: float = 1.0,
 ) -> torch.Tensor:
-    """s = x @ (w*mask) + b in f32 (Alg.1 L8 with L16 fused)."""
+    """s = x @ (w*mask) + b in f32 (Alg.1 L8 with L16 fused).  With
+    ``round_mantissa`` the datapath's support ``q(q(x) @ q(w*mask) + q(b))``
+    (``q(w) * mask``, equal bit for bit for a 0/1 mask), then ``q(s *
+    gain)`` when the gain is not 1."""
+    if round_mantissa is not None:
+        def q(t):
+            return bf_round(t, round_mantissa)
+
+        s = q(masked_matmul(q(x), q(w), None if b is None else q(b), mask))
+        return q(s * gain) if gain != 1.0 else s
     weff = w * mask if mask is not None else w
     s = x @ weff
     return s + b if b is not None else s

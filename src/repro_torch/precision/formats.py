@@ -5,8 +5,9 @@ mantissa: BF16 (7 bits) is bfloat16, BF14/BF15 are below it, BF20/24/28
 above.  A format serves two tiers (``repro_torch.precision.policy``): the
 reduced *datapath*, every algebraic stage of Alg. 1 rounded (RNE) to it,
 and the *state tier*, MarginalState traces rounded to it between batches.
-The rounding runs in the ``bf_round`` kernel on the card and in its plain
-version on the CPU.
+:func:`round_to` runs in the ``bf_round`` kernel on the card and in its
+plain version on the CPU; the datapath's stages round inside the kernels
+that make them (``precision/policy.py``).
 """
 from __future__ import annotations
 

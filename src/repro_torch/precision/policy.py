@@ -15,11 +15,16 @@ Alg. 1, and this module does the same stage for stage:
 ``PrecisionPolicy(fmt, state_format)`` names the datapath format ``fmt``
 and, orthogonally, the storage format of the MarginalState traces (the
 state tier: traces rounded between batches, stored in bf16 where that is
-exact).  Arithmetic always runs in f32.  Each ``q`` is one ``bf_round``
-launch on the card; the forward runs through the ``masked_matmul`` and
-``hcu_softmax`` kernels on rounded operands.  The a_i^T a_j product and the
-elementwise stages are plain PyTorch, as they are plain jnp outside any
-Pallas kernel in the reference.
+exact).  Arithmetic always runs in f32.  Every ``q`` of the datapath is
+taken inside the kernel that makes the value, in the kernels' datapath
+modes: the support in ``masked_matmul`` (``round_mantissa=``, the gain
+too), the softmax in ``hcu_softmax``, and the whole learning cycle, state
+tier included, in one ``bcpnn_update`` launch (``datapath_mantissa=``).
+So a hidden batch on the card is three launches, and no rounded copy of a
+stage is written.  On the CPU each mode's plain version is the staged
+composition above, one ``bf_round`` a stage.  ``PrecisionPolicy.q`` and
+the state tier's rounding of the initial traces (:func:`quantize_marginals`)
+stay ``bf_round`` launches.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.learning import EPS, MarginalState, full_f32_matmul
+from repro_torch.core.learning import EPS, MarginalState
 from repro_torch.core.units import UnitLayout
 from repro_torch.kernels import ops
 from repro_torch.precision.formats import BFFormat, get_format, round_to, state_spec
@@ -76,16 +81,15 @@ def quantized_support(
     gain: float = 1.0,
 ) -> torch.Tensor:
     """Alg.1 L8 with every stage rounded: ``q(q(ai) @ q(w o mask) + q(b))``,
-    then ``q(s * gain)`` when gain is not 1.
+    then ``q(s * gain)`` when gain is not 1: one ``masked_matmul`` in its
+    rounding mode.
 
     ``q(w o mask)`` equals ``q(w) o mask`` bit for bit for a 0/1 mask (RNE
-    maps +-0 to +-0), so the mask goes into ``masked_matmul`` with the
-    rounded weights and no masked copy of w is written."""
-    q = policy.q
-    s = q(ops.masked_matmul(q(ai), q(w), q(b), mask=mask))
-    if gain != 1.0:
-        s = q(s * gain)
-    return s
+    maps +-0 to +-0), so the kernel rounds the staged weights and then
+    applies the mask, and no masked copy of w is written."""
+    return ops.masked_matmul(
+        _f32(ai), w, b, mask=mask, round_mantissa=policy.fmt.mantissa_bits, gain=gain
+    )
 
 
 def quantized_forward(
@@ -98,9 +102,12 @@ def quantized_forward(
     gain: float = 1.0,
 ) -> torch.Tensor:
     """Alg.1 L8-9 with every stage rounded to ``policy.fmt``: the support
-    (:func:`quantized_support`), then ``q`` of the per-HCU softmax."""
+    (:func:`quantized_support`), then ``q`` of the per-HCU softmax, rounded
+    in ``hcu_softmax``'s store."""
     s = quantized_support(ai, w, b, policy, mask=mask, gain=gain)
-    return policy.q(ops.hcu_softmax(s, n_hcu=layout.n_hcu, n_mcu=layout.n_mcu))
+    return ops.hcu_softmax(
+        s, n_hcu=layout.n_hcu, n_mcu=layout.n_mcu, round_mantissa=policy.fmt.mantissa_bits
+    )
 
 
 def quantized_learning_cycle(
@@ -113,31 +120,24 @@ def quantized_learning_cycle(
     mask: Optional[torch.Tensor] = None,
 ) -> Tuple[MarginalState, torch.Tensor, torch.Tensor]:
     """Alg.1 L10-16 with every stage rounded to ``policy.fmt``: returns
-    (new MarginalState, w, bias).  With a state tier the new traces then go
-    through :func:`state_quantized_cycle` and w/bias are rounded again."""
-    q = policy.q
-    ai_q, aj_q = q(ai), q(aj)
-    mi = q(ai_q.mean(dim=0))
-    mj = q(aj_q.mean(dim=0))
-    mij = q(full_f32_matmul(ai_q.T, aj_q) / ai.shape[0])
-    one_m = 1.0 - lam
-    # Traces may be stored in bf16 (the state tier): the EWMA runs in f32.
-    ci = q(one_m * state.ci.to(torch.float32) + lam * mi)
-    cj = q(one_m * state.cj.to(torch.float32) + lam * mj)
-    cij = q(one_m * state.cij.to(torch.float32) + lam * mij)
-    new_state = MarginalState(ci=ci, cj=cj, cij=cij)
-    w = q(
-        torch.log(torch.clamp_min(cij, EPS))
-        - torch.log(torch.clamp_min(ci, EPS))[:, None]
-        - torch.log(torch.clamp_min(cj, EPS))[None, :]
+    (new MarginalState, w, bias).  The means are ``q(<q(a)>)`` (``q(a_i)^T
+    q(a_j) / B`` for C_ij), each trace ``q((1-lam) C + lam m)``, ``w =
+    q(log C_ij - log C_i - log C_j)`` masked and ``bias = q(k_B log C_j)``.
+    With a state tier the new traces are then rounded into it and w/bias
+    derived from them and rounded again, as :func:`state_quantized_cycle`
+    does.  One ``bcpnn_update`` launch in its datapath mode; traces stored
+    in bf16 are read as they are, and the EWMA runs in f32."""
+    return ops.bcpnn_update(
+        state, _f32(ai), _f32(aj), lam, k_b=k_b, mask=mask,
+        state_format=policy.state_format if policy.has_state_tier else None,
+        datapath_mantissa=policy.fmt.mantissa_bits,
     )
-    if mask is not None:
-        w = w * mask
-    bias = q(k_b * torch.log(torch.clamp_min(cj, EPS)))
-    if policy.has_state_tier:
-        new_state, w, bias = state_quantized_cycle(new_state, policy, k_b=k_b, mask=mask)
-        w, bias = q(w), q(bias)
-    return new_state, w, bias
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """An activation as the kernels take it, contiguous f32 (the reference's
+    ``astype``); the tensor itself when it already is."""
+    return t.to(torch.float32).contiguous()
 
 
 def state_quantized_cycle(

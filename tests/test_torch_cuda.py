@@ -675,3 +675,154 @@ def test_continual_tier_on_card_matches_cpu(card, layer):
         assert sg.host_step == sc.host_step == int(sg.step)
         torch.testing.assert_close(sg.marginals.cij.cpu(), sc.marginals.cij, rtol=1e-4, atol=1e-6)
         torch.testing.assert_close(sg.w.cpu(), sc.w, rtol=1e-4, atol=1e-4)
+
+
+# --- the reduced datapath's modes: every stage rounded inside the kernel ---
+
+# f32 tolerances of each stage, (rtol, atol relative to max|want|), as in
+# tests/test_torch_datapath.py: the support sums K products in another
+# order than the plain version's library product, the softmax and the
+# traces are a few f32 operations, w and bias sums of three logs.
+DP_SUPPORT_TOL, DP_SOFTMAX_TOL = (1e-4, 1e-5), (1e-5, 1e-6)
+DP_TRACE_TOL, DP_LOG_TOL = (1e-5, 1e-8), (1e-5, 1e-6)
+DP_SHAPES = SHAPES + [(128, 1568, 30, 100)]
+
+
+def _stage(got, want, mantissa, tol, carry=0.0):
+    """The stage rule: every element within one ulp of the format plus the
+    stage's f32 tolerance plus ``carry`` (what inputs that rounded apart
+    carry into it), and at most 1% of the elements without a carry (at least
+    one) beyond the f32 tolerance: rounded to a neighbour after an f32 sum
+    in another order."""
+    g, w = got.double().cpu(), want.double().cpu()
+    assert g.shape == w.shape and bool(torch.isfinite(g).all())
+    carry = torch.as_tensor(carry, dtype=torch.float64).expand_as(w)
+    diff = (g - w).abs()
+    f32 = tol[0] * w.abs() + tol[1] * float(w.abs().max())
+    ulp = torch.ldexp(torch.ones_like(w),
+                      torch.frexp(torch.maximum(g.abs(), w.abs())).exponent - 1 - mantissa)
+    assert not bool((diff > ulp + f32 + carry).any()), float((diff - ulp - f32 - carry).max())
+    assert int(((diff > f32) & (carry == 0)).sum()) <= max(1, 0.01 * diff.numel())
+
+
+def _update_stages(got, want, mantissa, trace_mantissa, mask, k_b=0.7):
+    for g, w in zip(got[:3], want[:3]):
+        _stage(g, w, trace_mantissa, DP_TRACE_TOL)
+    dlog = [(torch.log(g.double().clamp_min(1e-8)) - torch.log(w.double().clamp_min(1e-8))).abs()
+            for g, w in zip(got[:3], want[:3])]
+    carry_w = dlog[2] + dlog[0][:, None] + dlog[1][None, :]
+    if mask is not None:
+        carry_w = carry_w * mask
+    _stage(got[3], want[3], mantissa, DP_LOG_TOL, carry=carry_w.cpu())
+    _stage(got[4], want[4], mantissa, DP_LOG_TOL, carry=(k_b * dlog[1]).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mant", [5, 11, 19])
+@pytest.mark.parametrize("use_mask", [True, False])
+@pytest.mark.parametrize("shape", DP_SHAPES)
+def test_datapath_forward_modes_match_plain_on_card(card, shape, use_mask, mant):
+    """The forward pair's rounding modes against their plain versions, the
+    gain inside masked_matmul; each counted as a launch of its kernel and of
+    its mode."""
+    p = _problem(*shape, use_mask, card)
+    _, _, n_hcu, n_mcu = shape
+    before = ops.launch_counts()
+    for gain in (1.0, 4.0):
+        s = ops.masked_matmul(p["x"], p["w"], p["b"], mask=p["mask"], round_mantissa=mant,
+                              gain=gain)
+        want = ref.masked_matmul(p["x"], p["w"], p["b"], mask=p["mask"], round_mantissa=mant,
+                                 gain=gain)
+        _stage(s, want, mant, DP_SUPPORT_TOL)
+    a = ops.hcu_softmax(want, n_hcu, n_mcu, round_mantissa=mant)
+    _stage(a, ref.hcu_softmax(want, n_hcu, n_mcu, round_mantissa=mant), mant, DP_SOFTMAX_TOL)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["masked_matmul"] - before["masked_matmul"] == 2
+    assert after["masked_matmul.datapath"] - before["masked_matmul.datapath"] == 2
+    assert after["hcu_softmax.datapath"] - before["hcu_softmax.datapath"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", [None, (7, torch.bfloat16), (11, None)])
+@pytest.mark.parametrize("mant", [5, 11, 19])
+@pytest.mark.parametrize("use_mask", [True, False])
+@pytest.mark.parametrize("shape", DP_SHAPES)
+def test_datapath_update_mode_matches_plain_on_card(card, shape, use_mask, mant, state):
+    """bcpnn_update's datapath mode (the whole quantized learning cycle,
+    the state tier after it) against its plain version."""
+    p = _problem(*shape, use_mask, card)
+    smant, sdtype = state or (None, None)
+    store = sdtype or torch.float32
+    ci, cj, cij = (p[k].to(store) for k in ("ci", "cj", "cij"))
+    before = ops.launch_counts()["bcpnn_update.datapath"]
+    got = bk.bcpnn_update(p["x"], p["aj"], ci, cj, cij, 0.05, k_b=0.7, mask=p["mask"],
+                          state_mantissa=smant, state_dtype=sdtype, datapath_mantissa=mant)
+    want = ref.bcpnn_update(p["x"], p["aj"], ci, cj, cij, 0.05, k_b=0.7, mask=p["mask"],
+                            state_mantissa=smant, datapath_mantissa=mant)
+    assert all(g.dtype == store for g in got[:3])
+    _update_stages(got, want, mant, min(mant, smant or 23), p["mask"])
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["bcpnn_update.datapath"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cl", range(1, mk.MAX_CLUSTER + 1))
+@pytest.mark.parametrize("config,n", [("wide", 300), ("narrow", 12)])
+def test_datapath_support_every_plan(card, config, n, cl):
+    """The rounding mode at each cluster size: a split K rounds only the
+    rank-order sum of the partial tiles."""
+    m, k = 200, 1000
+    x, w, b, mask = _mm_inputs(m, k, n, card)
+    out = torch.empty((m, n), dtype=torch.float32, device=card)
+    got = mk.launch_planned(x, w, b, mask, out, _forced_plan(m, k, n, config, cl),
+                            round_mantissa=11, gain=4.0)
+    _stage(got, ref.masked_matmul(x, w, b, mask, round_mantissa=11, gain=4.0), 11, DP_SUPPORT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cl", range(1, bk.MAX_CLUSTER + 1))
+@pytest.mark.parametrize("config,h,mant,use_mask", UPDATE_PLAN_CASES)
+def test_datapath_update_every_plan(card, config, h, mant, use_mask, cl):
+    """The datapath mode at each tile configuration and cluster size: a
+    split batch rounds the means only after the cluster's sum."""
+    b, f = 600, 300
+    ai, aj, ci, cj, cij, mask = _update_inputs(b, f, h, card, use_mask)
+    dtype = torch.bfloat16 if mant == 7 else torch.float32
+    ci, cj, cij = ci.to(dtype), cj.to(dtype), cij.to(dtype)
+    got = bk.launch_planned(ai, aj, ci, cj, cij, 0.05, 0.7, mask, mant, dtype,
+                            _forced_update_plan(b, f, h, config, cl), datapath_mantissa=11)
+    want = ref.bcpnn_update(ai, aj, ci, cj, cij, 0.05, k_b=0.7, mask=mask, state_mantissa=mant,
+                            datapath_mantissa=11)
+    _update_stages(got, want, 11, min(11, mant or 23), mask)
+
+
+@pytest.mark.cuda
+def test_datapath_fit_on_card_matches_cpu(card):
+    """A small datapath fit (bf20) on the card against the same fit on the
+    CPU: three launches a hidden batch (the forward pair in its rounding
+    mode, one datapath update), none of bf_round."""
+    ds = mnist_like(n_train=512, n_test=128, n_features=24, seed=0)
+    x, layout = complementary_code(ds.x_train)
+    xt, _ = complementary_code(ds.x_test)
+    net = Network(seed=0)
+    net.add(StructuralPlasticityLayer(layout, UnitLayout(4, 10), fan_in=12, lam=0.05, gain=4.0))
+    net.add(DenseLayer(UnitLayout(4, 10), onehot_layout(10), lam=0.05))
+    ops.reset_launches()
+    gpu = net.compile(ExecutionConfig(precision="bf20"))
+    cpu = net.compile(ExecutionConfig(device="cpu", precision="bf20"))
+    for c in (gpu, cpu):
+        c.fit((x, ds.y_train), epochs_hidden=1, epochs_readout=1, batch_size=64)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    batches = len(x) // 64
+    assert counts["bf_round"] == 0 and counts["bcpnn_phase"] == 0
+    assert counts["bcpnn_update"] == counts["bcpnn_update.datapath"] == 2 * batches
+    assert counts["masked_matmul"] == counts["masked_matmul.datapath"] >= batches
+    assert counts["hcu_softmax"] == counts["hcu_softmax.datapath"] == counts["masked_matmul"]
+    for sg, sc in zip(gpu.state.layers, cpu.state.layers):
+        if sc.plast is not None:
+            assert torch.equal(sg.plast.hcu_mask.cpu(), sc.plast.hcu_mask)
+    # A trace one format ulp apart moves the scores by about as much; the
+    # bf16-state fit above is held the same way.
+    torch.testing.assert_close(gpu.predict(xt).cpu(), cpu.predict(xt), rtol=0, atol=2.0**-6)
