@@ -133,7 +133,32 @@ the run with a non-zero exit:
    path once more in this process with its launches counted and each
    launch's shape among phase 3's.  The decode path launches none of the
    five kernels;
-8. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
+8. the hot-path guard (``repro_torch.analysis.strict``), at MNIST width on
+   the card: (a) each of phase 4's four paths twice without strict and once
+   with ``ExecutionConfig(strict=True)``, two fit and evaluate rounds each
+   (evaluated at the training batch size): the sentinel watched something,
+   every entry at 1 (the callables and, after ``>``, each kernel's launch
+   plan and library build), the strict state and accuracies equal to the
+   plain run's bit for bit (phase 4's rule if two plain runs already
+   differ), and the strict overhead per epoch printed; (b) four seeded
+   faults raise their typed errors: a ``.item()`` inside a projection
+   chunk's guarded dispatch (``HostTransferError``), a hidden trace moved
+   to the CPU (``HostTransferError``, no launch and no plain-version run),
+   a ``partial_fit`` with a new batch size (``RecompileError``), NaN in w
+   (``NonFiniteError``); (c) a caller thread's read back while another
+   thread's guard is open does not raise (and the guarded thread's does),
+   then the batched and streaming plans through the async engine and the
+   continual lifecycle, strict against a plain twin, two rounds each with
+   equal results and the sentinel still after round one, a caller thread
+   reading back throughout, and gemma3-1b at full width, cut to depth 6,
+   through ``serve_model(strict=True)``, tokens equal to the plain
+   service's; (d) an unfused and a fused fit under ``profile_dir``: each
+   repository kernel in the Chrome trace as often as its launch counter
+   says, its summed device time, the device's idle share and the longest
+   gaps between kernels printed; (e) the unfused fit with
+   ``use_kernels=False``: no launch of ours in the counters or the trace,
+   accuracy within 0.03 of the kernel path;
+9. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
    ...}`` line.
 
 Without a CUDA device, or away from the rest of the repository, it exits
@@ -990,10 +1015,10 @@ def datapath_stages(torch, ops, policy, compiled, x, y, dev):
     return out
 
 
-def main_path(torch, ops, core, data, policy, devices=("cuda", "cpu")):
-    """Phase 4: Listing 1 at MNIST width on four paths, each on the card
-    (launches counted from zero at its compile) and then on the CPU, then
-    the card alone at three more datapath formats."""
+def listing1(core, data, policy):
+    """The paper's Listing 1 at MNIST width: the data split, the network,
+    the fit options and the four paths (path -> (ExecutionConfig options,
+    fit options)) of phases 4 and 8."""
     ds = data.mnist_like(n_train=8192, n_test=2048, n_features=N_FEATURES, seed=0)
     x, in_layout = data.complementary_code(ds.x_train)
     xt, _ = data.complementary_code(ds.x_test)
@@ -1005,8 +1030,6 @@ def main_path(torch, ops, core, data, policy, devices=("cuda", "cpu")):
     ))
     net.add(core.DenseLayer(hidden, core.onehot_layout(N_CLASSES), lam=0.02))
     fit_kw = dict(epochs_hidden=2, epochs_readout=2, batch_size=B)
-    batches = len(x) // B
-    # path -> (ExecutionConfig options, fit options)
     paths = {
         "unfused_f32": (dict(), dict()),
         "fused_bf16": (dict(fused_phase=True,
@@ -1015,6 +1038,16 @@ def main_path(torch, ops, core, data, policy, devices=("cuda", "cpu")):
         "datapath_bf20": (dict(precision="bf20"), dict()),
         "sgd_readout": (dict(), dict(readout="sgd")),
     }
+    return net, split, fit_kw, paths
+
+
+def main_path(torch, ops, core, data, policy, devices=("cuda", "cpu")):
+    """Phase 4: Listing 1 at MNIST width on four paths, each on the card
+    (launches counted from zero at its compile) and then on the CPU, then
+    the card alone at three more datapath formats."""
+    net, split, fit_kw, paths = listing1(core, data, policy)
+    x, y, xt, _ = split
+    batches = len(x) // B
 
     launches, runs, card_nets = {}, {}, {}
     for path, (cfg, extra) in paths.items():
@@ -1113,10 +1146,10 @@ def main_path(torch, ops, core, data, policy, devices=("cuda", "cpu")):
     print(f"precision cliff at the e2e configuration (card, tools/precision_cliff.py): "
           f"{json.dumps(cliff_e2e)}")
 
-    stages = datapath_stages(torch, ops, policy, card_nets["datapath_bf20"], x, ds.y_train,
+    stages = datapath_stages(torch, ops, policy, card_nets["datapath_bf20"], x, y,
                              torch.device(devices[0]))
 
-    per_batch, per_batch_launches = batch_device_ms(torch, ops, card_nets, x, ds.y_train,
+    per_batch, per_batch_launches = batch_device_ms(torch, ops, card_nets, x, y,
                                                     torch.device(devices[0]))
     for key, ms in per_batch.items():
         print(f"device ms of one training batch, {key}: {ms:.5f}; launches "
@@ -2546,6 +2579,499 @@ def decoder(torch, ops, card, dev, cfg=None):
     return {"decode": decode_counts, "online": online_counts}, report
 
 
+# ------------------------------------------------------------- phase 8
+GUARD_ROUNDS = 2  # fit + evaluate rounds, and serving rounds, of phase 8
+GUARD_SERVE_ROWS = 512  # test rows per batched round (eight micro-batches of 64)
+GUARD_STREAM_ROWS, GUARD_STREAM_INFERS = 64, 16  # per streaming round
+GUARD_CONT_ROWS, GUARD_CONT_INFER_EVERY = 24, 3  # per continual round
+GUARD_CONT_KW = dict(update_batch=4, update_budget=16, merge_every=2, drift_window=16,
+                     drift_min_samples=8, drift_threshold=0.4, merge_strategy="replace")
+GUARD_DEC_LAYERS, GUARD_DEC_LENGTHS, GUARD_DEC_NEW = 6, (5, 60, 130), 6
+GUARD_GAPS = 5  # host-side gaps printed per profiled fit
+GUARD_KERNELS = ("masked_matmul", "hcu_softmax", "bcpnn_update", "bcpnn_phase", "bf_round")
+GUARD_KERNEL_RE = r"\b{name}_kernel\b"  # the kernels' C++ symbols in a profile
+
+
+def state_leaves(state) -> dict:
+    """path -> tensor for every leaf of a NetworkState or LayerState."""
+    from repro_torch.analysis.strict import walk
+
+    return dict(walk(state))
+
+
+def states_equal(torch, a, b) -> bool:
+    la, lb = state_leaves(a), state_leaves(b)
+    return la.keys() == lb.keys() and all(torch.equal(la[k], lb[k]) for k in la)
+
+
+def guard_fits(core, net, split, cfg, fit_kw, strict, dev):
+    """Compile on the card, then GUARD_ROUNDS x (fit, evaluate): the
+    accuracies and every epoch's wall seconds.  Evaluated at the training
+    batch size, so the projection meets the shape training gave it."""
+    x, y, xt, yt = split
+    compiled = net.compile(core.ExecutionConfig(device=str(dev), strict=strict, **cfg))
+    accs, epochs = [], []
+    for _ in range(GUARD_ROUNDS):
+        result = compiled.fit((x, y), **fit_kw)
+        epochs += [h["seconds"] for h in result.history if "epoch" in h]
+        accs.append(compiled.evaluate((xt, yt), batch_size=B))
+    return compiled, accs, epochs
+
+
+def strict_fits(torch, core, net, split, fit_kw, paths, card, dev):
+    """8a: each Listing-1 path twice without strict and once with it; the
+    strict run's sentinel must have watched something, every entry at 1,
+    and its state and accuracies must equal the plain run's bit for bit
+    (phase 4's rule, accuracy within 0.03, when two plain runs already
+    differ)."""
+    plain_nets, strict_nets, report = {}, {}, {}
+    for path, (cfg, extra) in paths.items():
+        kw = {**fit_kw, **extra}
+        plain, acc_p, _ = guard_fits(core, net, split, cfg, kw, False, dev)
+        again, acc_a, ep_a = guard_fits(core, net, split, cfg, kw, False, dev)
+        strict, acc_s, ep_s = guard_fits(core, net, split, cfg, kw, True, dev)
+        sizes = strict._sentinel.sizes()
+        check(bool(sizes), f"8a {path}: the sentinel watched nothing")
+        check(all(v == 1 for v in sizes.values()), f"8a {path}: sentinel sizes {sizes}")
+        check(dev.type != "cuda" or any(">" in k for k in sizes),
+              f"8a {path}: no kernel launch plan watched: {sizes}")
+        deterministic = states_equal(torch, plain.state, again.state) and acc_p == acc_a
+        if deterministic:
+            check(states_equal(torch, strict.state, plain.state),
+                  f"8a {path}: the strict state differs from the plain run's")
+            check(acc_s == acc_p, f"8a {path}: strict accuracy {acc_s} != plain {acc_p}")
+        else:
+            print(f"8a {path}: two plain runs differ ({acc_p} vs {acc_a}); phase 4's rule holds")
+            check(all(abs(a - b) <= 0.03 for a, b in zip(acc_s, acc_p)),
+                  f"8a {path}: strict accuracy {acc_s} vs plain {acc_p}: off by more than 0.03")
+        # The overhead against the second plain run, the first pays the
+        # path's first-call costs.
+        overhead = statistics.median(ep_s) - statistics.median(ep_a)
+        report[path] = dict(acc_plain=acc_p, acc_strict=acc_s, bitwise=deterministic,
+                            epoch_s_plain=statistics.median(ep_a),
+                            epoch_s_strict=statistics.median(ep_s),
+                            strict_overhead_s_per_epoch=overhead, sentinel=sizes)
+        print(f"8a [{card}] strict fit {path}: accuracy {acc_s} (plain {acc_p}, bit for bit "
+              f"{deterministic}); median epoch s plain={statistics.median(ep_a):.5f} "
+              f"strict={statistics.median(ep_s):.5f} overhead={overhead:.5f}; "
+              f"sentinel {json.dumps(sizes)}")
+        plain_nets[path], strict_nets[path] = plain, strict
+    return plain_nets, strict_nets, report
+
+
+def seeded_violations(torch, ops, ref, core, net, split, fit_kw, dev):
+    """8b: four seeded faults on a strict unfused network, each its typed
+    error: a .item() in a projection chunk's guarded dispatch, a hidden
+    trace moved to the CPU (the guard refuses it before anything runs: no
+    kernel and no plain version), a partial_fit with a new batch size, and
+    NaN in w."""
+    from repro_torch.analysis.strict import HostTransferError, NonFiniteError, RecompileError
+
+    x, y, xt, _ = split
+    compiled = net.compile(core.ExecutionConfig(device=str(dev), strict=True))
+    compiled.fit((x, y), **fit_kw)
+    seen = {}
+
+    def expect(name, error, fn):
+        try:
+            fn()
+        except error as e:
+            seen[name] = f"{type(e).__name__}: {str(e)[:160]}"
+            print(f"8b seeded {name}: {seen[name]}")
+            return
+        raise SmokeFailure(f"8b seeded {name}: no {error.__name__}")
+
+    layer = compiled.layers[0]
+    forward = layer.forward
+
+    def syncing_forward(state, xb):
+        out = forward(state, xb)
+        out.sum().item()
+        return out
+
+    layer.forward = syncing_forward  # the projection reads layer.forward at each chunk
+    try:
+        expect("item", HostTransferError, lambda: compiled.predict(xt.copy(), batch_size=B))
+    finally:
+        del layer.forward
+    good = compiled.state
+    s0 = good.layers[0]
+    away = "cpu" if dev.type == "cuda" else "meta"  # the meta device stands in off the card
+    compiled.state = good._replace(layers=(
+        s0._replace(marginals=s0.marginals._replace(cij=s0.marginals.cij.to(away))),
+    ) + good.layers[1:])
+    plain_runs = {"n": 0}
+    originals = {name: getattr(ref, name) for name in GUARD_KERNELS}
+
+    def counting(fn):
+        def run(*a, **k):
+            plain_runs["n"] += 1
+            return fn(*a, **k)
+        return run
+
+    for name, fn in originals.items():
+        setattr(ref, name, counting(fn))
+    ops.reset_launches()
+    try:
+        expect("cpu_leaf", HostTransferError, lambda: compiled.partial_fit((x, y), batch_size=B))
+    finally:
+        for name, fn in originals.items():
+            setattr(ref, name, fn)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(plain_runs["n"] == 0, f"8b cpu_leaf: {plain_runs['n']} plain-version runs")
+    check(not any(counts.values()), f"8b cpu_leaf: kernels launched {counts}")
+    compiled.state = good
+    expect("batch_size", RecompileError, lambda: compiled.partial_fit((x, y), batch_size=B // 2))
+    compiled = net.compile(core.ExecutionConfig(device=str(dev), strict=True))
+    compiled.fit((x, y), **fit_kw)
+    s0 = compiled.state.layers[0]
+    w = s0.w.clone()
+    w[0, 0] = float("nan")
+    compiled.state = compiled.state._replace(layers=(s0._replace(w=w),) + compiled.state.layers[1:])
+    expect("nan_w", NonFiniteError, lambda: compiled.partial_fit((x, y), batch_size=B))
+    return seen
+
+
+def thread_scoped(torch, dev):
+    """The guard's verdict belongs to the thread that dispatches: a caller
+    thread's read back while another thread's guard is open must not
+    raise, the guarded thread's own must."""
+    import threading
+
+    from repro_torch.analysis.strict import HostTransferError, dispatch_guard
+
+    t = torch.arange(1024, device=dev, dtype=torch.float32)
+    outcome = {}
+
+    def reader():
+        try:
+            outcome["mode"] = torch.cuda.get_sync_debug_mode()
+            outcome["value"] = t.sum().item()
+        except Exception as e:  # noqa: BLE001 - reported as the failure
+            outcome["error"] = repr(e)
+
+    with dispatch_guard(True, dev):
+        th = threading.Thread(target=reader)
+        th.start()
+        th.join(timeout=60)
+    check(not th.is_alive(), "8c: the reader thread hangs")
+    check("error" not in outcome, f"8c: a caller thread's read back raised: {outcome}")
+    check(outcome.get("mode") == 1, f"8c: the reader saw sync debug mode {outcome.get('mode')}")
+    try:
+        with dispatch_guard(True, dev):
+            t.sum().item()
+    except HostTransferError:
+        pass
+    else:
+        raise SmokeFailure("8c: a guarded thread's .item() did not raise")
+    check(torch.cuda.get_sync_debug_mode() == 0, "8c: the sync debug mode was not restored")
+    return outcome
+
+
+class ReadBack:
+    """A caller thread reading device tensors back in a loop while engine
+    threads dispatch under their guards: it must never raise."""
+
+    def __init__(self, torch, dev):
+        import threading
+
+        self.torch, self.t = torch, torch.arange(4096, device=dev, dtype=torch.float32)
+        self.reads = self.during_guard = 0
+        self.errors = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                mode = self.torch.cuda.get_sync_debug_mode()
+                self.t.sum().item()
+                self.reads += 1
+                self.during_guard += mode == 1
+            except Exception as e:  # noqa: BLE001 - reported as the failure
+                self.errors.append(repr(e))
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+        check(not self._thread.is_alive(), "8c: the read-back thread hangs")
+        check(not self.errors, f"8c: a caller thread's read back raised: {self.errors[:1]}")
+        check(self.reads > 0, "8c: the read-back thread read nothing")
+
+
+def async_round(service, items):
+    """One deterministic async round: every item queued before the engine
+    runs (so its micro-batches are the same in every run), then drained."""
+    service.start(run=False)
+    futures = [service.submit(item) for item in items]
+    service.start()
+    out = [f.result(timeout=600) for f in futures]
+    service.drain_and_stop()
+    return out
+
+
+def stable_sentinel(label, plan, before):
+    """The plan's sentinel after the second round: nothing grew past round
+    one (the sentinel would have raised), every plan-owned entry at most 1."""
+    sizes = plan._sentinel.sizes()
+    check(bool(sizes), f"8c {label}: the sentinel watched nothing")
+    check(sizes == before, f"8c {label}: sizes moved between rounds: {before} -> {sizes}")
+    return sizes
+
+
+def strict_serving(torch, plain_nets, strict_nets, split, card):
+    """8c: the batched and streaming plans through the async engine and the
+    continual lifecycle, each strict against a plain twin of the same state
+    (8a made them bit for bit equal), GUARD_ROUNDS rounds each, results
+    equal, the sentinel still after round one; a caller thread reads back
+    throughout."""
+    import numpy as np
+
+    from repro_torch.runtime import ContinualConfig, Feedback, ServiceConfig
+
+    x, y, xt, _ = split
+    dev = strict_nets["unfused_f32"].device
+    report = {"thread_scoped": thread_scoped(torch, dev)}
+    plain, strict = plain_nets["unfused_f32"], strict_nets["unfused_f32"]
+    rows = [xt[i] for i in range(GUARD_SERVE_ROWS)]
+    with ReadBack(torch, dev) as rb:
+        outs, sizes = {}, None
+        for name, c in (("plain", plain), ("strict", strict)):
+            svc = c.serve(ServiceConfig(plan="batched", buckets=SERVE_BUCKETS, max_batch=64,
+                                        strict=name == "strict"))
+            outs[name] = [np.stack(async_round(svc, rows)) for _ in range(GUARD_ROUNDS)]
+            if name == "strict":
+                sizes = svc.plan._sentinel.sizes()
+                check(sizes.get("head") == 1, f"8c batched: head sizes {sizes}")
+        for r in range(GUARD_ROUNDS):
+            check(np.array_equal(outs["plain"][r], outs["strict"][r]),
+                  f"8c batched round {r}: strict scores differ from plain")
+        report["batched"] = dict(sentinel=sizes, rows=GUARD_SERVE_ROWS)
+
+        stream_out, stream_sizes = {}, None
+        for name, c in (("plain", plain), ("strict", strict)):
+            svc = c.serve(ServiceConfig(plan="streaming", max_batch=STREAM_BATCH,
+                                        strict=name == "strict"))
+            got, before = [], None
+            for r in range(GUARD_ROUNDS):
+                lo = r * GUARD_STREAM_ROWS
+                for i in range(lo, lo + GUARD_STREAM_ROWS):
+                    svc.feed(x[i])
+                svc.flush()
+                got += async_round(svc, [xt[i] for i in range(lo, lo + GUARD_STREAM_INFERS)])
+                if name == "strict" and r == 0:
+                    before = svc.plan._sentinel.sizes()
+            state = svc.plan.session.close()
+            stream_out[name] = (np.stack(got), state)
+            if name == "strict":
+                stream_sizes = stable_sentinel("streaming", svc.plan, before)
+        check(np.array_equal(stream_out["plain"][0], stream_out["strict"][0]),
+              "8c streaming: strict activations differ from plain")
+        check(states_equal(torch, stream_out["plain"][1], stream_out["strict"][1]),
+              "8c streaming: strict session state differs from plain")
+        report["streaming"] = dict(sentinel=stream_sizes)
+
+        acks, cont_sizes = {}, None
+        for name, c in (("plain", plain), ("strict", strict)):
+            svc = c.serve(ServiceConfig(strict=name == "strict",
+                                        continual=ContinualConfig(**GUARD_CONT_KW)))
+            plan, got, before = svc.plan, [], None
+            for r in range(GUARD_ROUNDS):
+                for k in range(r * GUARD_CONT_ROWS, (r + 1) * GUARD_CONT_ROWS):
+                    got.append(plan.learn(Feedback(x[k], int(y[k]))))
+                    if k % GUARD_CONT_INFER_EVERY == 0:
+                        got.append(plan.infer(xt[k]).cpu().numpy())
+                if name == "strict" and r == 0:
+                    before = plan._sentinel.sizes()
+            acks[name] = got
+            if name == "strict":
+                reg = plan._strict_registry()
+                check({"continual_update", "continual_view", "continual_prefix"} <= set(reg),
+                      f"8c continual: registry {sorted(reg)}")
+                check(any(n.startswith("continual_merge[") for n in reg),
+                      f"8c continual: no merge watched: {sorted(reg)}")
+                check(plan.metrics.merges.value >= 1, "8c continual: no merge ran")
+                cont_sizes = stable_sentinel("continual", plan, before)
+        for a, b in zip(acks["plain"], acks["strict"]):
+            same = np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b
+            check(same, f"8c continual: strict {b} != plain {a}")
+        report["continual"] = dict(sentinel=cont_sizes, results=len(acks["strict"]))
+    report["read_back"] = dict(reads=rb.reads, during_a_guard=rb.during_guard)
+    print(f"8c [{card}] strict serving: batched {json.dumps(report['batched'])}; streaming "
+          f"{json.dumps(report['streaming'])}; continual {json.dumps(report['continual'])}; "
+          f"caller read backs {rb.reads} ({rb.during_guard} while a guard was open)")
+    return report
+
+
+def strict_decoder(torch, dev, card, cfg=None):
+    """8c: gemma3-1b at its published width, cut to depth 6 (phase 7b's
+    twin, to keep the time limit), bf16, through serve_model with strict
+    on and off: two rounds of the same requests, tokens equal, the
+    sentinel still after round one, fused_step and each prefill bucket at
+    one signature."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime import Request, ServiceConfig, serve_model
+
+    cfg = cfg if cfg is not None else get_config(DEC_ARCH)
+    cfg = dataclasses.replace(cfg, n_layers=GUARD_DEC_LAYERS)
+    model = build_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in GUARD_DEC_LENGTHS]
+    tokens, sizes, before = {}, None, None
+    for name in ("plain", "strict"):
+        svc = serve_model(model, ServiceConfig(max_batch=len(prompts), max_seq=DEC_MAX_SEQ,
+                                               buckets=DEC_BUCKETS, strict=name == "strict"))
+        rounds = []
+        for r in range(GUARD_ROUNDS):
+            done = svc.generate(dec_requests(Request, prompts, GUARD_DEC_NEW))
+            rounds.append([c.tokens for c in sorted(done, key=lambda c: c.rid)])
+            if name == "strict" and r == 0:
+                before = svc.plan._sentinel.sizes()
+        tokens[name] = rounds
+        if name == "strict":
+            sizes = stable_sentinel("decode", svc.plan, before)
+            check(sizes.get("fused_step") == 1, f"8c decode: sizes {sizes}")
+            check(all(v == 1 for k, v in sizes.items() if k.startswith("prefill[")),
+                  f"8c decode: sizes {sizes}")
+    for r in range(GUARD_ROUNDS):
+        for a, b in zip(tokens["plain"][r], tokens["strict"][r]):
+            check(np.array_equal(a, b), f"8c decode round {r}: strict tokens {b} != plain {a}")
+    del model
+    print(f"8c [{card}] strict decode, gemma3-1b full width at depth {GUARD_DEC_LAYERS}: "
+          f"{len(prompts)} requests x {GUARD_ROUNDS} rounds, tokens equal; sentinel "
+          f"{json.dumps(sizes)}")
+    return dict(sentinel=sizes, depth=GUARD_DEC_LAYERS)
+
+
+def profile_kernels(path_to_trace):
+    """The CUDA kernels of a Chrome trace: the repository's by name (count
+    and summed device ms), every kernel's count and busy ms, and the
+    GUARD_GAPS longest gaps between consecutive kernels (the device idle,
+    waiting on the host), each with the host operator that filled most of
+    it."""
+    import re
+
+    with open(path_to_trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    ours = {}
+    for name in GUARD_KERNELS:
+        pattern = re.compile(GUARD_KERNEL_RE.format(name=name))
+        mine = [e for e in kernels if pattern.search(e["name"])]
+        ours[name] = dict(count=len(mine), device_ms=sum(e["dur"] for e in mine) / 1e3)
+    host_ops = [e for e in events if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+
+    def host_op_in(t0, t1):
+        """The host operator that overlaps [t0, t1] the longest, and by how
+        much (a numpy gather between operators shows as no operator)."""
+        best, name = 0.0, None
+        for e in host_ops:
+            overlap = min(t1, e["ts"] + e["dur"]) - max(t0, e["ts"])
+            if overlap > best:
+                best, name = overlap, e["name"]
+        return name, best
+
+    gaps = []
+    for a, b in zip(kernels, kernels[1:]):
+        t0 = a["ts"] + a["dur"]
+        gaps.append((b["ts"] - t0, t0, a["name"][:60], b["name"][:60]))
+    gaps.sort(reverse=True)
+    top = []
+    for gap, t0, after, before in gaps[:GUARD_GAPS]:
+        op, overlap = host_op_in(t0, t0 + gap)
+        top.append(dict(gap_us=gap, host_op=op, host_op_us=overlap, after=after, before=before))
+    span = (kernels[-1]["ts"] + kernels[-1]["dur"] - kernels[0]["ts"]) if kernels else 0.0
+    busy = sum(e["dur"] for e in kernels)
+    return dict(ours=ours, kernels=len(kernels), busy_ms=busy / 1e3, span_ms=span / 1e3,
+                idle_share=(1 - busy / span) if span else None, top_gaps_us=top)
+
+
+def profiled_fit(torch, ops, core, net, split, cfg, fit_kw, outdir, dev):
+    """compile, then fit under ExecutionConfig(profile_dir=), the launch
+    counters reset between the two; returns (launch counts, accuracy,
+    the parsed profile)."""
+    x, y, xt, yt = split
+    compiled = net.compile(core.ExecutionConfig(device=str(dev), profile_dir=outdir, **cfg))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    compiled.fit((x, y), **fit_kw)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    acc = compiled.evaluate((xt, yt), batch_size=B)
+    check(compiled.last_profile is not None and Path(compiled.last_profile).exists(),
+          "8d: profile_dir wrote no trace")
+    return counts, acc, profile_kernels(compiled.last_profile)
+
+
+def profiles_and_plain(torch, ops, core, net, split, fit_kw, paths, plain_nets, card, dev):
+    """8d: an unfused and a fused fit under profile_dir, each kernel of the
+    repository in the trace as often as its launch counter says; 8e: the
+    unfused fit with use_kernels=False on the card, no launch of ours in
+    the counters or the trace, accuracy within 0.03 of the kernel path."""
+    outdir = str(ROOT / "chiprun_out" / "profiles")
+    report, launched = {}, {}
+    for path in ("unfused_f32", "fused_bf16"):
+        counts, acc, prof = profiled_fit(torch, ops, core, net, split, paths[path][0], fit_kw,
+                                         outdir, dev)
+        if not any(prof["ours"][k]["count"] for k in GUARD_KERNELS) and prof["kernels"] == 0:
+            raise SmokeFailure(f"8d {path}: the profile recorded no device activity")
+        for name in GUARD_KERNELS:
+            check(prof["ours"][name]["count"] == counts[name],
+                  f"8d {path}: {name} {prof['ours'][name]['count']} times in the profile, "
+                  f"{counts[name]} by the counter")
+        launched[f"guard_profile/{path}"] = counts
+        report[path] = dict(prof, launches=counts, acc=acc)
+        print(f"8d [{card}] profile_dir fit {path}: "
+              + " ".join(f"{k}={v['count']}x {v['device_ms']:.3f}ms" for k, v in prof["ours"].items())
+              + f"; all kernels {prof['kernels']} busy {prof['busy_ms']:.3f} ms of a "
+              f"{prof['span_ms']:.3f} ms span (idle share {prof['idle_share']}); top gaps "
+              f"{json.dumps(prof['top_gaps_us'])}")
+    counts, acc, prof = profiled_fit(torch, ops, core, net, split,
+                                     dict(use_kernels=False), fit_kw, outdir, dev)
+    check(not any(counts.values()), f"8e use_kernels=False: launches {counts}")
+    check(not any(v["count"] for v in prof["ours"].values()),
+          f"8e use_kernels=False: kernels of ours in the profile {prof['ours']}")
+    kernel_acc = plain_nets["unfused_f32"].evaluate((split[2], split[3]), batch_size=B)
+    check(abs(acc - kernel_acc) <= 0.03,
+          f"8e use_kernels=False: accuracy {acc} vs the kernel path's {kernel_acc}")
+    report["use_kernels_false"] = dict(acc=acc, kernel_path_acc=kernel_acc, kernels=prof["kernels"],
+                                       busy_ms=prof["busy_ms"])
+    launched["guard_plain"] = counts
+    print(f"8e [{card}] use_kernels=False on the card: accuracy {acc:.4f} (kernel path "
+          f"{kernel_acc:.4f}), no launch of ours; {prof['kernels']} device kernels, "
+          f"busy {prof['busy_ms']:.3f} ms")
+    return launched, report
+
+
+def hot_path_guard(torch, ops, ref, core, data, policy, card, dev, dec_cfg=None):
+    """Phase 8: the hot-path guard on the card at MNIST width (8a strict
+    fits, 8b seeded faults, 8c strict serving and decoding with a caller
+    thread reading back, 8d profile_dir, 8e use_kernels=False).  ``dev``
+    and ``dec_cfg`` (the decoder's config) let a rehearsal on the CPU run
+    it at a small width."""
+    print(f"phase 8 (the hot-path guard) on {card}")
+    net, split, fit_kw, paths = listing1(core, data, policy)
+    plain_nets, strict_nets, fits = strict_fits(torch, core, net, split, fit_kw, paths, card, dev)
+    seeded = seeded_violations(torch, ops, ref, core, net, split, fit_kw, dev)
+    serving = strict_serving(torch, plain_nets, strict_nets, split, card)
+    serving["decode"] = strict_decoder(torch, dev, card, dec_cfg)
+    launched, profiles = profiles_and_plain(torch, ops, core, net, split, fit_kw, paths,
+                                            plain_nets, card, dev)
+    return launched, dict(strict_fits=fits, seeded=seeded, serving=serving, profiles=profiles)
+
+
 def main() -> int:
     import torch
 
@@ -2615,7 +3141,14 @@ def main() -> int:
     dec_report["wall_s"] = time.perf_counter() - t0
     print(f"phase 7 (the dense decoder) wall: {dec_report['wall_s']:.2f} s")
 
-    # Phase 8: the records.
+    # Phase 8: the hot-path guard: strict mode, profile_dir, use_kernels=False.
+    t0 = time.perf_counter()
+    guard_launches, guard_report = hot_path_guard(torch, ops, ref, core, data, policy, card, dev)
+    launches.update(guard_launches)
+    guard_report["wall_s"] = time.perf_counter() - t0
+    print(f"phase 8 (the hot-path guard) wall: {guard_report['wall_s']:.2f} s")
+
+    # Phase 9: the records.
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in launches.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -2640,6 +3173,7 @@ def main() -> int:
         "serving": served,
         "fabric": fabric_report,
         "decoder": dec_report,
+        "hot_path_guard": guard_report,
     }))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,18 @@ keeps the traces in bf16; ``precision="bf20"`` (any of bf14 ... bf28)
 rounds every algebraic stage of the datapath, the paper's FPGA study.
 ``fit(readout="sgd")`` trains the hybrid AdamW readout head on the frozen
 hidden codes; ``trace=TraceConfig()`` records ``train.<phase>`` spans on
-``compiled.tracer``.  Options of the reference that are not ported yet
-(``trainer``, ``use_kernels``, ``strict``, ``profile_dir``) are absent, so
-passing one raises a ``TypeError`` that names it.
+``compiled.tracer``.  ``use_kernels=False`` runs the kernels' plain
+versions on the card (an explicit choice; None, the default, lets the
+device decide, and on the CPU every setting runs the plain versions: no
+kernel runs there).  ``strict=True`` turns on the hot-path guard
+(:mod:`repro_torch.analysis.strict`): every epoch, projection chunk and
+predict chunk dispatches under a guard that refuses a host sync or an
+off-device input, a recompile sentinel watches every callable the network
+builds, and the BCPNN state is checked finite after every epoch.
+``profile_dir=`` runs each ``fit`` under ``torch.profiler`` and writes a
+Chrome trace there.  The reference's ``trainer`` (distribution) is not
+ported yet: it is absent, so passing it raises a ``TypeError`` that names
+it.
 
 ``predict``, the batched serving plan and the streaming sessions share one
 forward (:meth:`CompiledNetwork._forward_fn`) and one readout head
@@ -30,14 +39,17 @@ of :mod:`repro_torch.runtime.continual`.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import os
 import time
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.analysis.strict import counted, dispatch_guard
 from repro_torch.core.layers import DenseLayer, LayerState, StructuralPlasticityLayer
 from repro_torch.core.learning import full_f32_matmul
 from repro_torch.runtime.activations import store_for
@@ -110,13 +122,34 @@ class ExecutionConfig:
                  ... "bf28", every algebraic stage rounded) and/or the
                  quantized state tier (``PrecisionPolicy.named("fp32",
                  state_format="bf16")``).
+    use_kernels: None (default) leaves every layer's own setting, whose
+                 default lets the device decide (kernels on the card, plain
+                 versions on the CPU); False runs the plain versions on the
+                 card too, an explicit choice that the port never makes for
+                 the caller; True asks for the kernels.  On the CPU every
+                 setting runs the plain versions: no kernel runs there.
     fused_phase: train each hidden batch in one ``bcpnn_phase`` launch
                  (forward, softmax and update); composes with the state
-                 tier.
+                 tier, not with ``use_kernels=False``.
+    strict:      the hot-path guard (``repro_torch.analysis.strict``):
+                 every epoch, projection chunk and predict chunk runs under
+                 ``dispatch_guard`` (no host sync in the dispatching thread,
+                 every leaf a tensor on the device), a RecompileSentinel
+                 asserts that every callable the network builds meets one
+                 input signature (and, on the card, one launch plan per
+                 kernel) across repeated fit/partial_fit/predict calls, and
+                 the BCPNN state is checked finite after every epoch.  The
+                 guards observe only: results are bit for bit those of the
+                 same run without them.
     trace:       a ``repro_torch.runtime.trace.TraceConfig``: the compiled
                  network owns a Tracer and the phase programs record
                  ``train.<phase>`` spans (host vs device-wait split) on the
                  training trace id.  None (default) builds no tracer.
+    profile_dir: when set, ``fit()`` runs its whole phase program under
+                 ``torch.profiler.profile`` (CPU activity, and CUDA
+                 activity on a CUDA device) and writes a Chrome trace into
+                 this directory (``compiled.last_profile`` names it): the
+                 device-level view beside the host-side phase spans.
     """
 
     engine: str = "scan"
@@ -125,8 +158,11 @@ class ExecutionConfig:
     cache_activations: bool = True
     activation_budget_mb: float = 512.0
     precision: Any = None
+    use_kernels: Optional[bool] = None
     fused_phase: bool = False
+    strict: bool = False
     trace: Any = None
+    profile_dir: Optional[str] = None
 
     def __post_init__(self):
         if self.trace is not None:
@@ -142,6 +178,11 @@ class ExecutionConfig:
             from repro_torch.precision.policy import PrecisionPolicy
 
             object.__setattr__(self, "precision", PrecisionPolicy.named(self.precision))
+        if self.fused_phase and self.use_kernels is False:
+            raise ValueError(
+                "fused_phase=True needs the bcpnn_phase kernel; drop use_kernels=False "
+                "(or leave it None)"
+            )
         if self.fused_phase and self.precision is not None and not self.precision.fmt.is_identity:
             raise ValueError(
                 "fused_phase is incompatible with a reduced-precision datapath "
@@ -150,14 +191,16 @@ class ExecutionConfig:
             )
 
     def bind_layer(self, layer):
-        """A copy of ``layer`` with this config's precision and fused-phase
-        choices bound into its spec (the declarative layer is never
-        mutated).  Only hidden layers get ``fused_phase``: the readout's
-        post-activations are clamped to labels, so it has no forward and
-        softmax to fuse into its update."""
+        """A copy of ``layer`` with this config's precision, kernel and
+        fused-phase choices bound into its spec (the declarative layer is
+        never mutated).  Only hidden layers get ``fused_phase``: the
+        readout's post-activations are clamped to labels, so it has no
+        forward and softmax to fuse into its update."""
         overrides = {}
         if self.precision is not None:
             overrides["precision"] = self.precision
+        if self.use_kernels is not None:
+            overrides["use_kernels"] = self.use_kernels
         if self.fused_phase and isinstance(layer, StructuralPlasticityLayer):
             overrides["fused_phase"] = True
         if not overrides:
@@ -206,11 +249,13 @@ class CompiledNetwork:
 
         states = [s.to(self.device) for s in network.states]
         self.state = NetworkState(layers=tuple(
-            s._replace(marginals=quantize_marginals(s.marginals, layer.spec.precision))
+            s._replace(marginals=quantize_marginals(
+                s.marginals, layer.spec.precision, layer.spec.use_kernels))
             for layer, s in zip(self.layers, states)
         ))
         self.plan: ExecutionPlan = make_plan(
-            self.config.engine, self.layers, self.device, donate=self.config.donate
+            self.config.engine, self.layers, self.device, donate=self.config.donate,
+            strict=self.config.strict,
         )
         self.activations = store_for(self.layers, self.config, self.device)
         self._rng = np.random.default_rng(network.seed)
@@ -226,6 +271,17 @@ class CompiledNetwork:
         # this compiled network opens (see streaming()).
         self._stream_train_cells: dict = {}
         self._stream_infer_cells: dict = {}
+        # Strict mode (repro_torch.analysis.strict): a recompile sentinel
+        # over every callable this network builds and a finite guard the
+        # phase programs call after each epoch; None unless strict.
+        self._sentinel = None
+        self._finite_check = None
+        if self.config.strict:
+            from repro_torch.analysis.strict import RecompileSentinel, finite_checker
+
+            self._sentinel = RecompileSentinel()
+            self._finite_check = finite_checker()
+        self.last_profile: Optional[str] = None  # the newest profile_dir trace
         from repro_torch.runtime.trace import build_tracer
 
         self.tracer = build_tracer(self.config.trace)
@@ -239,11 +295,25 @@ class CompiledNetwork:
         return self.plan.readout_layer
 
     # -------------------------------------------------------------- forward
+    def _strict_check(self, where: str) -> None:
+        """Strict-mode recompile audit: (re)watch every callable this
+        network owns (the plan's registry grows as phases run), then assert
+        none met a new signature.  No-op unless ``config.strict``."""
+        if self._sentinel is None:
+            return
+        self._sentinel.watch_all(self.plan.callables, prefix="plan.")
+        self._sentinel.watch("forward", self._fwd)
+        self._sentinel.watch("head", self._head)
+        if self.activations is not None:
+            for (j, k), fn in self.activations.projections().items():
+                self._sentinel.watch(f"proj[{j}->{k}]", fn)
+        self._sentinel.check(where)
+
     def _forward_fn(self) -> Callable:
         """The full-network forward, built once per compile (see
         :func:`build_forward`)."""
         if self._fwd is None:
-            self._fwd = build_forward(self.layers)
+            self._fwd = counted(build_forward(self.layers), self.config.strict)
         return self._fwd
 
     def _head_fn(self) -> Callable:
@@ -251,30 +321,35 @@ class CompiledNetwork:
         compile: the project-once mirror of :meth:`_forward_fn`, sharing
         the one :func:`build_head` definition."""
         if self._head is None:
-            self._head = build_head(self.layers)
+            self._head = counted(build_head(self.layers), self.config.strict)
         return self._head
 
     def predict(self, x, batch_size: int = 1024) -> torch.Tensor:
         """Class scores on the compiled device.  With the activation store
         the hidden stack runs through the same level-H projection training
-        used, so only the readout head runs per call."""
+        used, so only the readout head runs per call.  Each chunk is staged
+        on the device before its guarded dispatch."""
         states, readout = self.state.layers, self.state.readout
+        strict, dev = self.config.strict, self.device
         outs = []
         if self.activations is not None and self.hidden_layers:
-            h = self.activations.level(len(self.hidden_layers), list(states), x, chunk=batch_size)
-            head = self._head_fn()
-            for i in range(0, h.shape[0], batch_size):
-                outs.append(head(states, readout, rows_to(h, i, i + batch_size, self.device)))
+            src = self.activations.level(len(self.hidden_layers), list(states), x, chunk=batch_size)
+            fn = self._head_fn()
         else:
-            fwd = self._forward_fn()
-            for i in range(0, x.shape[0], batch_size):
-                outs.append(fwd(states, readout, rows_to(x, i, i + batch_size, self.device)))
+            src, fn = x, self._forward_fn()
+        for i in range(0, src.shape[0], batch_size):
+            xb = rows_to(src, i, i + batch_size, dev)
+            with dispatch_guard(strict, dev, {"states": states, "readout": readout, "xb": xb}):
+                outs.append(fn(states, readout, xb))
+        self._strict_check("predict")
         return torch.cat(outs)
 
     def evaluate(self, dataset, batch_size: int = 1024) -> float:
         """Classification accuracy (argmax over output units)."""
         x, y = dataset
-        pred = self.predict(x, batch_size=batch_size).argmax(dim=-1).cpu().numpy()
+        scores = self.predict(x, batch_size=batch_size)
+        # torchlint: allow[TL001] reason=accuracy is a host-side API result; one read back per evaluate
+        pred = scores.argmax(dim=-1).cpu().numpy()
         return float(np.mean(pred == np.asarray(y)))
 
     # ------------------------------------------------------------- training
@@ -296,10 +371,12 @@ class CompiledNetwork:
 
         t0 = time.perf_counter()
         history: List[dict] = []
-        self._run(
-            dataset, epochs_hidden, epochs_readout, batch_size, readout, readout_lr,
-            shuffle, verbose, history, reset_readout=True,
-        )
+        with self._profiled():
+            self._run(
+                dataset, epochs_hidden, epochs_readout, batch_size, readout, readout_lr,
+                shuffle, verbose, history, reset_readout=True,
+            )
+        self._strict_check("fit")
         return FitResult(
             epochs_hidden=epochs_hidden,
             epochs_readout=epochs_readout,
@@ -329,6 +406,7 @@ class CompiledNetwork:
             dataset, 1, 1 if readout is not None else 0, batch_size,
             readout or "bcpnn", readout_lr, shuffle, verbose, history, reset_readout=False,
         )
+        self._strict_check("partial_fit")
         return FitResult(
             epochs_hidden=1,
             epochs_readout=1 if readout is not None else 0,
@@ -336,6 +414,30 @@ class CompiledNetwork:
             wall_time_s=time.perf_counter() - t0,
             history=history,
         )
+
+    @contextlib.contextmanager
+    def _profiled(self):
+        """``torch.profiler`` around a fit when ``config.profile_dir`` is
+        set: CPU activity, and CUDA activity on a CUDA device (the
+        repository's kernels appear under their C++ symbols), exported as
+        a Chrome trace into ``profile_dir`` on exit.  The profiler's stop
+        synchronises, outside every guard."""
+        if self.config.profile_dir is None:
+            yield
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            yield
+        path = os.path.join(
+            self.config.profile_dir, f"fit-{os.getpid()}-{time.time_ns()}.pt.trace.json"
+        )
+        prof.export_chrome_trace(path)
+        self.last_profile = path
 
     def _run(
         self, dataset, epochs_hidden, epochs_readout, batch_size, readout,
@@ -485,6 +587,7 @@ class CompiledNetwork:
             train_cells=train_lru,
             infer_cells=infer_lru,
             on_close=adopt,
+            strict=self.config.strict,
         )
 
     # -------------------------------------------------------------- serving

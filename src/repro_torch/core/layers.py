@@ -12,7 +12,9 @@ the paper's Listing 1:
   post-activations clamped to one-hot labels.
 
 The hot ops go through ``repro_torch.kernels.ops``, which picks the Hopper
-kernels for CUDA tensors and their plain versions for CPU tensors.  A spec
+kernels for CUDA tensors and their plain versions for CPU tensors; a spec
+with ``use_kernels=False`` runs the plain versions on the card as well, by
+the caller's explicit choice (see :class:`BCPNNLayerSpec`).  A spec
 with ``fused_phase`` trains each hidden batch in the one-launch
 ``bcpnn_phase`` kernel; a ``precision`` policy with a ``state_format``
 keeps the traces in the quantized state tier; a policy with a reduced
@@ -84,8 +86,22 @@ class BCPNNLayerSpec:
     # One-launch training: forward + softmax + EWMA + weights in the
     # bcpnn_phase kernel.  Composes with the quantized state tier.
     fused_phase: bool = False
+    # Kernel or plain version on the card.  None (the default) lets the
+    # device decide: CUDA tensors launch the Hopper kernels, CPU tensors
+    # run the plain versions.  The reference defaults to False because its
+    # kernels are Pallas kernels for the TPU, run in interpret mode
+    # elsewhere; here the kernels are the card's fast path and the plain
+    # versions its slow twin, so the default keeps the kernels on the card.
+    # False runs the plain versions on the card too (an explicit choice,
+    # never a fallback); True asks for the kernels, which only a card has,
+    # so on the CPU every setting runs the plain versions.
+    use_kernels: Optional[bool] = None
 
     def __post_init__(self):
+        if self.fused_phase and self.use_kernels is False:
+            raise ValueError(
+                "fused_phase=True needs the bcpnn_phase kernel; drop use_kernels=False"
+            )
         if self.fused_phase and _datapath_policy(self) is not None:
             raise ValueError(
                 "fused_phase is incompatible with a reduced-precision datapath "
@@ -137,12 +153,15 @@ def _forward(
         from repro_torch.precision.policy import quantized_forward
 
         return quantized_forward(
-            x, state.w, state.b, spec.post, spec.precision, mask, gain=spec.gain
+            x, state.w, state.b, spec.post, spec.precision, mask, gain=spec.gain,
+            use_kernels=spec.use_kernels,
         )
-    s = ops.masked_matmul(x, state.w, state.b, mask=mask)
+    s = ops.masked_matmul(x, state.w, state.b, mask=mask, use_kernels=spec.use_kernels)
     if spec.gain != 1.0:
         s = s * spec.gain
-    return ops.hcu_softmax(s, n_hcu=spec.post.n_hcu, n_mcu=spec.post.n_mcu)
+    return ops.hcu_softmax(
+        s, n_hcu=spec.post.n_hcu, n_mcu=spec.post.n_mcu, use_kernels=spec.use_kernels
+    )
 
 
 def _learn(
@@ -160,11 +179,13 @@ def _learn(
             from repro_torch.precision.policy import quantized_learning_cycle
 
             marg, w, b = quantized_learning_cycle(
-                marg, ai, aj, spec.lam, datapath, spec.k_b, mask=mask
+                marg, ai, aj, spec.lam, datapath, spec.k_b, mask=mask,
+                use_kernels=spec.use_kernels,
             )
         else:
             marg, w, b = ops.bcpnn_update(
-                marg, ai, aj, lam=spec.lam, k_b=spec.k_b, mask=mask, state_format=sfmt
+                marg, ai, aj, lam=spec.lam, k_b=spec.k_b, mask=mask, state_format=sfmt,
+                use_kernels=spec.use_kernels,
             )
     return LayerState(
         marginals=marg, w=w, b=b, plast=state.plast, step=state.step + 1,
@@ -211,10 +232,11 @@ class StructuralPlasticityLayer:
         init_jitter: float = 1.0,
         gain: float = 1.0,
         fused_phase: bool = False,
+        use_kernels: Optional[bool] = None,
     ):
         self.spec = BCPNNLayerSpec(
             pre=pre, post=post, lam=lam, k_b=k_b, n_cycles=n_cycles, gain=gain,
-            precision=precision, fused_phase=fused_phase,
+            precision=precision, fused_phase=fused_phase, use_kernels=use_kernels,
         )
         self.init_jitter = init_jitter
         self.fan_in = fan_in if fan_in is not None else pre.n_hcu
@@ -286,10 +308,11 @@ class DenseLayer:
         n_cycles: int = 1,
         precision=None,
         gain: float = 1.0,
+        use_kernels: Optional[bool] = None,
     ):
         self.spec = BCPNNLayerSpec(
             pre=pre, post=post, lam=lam, k_b=k_b, n_cycles=n_cycles, gain=gain,
-            precision=precision,
+            precision=precision, use_kernels=use_kernels,
         )
 
     def init(self, generator: Optional[torch.Generator] = None) -> LayerState:

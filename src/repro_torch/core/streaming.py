@@ -26,7 +26,12 @@ project-once ActivationStore keys its cache validity on.
 
 ``compiled.serve(ServiceConfig(plan="streaming", ...))`` opens one of these
 sessions behind the InferenceService front door
-(:class:`repro_torch.runtime.service.StreamingPlan`).
+(:class:`repro_torch.runtime.service.StreamingPlan`).  A ``strict`` session
+(a network compiled with ``strict=True``) makes each cell a
+signature-counting :class:`~repro_torch.analysis.strict.Counted`, which
+the serving plan's recompile sentinel watches through
+:meth:`_LRUCells.items`, and dispatches each cell under the dispatch guard,
+its rows staged on the device first.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from typing import Callable, Deque, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.strict import counted, dispatch_guard
 from repro_torch.core.layers import LayerState, StructuralPlasticityLayer
 
 
@@ -69,19 +75,19 @@ class _LRUCells:
             self.evictions += 1
 
     def items(self):
-        """(key, cell) pairs, LRU-first."""
+        """(key, cell) pairs, LRU-first (for the strict-mode sentinel)."""
         return list(self._d.items())
 
     def __len__(self) -> int:
         return len(self._d)
 
 
-def _train_cell(layer) -> Callable:
-    return lambda state, xb: layer.train_batch(state, xb)[0]
+def _train_cell(layer, strict: bool = False) -> Callable:
+    return counted(lambda state, xb: layer.train_batch(state, xb)[0], strict)
 
 
-def _infer_cell(layer) -> Callable:
-    return layer.forward
+def _infer_cell(layer, strict: bool = False) -> Callable:
+    return counted(layer.forward, strict)
 
 
 class StreamingSession:
@@ -97,8 +103,10 @@ class StreamingSession:
         train_cells: Optional[_LRUCells] = None,
         infer_cells: Optional[_LRUCells] = None,
         on_close: Optional[Callable] = None,
+        strict: bool = False,
     ):
         self.layer = layer
+        self.strict = strict
         self.state = state
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
@@ -152,9 +160,10 @@ class StreamingSession:
         b = xb.shape[0]
         cell = self._train_cells.get(b)
         if cell is None:
-            cell = _train_cell(self.layer)
+            cell = _train_cell(self.layer, self.strict)
             self._train_cells.put(b, cell)
-        self.state = cell(self.state, xb)
+        with dispatch_guard(self.strict, xb.device, {"state": self.state, "xb": xb}):
+            self.state = cell(self.state, xb)
         self.samples_seen += b
         self.flushes += 1
         self._last_flush = time.perf_counter()
@@ -165,9 +174,11 @@ class StreamingSession:
         xb = self._stage(np.asarray(sample)[None, :])
         cell = self._infer_cells.get(1)
         if cell is None:
-            cell = _infer_cell(self.layer)
+            cell = _infer_cell(self.layer, self.strict)
             self._infer_cells.put(1, cell)
-        return cell(self.state, xb)[0].cpu().numpy()
+        with dispatch_guard(self.strict, xb.device, {"state": self.state, "xb": xb}):
+            out = cell(self.state, xb)
+        return out[0].cpu().numpy()
 
     # ------------------------------------------------------------- plumbing
     @property

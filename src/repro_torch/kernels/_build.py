@@ -6,16 +6,25 @@ for ``sm_90a``; the sources share headers (``csrc/*.cuh``).  The libraries
 go to ``build/repro_torch_kernels/<hash>/`` at the repository root, keyed by
 a hash of every file under ``csrc/`` and the flags, and are loaded with
 ``ctypes``.  Importing this module builds nothing.
+
+Dispatch (:func:`use_plain`) goes by the device of the inputs and by the
+caller's explicit ``use_kernels`` choice; there is no fallback.  Every
+launch and launch-plan lookup is reported (:func:`record`) to the watched
+callable running in the calling thread, if any: strict mode's recompile
+sentinel (``repro_torch.analysis.strict``) reads those reports to tell
+which network's dispatch built a plan or loaded a library.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -28,6 +37,43 @@ NVCC_FLAGS = (
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_loaded_from: Optional[str] = None  # the build directory the libraries came from
+
+
+class _Sites(threading.local):
+    """The watched callables running in this thread, innermost last."""
+
+    def __init__(self):
+        self.stack: list = []
+
+
+_sites = _Sites()
+
+
+@contextlib.contextmanager
+def running(site) -> Iterator[None]:
+    """Report the launches made inside the block to ``site`` (an object
+    with ``note(kind, key)``), in this thread only."""
+    _sites.stack.append(site)
+    try:
+        yield
+    finally:
+        _sites.stack.pop()
+
+
+def record(kind: str, key) -> None:
+    """Tell the innermost watched callable of this thread (if any) that a
+    launch used ``key`` of ``kind``: a launch plan's shape key, or the
+    build directory its library was loaded from."""
+    stack = _sites.stack
+    if stack:
+        stack[-1].note(kind, key)
+
+
+def planned(kind: str, plan_fn: Callable, *key):
+    """``plan_fn(*key)``, the shape-keyed launch plan, recorded as ``kind``."""
+    record(kind, key)
+    return plan_fn(*key)
 
 
 def _nvcc() -> str:
@@ -84,9 +130,11 @@ def build_all() -> Dict[str, str]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    global _loaded_from
     for name in SOURCES:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+    _loaded_from = out_dir.name
     return logs
 
 
@@ -107,12 +155,17 @@ F32 = (torch.float32,)
 STATE = (torch.float32, torch.bfloat16)  # traces of the quantized state tier
 
 
-def on_cpu(name: str, *tensors, dtypes: Optional[Sequence[Tuple[torch.dtype, ...]]] = None) -> bool:
+def use_plain(
+    name: str, *tensors, dtypes: Optional[Sequence[Tuple[torch.dtype, ...]]] = None,
+    plain: bool = False,
+) -> bool:
     """Dispatch by the device of the inputs (``None`` entries are skipped).
 
-    True when every tensor lies on the CPU: the caller takes the plain
-    version.  False when all lie on one CUDA device, contiguous and of a
-    dtype the kernel takes: ``dtypes`` gives the allowed dtypes per
+    True when the caller takes the plain version: every tensor lies on the
+    CPU, or every tensor lies on one device and ``plain`` is set (the
+    caller's explicit ``use_kernels=False``, which runs the plain versions
+    on the card).  False when all lie on one CUDA device, contiguous and
+    of a dtype the kernel takes: ``dtypes`` gives the allowed dtypes per
     argument (default: :data:`F32` for every one).  The caller then
     launches the kernel.  Anything else raises; there is no fallback.
     """
@@ -126,7 +179,7 @@ def on_cpu(name: str, *tensors, dtypes: Optional[Sequence[Tuple[torch.dtype, ...
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs lie on several devices {sorted(map(str, devices))}")
     device = devices.pop()
-    if device.type == "cpu":
+    if device.type == "cpu" or plain:
         return True
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for tensors on {device}")
@@ -143,6 +196,7 @@ def on_cpu(name: str, *tensors, dtypes: Optional[Sequence[Tuple[torch.dtype, ...
 def launch(name: str, fn, device: torch.device, *args) -> None:
     """Call the C entry point ``fn`` on ``device``'s current stream, with the
     stream appended to ``args``; raise if the launch was refused."""
+    record("kernels.build", _loaded_from)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:

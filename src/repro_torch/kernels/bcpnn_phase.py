@@ -122,7 +122,7 @@ def bcpnn_phase(
     out_dtype = check_state(ci, cj, cij, state_mantissa, state_dtype)
     state = _build.STATE
     f32 = _build.F32
-    if _build.on_cpu(
+    if _build.use_plain(
         "bcpnn_phase", x, w, b, ci, cj, cij, mask,
         dtypes=(f32, f32, f32, state, state, state, f32),
     ):
@@ -160,7 +160,7 @@ def profile(
     it is a tool's, never the main path's, and is not counted in
     :data:`launches`."""
     out_dtype = check_state(ci, cj, cij, state_mantissa, state_dtype)
-    if _build.on_cpu(
+    if _build.use_plain(
         "bcpnn_phase", x, w, b, ci, cj, cij, mask,
         dtypes=(_build.F32,) * 3 + (_build.STATE,) * 3 + (_build.F32,),
     ):
@@ -196,7 +196,7 @@ def _launch(x, w, b, ci, cj, cij, lam, n_hcu, n_mcu, k_b, gain, mask, state_mant
             argtypes = _ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p]
             _profile_fn = _build.function("bcpnn_phase", "bcpnn_phase_f32_profile", argtypes)
         fn, extra = _profile_fn, (prof.data_ptr(),)
-    p = plan(bsz, f, n_hcu, n_mcu)
+    p = _build.planned("bcpnn_phase.plan", plan, bsz, f, n_hcu, n_mcu)
     dev = x.device
     aj = torch.empty((bsz, h), dtype=torch.float32, device=dev)
     ci_n = torch.empty(ci.shape, dtype=out_dtype, device=dev)

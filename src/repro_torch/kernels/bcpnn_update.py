@@ -141,6 +141,7 @@ def bcpnn_update(
     state_mantissa: Optional[int] = None,
     state_dtype: Optional[torch.dtype] = None,
     datapath_mantissa: Optional[int] = None,
+    plain: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """ai (B, F), aj (B, H), ci (F,), cj (H,), cij and mask (F, H) ->
     (ci', cj', cij', w, bias), all fresh tensors.
@@ -152,7 +153,8 @@ def bcpnn_update(
     ``datapath_mantissa`` every stage of the cycle is rounded to that many
     bits first (the datapath mode).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    unless ``plain`` asks for the plain version on the card.
     """
     out_dtype = check_state(ci, cj, cij, state_mantissa, state_dtype)
     if datapath_mantissa is not None and not (1 <= datapath_mantissa <= 23):
@@ -161,8 +163,9 @@ def bcpnn_update(
         )
     state = _build.STATE
     f32 = _build.F32
-    if _build.on_cpu(
-        "bcpnn_update", ai, aj, ci, cj, cij, mask, dtypes=(f32, f32, state, state, state, f32)
+    if _build.use_plain(
+        "bcpnn_update", ai, aj, ci, cj, cij, mask, dtypes=(f32, f32, state, state, state, f32),
+        plain=plain,
     ):
         ci_n, cj_n, cij_n, w, bias = ref.bcpnn_update(
             ai, aj, ci, cj, cij, lam, k_b=k_b, mask=mask, state_mantissa=state_mantissa,
@@ -182,7 +185,8 @@ def bcpnn_update(
         )
     return launch_planned(
         ai, aj, ci, cj, cij, lam, k_b, mask, state_mantissa, out_dtype,
-        plan(bsz, f, h, n_sm(ai.device)), datapath_mantissa=datapath_mantissa,
+        _build.planned("bcpnn_update.plan", plan, bsz, f, h, n_sm(ai.device)),
+        datapath_mantissa=datapath_mantissa,
     )
 
 

@@ -30,17 +30,18 @@ _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [
 _fn = None
 
 
-def bf_round(x: torch.Tensor, mantissa_bits: int) -> torch.Tensor:
+def bf_round(x: torch.Tensor, mantissa_bits: int, plain: bool = False) -> torch.Tensor:
     """``x`` rounded to ``mantissa_bits`` of mantissa, as a fresh f32 tensor
     of the same shape.  ``mantissa_bits == 23`` is an f32 copy without a
     launch; values outside [1, 23] raise.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    unless ``plain`` asks for the plain version on the card.
     """
     global launches, _fn
     if not (1 <= mantissa_bits <= 23):
         raise ValueError(f"mantissa_bits must be in [1,23], got {mantissa_bits}")
-    if _build.on_cpu("bf_round", x):
+    if _build.use_plain("bf_round", x, plain=plain):
         return ref.bf_round(x, mantissa_bits)
     if mantissa_bits == 23:
         return x.clone()

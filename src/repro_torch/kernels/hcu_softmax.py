@@ -29,19 +29,21 @@ _fn = None
 
 
 def hcu_softmax(
-    s: torch.Tensor, n_hcu: int, n_mcu: int, round_mantissa: Optional[int] = None
+    s: torch.Tensor, n_hcu: int, n_mcu: int, round_mantissa: Optional[int] = None,
+    plain: bool = False,
 ) -> torch.Tensor:
     """s (B, n_hcu*n_mcu) -> per-HCU softmax activations, same shape; with
     ``round_mantissa`` each RNE-rounded to that many mantissa bits.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    unless ``plain`` asks for the plain version on the card.
     """
     global launches, datapath_launches, _fn
     if s.ndim != 2 or s.shape[-1] != n_hcu * n_mcu:
         raise ValueError(f"hcu_softmax: bad shape {tuple(s.shape)} for layout ({n_hcu},{n_mcu})")
     if round_mantissa is not None and not (1 <= round_mantissa <= 23):
         raise ValueError(f"round_mantissa must be in [1, 23] or None, got {round_mantissa}")
-    if _build.on_cpu("hcu_softmax", s):
+    if _build.use_plain("hcu_softmax", s, plain=plain):
         return ref.hcu_softmax(s, n_hcu, n_mcu, round_mantissa=round_mantissa)
     if _fn is None:
         _fn = _build.function("hcu_softmax", "hcu_softmax_f32", _ARGTYPES)

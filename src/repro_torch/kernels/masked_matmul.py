@@ -134,18 +134,20 @@ def masked_matmul(
     mask: Optional[torch.Tensor] = None,
     round_mantissa: Optional[int] = None,
     gain: float = 1.0,
+    plain: bool = False,
 ) -> torch.Tensor:
     """x (M, K) @ (w (K, N) ∘ mask (K, N)) + b (N,) -> (M, N) f32; with
     ``round_mantissa`` the datapath's support, every stage rounded and the
     result times ``gain`` rounded again.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    unless ``plain`` asks for the plain version on the card.
     """
     if round_mantissa is None and gain != 1.0:  # the f32 product leaves the gain to its caller
         raise ValueError(f"gain={gain} needs the rounding mode (round_mantissa=)")
     if round_mantissa is not None and not (1 <= round_mantissa <= 23):
         raise ValueError(f"round_mantissa must be in [1, 23] or None, got {round_mantissa}")
-    if _build.on_cpu("masked_matmul", x, w, b, mask):
+    if _build.use_plain("masked_matmul", x, w, b, mask, plain=plain):
         return ref.masked_matmul(x, w, b, mask, round_mantissa=round_mantissa, gain=gain)
     m, k = x.shape
     if w.shape[0] != k or (mask is not None and mask.shape != w.shape):
@@ -159,7 +161,8 @@ def masked_matmul(
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    return launch_planned(x, w, b, mask, out, plan(m, k, n, n_sm(x.device)),
+    p = _build.planned("masked_matmul.plan", plan, m, k, n, n_sm(x.device))
+    return launch_planned(x, w, b, mask, out, p,
                           round_mantissa=round_mantissa, gain=gain)
 
 

@@ -1,9 +1,13 @@
 """The kernel layer the rest of the package calls (``core.layers``).
 
-Dispatch goes by the device of the input tensors: CPU tensors take each
-kernel's plain version (``ref.py``), CUDA tensors launch the hand-written
-Hopper kernel, and anything else raises.  There is no fallback and no
-``use_kernels`` flag: on the card the kernels are the path.
+Dispatch goes by the device of the input tensors and the caller's
+``use_kernels``: CPU tensors take each kernel's plain version (``ref.py``)
+whatever it says; CUDA tensors launch the hand-written Hopper kernel when
+it is None (the default: the device decides) or True, and run the plain
+version on the card when it is False, an explicit choice that is never
+made for the caller.  Anything else raises; there is no fallback.
+``bcpnn_phase`` exists only as a kernel on the card, so it takes no
+``use_kernels``.
 
 ``state_format`` (None, a format name or a ``BFFormat``) selects the
 quantized state tier: the new traces come back rounded to the format's
@@ -60,10 +64,13 @@ def _state_spec(state_format) -> Tuple[Optional[int], Optional[torch.dtype]]:
 
 
 def hcu_softmax(
-    s: torch.Tensor, n_hcu: int, n_mcu: int, round_mantissa: Optional[int] = None
+    s: torch.Tensor, n_hcu: int, n_mcu: int, round_mantissa: Optional[int] = None,
+    use_kernels: Optional[bool] = None,
 ) -> torch.Tensor:
     """``round_mantissa``: the datapath's softmax stage, rounded at the store."""
-    return _sk.hcu_softmax(s, n_hcu, n_mcu, round_mantissa=round_mantissa)
+    return _sk.hcu_softmax(
+        s, n_hcu, n_mcu, round_mantissa=round_mantissa, plain=use_kernels is False
+    )
 
 
 def masked_matmul(
@@ -73,15 +80,21 @@ def masked_matmul(
     mask: Optional[torch.Tensor] = None,
     round_mantissa: Optional[int] = None,
     gain: float = 1.0,
+    use_kernels: Optional[bool] = None,
 ) -> torch.Tensor:
     """``mask=None`` reaches the kernel as a null pointer: no ones matrix.
     ``round_mantissa``: the datapath's support stage, every operand, the
     sum and then the sum times ``gain`` rounded inside the kernel."""
-    return _mk.masked_matmul(x, w, b, mask=mask, round_mantissa=round_mantissa, gain=gain)
+    return _mk.masked_matmul(
+        x, w, b, mask=mask, round_mantissa=round_mantissa, gain=gain,
+        plain=use_kernels is False,
+    )
 
 
-def bf_round(x: torch.Tensor, mantissa_bits: int) -> torch.Tensor:
-    return _bfk.bf_round(x, mantissa_bits)
+def bf_round(
+    x: torch.Tensor, mantissa_bits: int, use_kernels: Optional[bool] = None
+) -> torch.Tensor:
+    return _bfk.bf_round(x, mantissa_bits, plain=use_kernels is False)
 
 
 def bcpnn_update(
@@ -93,6 +106,7 @@ def bcpnn_update(
     mask: Optional[torch.Tensor] = None,
     state_format=None,
     datapath_mantissa: Optional[int] = None,
+    use_kernels: Optional[bool] = None,
 ):
     """Full Alg.1 L11-16 cycle: returns (new MarginalState, w, b), matching
     ``learning.learning_cycle``.  The vector EWMAs, the bias and, with
@@ -105,6 +119,7 @@ def bcpnn_update(
     ci, cj, cij, w, bias = _bk.bcpnn_update(
         ai, aj, marginals.ci, marginals.cj, marginals.cij, lam, k_b=k_b, mask=mask,
         state_mantissa=mant, state_dtype=sdtype, datapath_mantissa=datapath_mantissa,
+        plain=use_kernels is False,
     )
     return MarginalState(ci=ci, cj=cj, cij=cij), w, bias
 

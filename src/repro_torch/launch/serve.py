@@ -41,7 +41,9 @@ enables per-request tracing and writes the Chrome ``trace_event`` dump;
 ``--journal FILE`` streams typed operational events as JSONL.
 
 Everything runs on ``--device`` (the card unless ``--device cpu``).
-``--strict`` is refused by name: strict mode comes with its own slice.
+``--strict`` turns on the hot-path guard (``repro_torch.analysis.strict``)
+in every mode: ``ServiceConfig(strict=True)`` for the service, and
+``ExecutionConfig(strict=True)`` for the ``--online`` classifier's fit.
 """
 from __future__ import annotations
 
@@ -200,7 +202,8 @@ def build_parser() -> argparse.ArgumentParser:
     size.add_argument("--full", dest="smoke", action="store_false",
                       help="the published architecture config, on one card")
     ap.add_argument("--strict", action="store_true",
-                    help="strict verification (not ported yet: refused by name)")
+                    help="strict verification: the dispatch guard on every plan dispatch "
+                         "plus a recompile sentinel over the plan's callables")
     ap.add_argument("--metrics-port", type=int, default=None,
                     help="serve /metrics (OpenMetrics), /metrics.json and /trace.json on "
                          "this port while requests run (0 = ephemeral port); the "
@@ -236,11 +239,6 @@ def load_model(cfg, device: torch.device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.strict:
-        raise SystemExit(
-            "--strict is not ported yet: strict mode (analysis/strict.py, "
-            "ServiceConfig(strict=)) comes with the port's strict slice"
-        )
     device = resolve_device(args.device)
     if args.online:
         serve_online(args, device)
@@ -273,6 +271,7 @@ def serve_one(model, cfg, args):
             policy=args.policy,
             max_queue=args.max_queue,
             async_mode=args.async_mode,
+            strict=args.strict,
             trace=trace_config(args),
         ),
     )
@@ -332,11 +331,12 @@ def serve_online(args, device):
     net = Network(seed=0).add(
         StructuralPlasticityLayer(layout, hidden, fan_in=16, lam=0.05, gain=4.0)
     ).add(DenseLayer(hidden, onehot_layout(n_classes), lam=0.05))
-    compiled = net.compile(ExecutionConfig(device=str(device)))
+    compiled = net.compile(ExecutionConfig(device=str(device), strict=args.strict))
     compiled.fit((xs, ds.y_train), epochs_hidden=4, epochs_readout=4, batch_size=64)
     service = compiled.serve(
         ServiceConfig(
             async_mode=True,
+            strict=args.strict,
             trace=trace_config(args),
             continual=ContinualConfig(
                 update_batch=4,
@@ -395,6 +395,7 @@ def serve_via_router(model, cfg, args):
             max_seq=args.max_seq,
             buckets=tuple(args.buckets) if args.buckets else None,
             max_queue=args.max_queue,
+            strict=args.strict,
             trace=trace_config(args),
             router=RouterConfig(tenants=tenants, routing=args.routing),
         ),

@@ -68,9 +68,10 @@ def state_spec(fmt: Optional[BFFormat]) -> Tuple[Optional[int], Optional[torch.d
     return mant, (torch.bfloat16 if mant <= 7 else None)
 
 
-def round_to(x: torch.Tensor, fmt: BFFormat) -> torch.Tensor:
+def round_to(x: torch.Tensor, fmt: BFFormat, use_kernels: Optional[bool] = None) -> torch.Tensor:
     """``x`` rounded (RNE) to the format's mantissa width, as f32.  CPU
-    tensors take the plain version, CUDA tensors the ``bf_round`` kernel.
+    tensors take the plain version, CUDA tensors the ``bf_round`` kernel
+    (its plain version with ``use_kernels=False``, see ``kernels.ops``).
 
     ``x`` is cast to a contiguous f32 tensor first, as the reference's
     ``astype`` does: datapath operands include bf16 traces and views."""
@@ -78,4 +79,4 @@ def round_to(x: torch.Tensor, fmt: BFFormat) -> torch.Tensor:
         return x.to(torch.float32)
     from repro_torch.kernels import ops
 
-    return ops.bf_round(x.to(torch.float32).contiguous(), fmt.mantissa_bits)
+    return ops.bf_round(x.to(torch.float32).contiguous(), fmt.mantissa_bits, use_kernels)

@@ -24,7 +24,10 @@ So a hidden batch on the card is three launches, and no rounded copy of a
 stage is written.  On the CPU each mode's plain version is the staged
 composition above, one ``bf_round`` a stage.  ``PrecisionPolicy.q`` and
 the state tier's rounding of the initial traces (:func:`quantize_marginals`)
-stay ``bf_round`` launches.
+stay ``bf_round`` launches.  What a layer calls (the support, the
+forward, the learning cycle, and :func:`quantize_marginals` at compile)
+takes ``use_kernels`` (None: the device decides; False: the plain
+versions, on the card too), as ``repro_torch.kernels.ops`` does.
 """
 from __future__ import annotations
 
@@ -62,13 +65,13 @@ class PrecisionPolicy:
     def has_state_tier(self) -> bool:
         return self.state_format is not None and not self.state_format.is_identity
 
-    def q_state(self, x: torch.Tensor) -> torch.Tensor:
+    def q_state(self, x: torch.Tensor, use_kernels: Optional[bool] = None) -> torch.Tensor:
         """Round and cast one tensor into the state storage tier (identity
         when no state tier is set)."""
         mant, dtype = state_spec(self.state_format)
         if mant is None:
             return x
-        y = round_to(x.to(torch.float32), self.state_format)
+        y = round_to(x.to(torch.float32), self.state_format, use_kernels)
         return y.to(dtype) if dtype is not None else y
 
 
@@ -79,6 +82,7 @@ def quantized_support(
     policy: PrecisionPolicy,
     mask: Optional[torch.Tensor] = None,
     gain: float = 1.0,
+    use_kernels: Optional[bool] = None,
 ) -> torch.Tensor:
     """Alg.1 L8 with every stage rounded: ``q(q(ai) @ q(w o mask) + q(b))``,
     then ``q(s * gain)`` when gain is not 1: one ``masked_matmul`` in its
@@ -88,7 +92,8 @@ def quantized_support(
     maps +-0 to +-0), so the kernel rounds the staged weights and then
     applies the mask, and no masked copy of w is written."""
     return ops.masked_matmul(
-        _f32(ai), w, b, mask=mask, round_mantissa=policy.fmt.mantissa_bits, gain=gain
+        _f32(ai), w, b, mask=mask, round_mantissa=policy.fmt.mantissa_bits, gain=gain,
+        use_kernels=use_kernels,
     )
 
 
@@ -100,13 +105,15 @@ def quantized_forward(
     policy: PrecisionPolicy,
     mask: Optional[torch.Tensor] = None,
     gain: float = 1.0,
+    use_kernels: Optional[bool] = None,
 ) -> torch.Tensor:
     """Alg.1 L8-9 with every stage rounded to ``policy.fmt``: the support
     (:func:`quantized_support`), then ``q`` of the per-HCU softmax, rounded
     in ``hcu_softmax``'s store."""
-    s = quantized_support(ai, w, b, policy, mask=mask, gain=gain)
+    s = quantized_support(ai, w, b, policy, mask=mask, gain=gain, use_kernels=use_kernels)
     return ops.hcu_softmax(
-        s, n_hcu=layout.n_hcu, n_mcu=layout.n_mcu, round_mantissa=policy.fmt.mantissa_bits
+        s, n_hcu=layout.n_hcu, n_mcu=layout.n_mcu, round_mantissa=policy.fmt.mantissa_bits,
+        use_kernels=use_kernels,
     )
 
 
@@ -118,6 +125,7 @@ def quantized_learning_cycle(
     policy: PrecisionPolicy,
     k_b: float = 1.0,
     mask: Optional[torch.Tensor] = None,
+    use_kernels: Optional[bool] = None,
 ) -> Tuple[MarginalState, torch.Tensor, torch.Tensor]:
     """Alg.1 L10-16 with every stage rounded to ``policy.fmt``: returns
     (new MarginalState, w, bias).  The means are ``q(<q(a)>)`` (``q(a_i)^T
@@ -130,7 +138,7 @@ def quantized_learning_cycle(
     return ops.bcpnn_update(
         state, _f32(ai), _f32(aj), lam, k_b=k_b, mask=mask,
         state_format=policy.state_format if policy.has_state_tier else None,
-        datapath_mantissa=policy.fmt.mantissa_bits,
+        datapath_mantissa=policy.fmt.mantissa_bits, use_kernels=use_kernels,
     )
 
 
@@ -182,14 +190,16 @@ def _weights_from(
     return w, k_b * torch.log(torch.clamp_min(cj, EPS))
 
 
-def quantize_marginals(state: MarginalState, policy: Optional[PrecisionPolicy]) -> MarginalState:
+def quantize_marginals(
+    state: MarginalState, policy: Optional[PrecisionPolicy], use_kernels: Optional[bool] = None
+) -> MarginalState:
     """A MarginalState rounded and cast into the policy's storage tier
     (unchanged without one); ``compile()`` applies it to the initial state,
     so every epoch starts in the storage dtype."""
     if policy is None or not policy.has_state_tier:
         return state
     return MarginalState(
-        ci=policy.q_state(state.ci),
-        cj=policy.q_state(state.cj),
-        cij=policy.q_state(state.cij),
+        ci=policy.q_state(state.ci, use_kernels),
+        cj=policy.q_state(state.cj, use_kernels),
+        cij=policy.q_state(state.cij, use_kernels),
     )

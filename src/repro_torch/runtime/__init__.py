@@ -40,6 +40,7 @@ from repro_torch.runtime.program import (
     ProgramResult,
     SgdReadoutPhase,
     TrainProgram,
+    check_finite,
     compile_program,
     run_program,
 )
@@ -63,6 +64,7 @@ from repro_torch.runtime.trace import (
     EngineRestart,
     EventJournal,
     MergeApplied,
+    RecompileRebaseline,
     RollbackApplied,
     SpanRecord,
     TenantShed,
@@ -101,7 +103,7 @@ __all__ = [
     "sgd_step", "stack_epoch",
     "BatchPlan", "ExecutionPlan", "ScanPlan", "make_plan",
     "BcpnnReadoutPhase", "HiddenPhase", "ProgramResult", "SgdReadoutPhase", "TrainProgram",
-    "compile_program", "run_program",
+    "check_finite", "compile_program", "run_program",
     "AsyncEngine", "EngineStopped", "QueueFull",
     "ContinualConfig", "ContinualPlan", "DriftDetected", "Feedback",
     "MERGE_STRATEGIES",
@@ -115,7 +117,8 @@ __all__ = [
     # The trace module's DriftDetected *event* is not re-exported: the
     # continual tier's exception keeps that name here.
     "TraceConfig", "Tracer", "build_tracer", "SpanRecord", "EventJournal",
-    "EngineRestart", "MergeApplied", "RollbackApplied", "DeadlineShed", "TenantShed",
+    "EngineRestart", "MergeApplied", "RollbackApplied", "RecompileRebaseline",
+    "DeadlineShed", "TenantShed",
     "MetricsServer", "OpenMetricsError", "parse_openmetrics",
     "render_openmetrics",
 ]

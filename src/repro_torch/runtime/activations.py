@@ -16,7 +16,10 @@ the frozen stack per batch.
   mutate a state, so every update publishes a new object.
 * Projection runs in chunks of the training batch size, the ragged tail
   zero-padded to a full chunk, so every row sees the GEMM shape of a
-  training batch.
+  training batch.  Each chunk is staged on the device first and then
+  projected under strict mode's dispatch guard; the projection callable of
+  each ``(j, k)`` span is built once (:meth:`ActivationStore.projections`,
+  which the recompile sentinel watches).
 * Threads: :meth:`ActivationStore.level` and
   :meth:`ActivationStore.invalidate_above` hold one lock, so several
   serving engines may share a compiled network (without it, one thread's
@@ -26,10 +29,11 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.analysis.strict import counted, dispatch_guard
 from repro_torch.runtime.epoch_engine import forward_stack, rows_to
 
 
@@ -70,9 +74,12 @@ class ActivationStore:
         device: torch.device,
         budget_bytes: int = 512 << 20,
         host_budget_bytes: Optional[int] = None,
+        strict: bool = False,
     ):
         self.layers = list(layers)
         self.device = torch.device(device)
+        self.strict = strict
+        self._proj: Dict[Tuple[int, int], Callable] = {}  # (j, k) -> layers[j:k] forward
         self.budget_bytes = int(budget_bytes)
         self.host_budget_bytes = (
             int(host_budget_bytes) if host_budget_bytes is not None else 4 * self.budget_bytes
@@ -133,6 +140,11 @@ class ActivationStore:
         with self._lock:
             return sum(e.nbytes for e in self._entries.values() if e.on_host)
 
+    def projections(self) -> Dict[Tuple[int, int], Callable]:
+        """The projection callable of every ``(j, k)`` span built so far."""
+        with self._lock:
+            return dict(self._proj)
+
     def resident(self, k: int, x) -> Optional[str]:
         """'device' / 'host' for the cached level ``k`` of ``x``, else None."""
         with self._lock:
@@ -156,7 +168,9 @@ class ActivationStore:
         """One pass of ``base`` (level j) through layers[j:k], chunk by chunk;
         the ragged tail is zero-padded to a full chunk and sliced."""
         self.stats["projections"] += 1
-        fwd = forward_stack(self.layers[j:k])
+        fwd = self._proj.get((j, k))
+        if fwd is None:
+            fwd = self._proj[(j, k)] = counted(forward_stack(self.layers[j:k]), self.strict)
         frozen = tuple(states[j:k])
         n = base.shape[0]
         chunk = min(chunk, n)
@@ -167,7 +181,8 @@ class ActivationStore:
             if rows < chunk:
                 pad = torch.zeros((chunk - rows, *xb.shape[1:]), dtype=xb.dtype, device=xb.device)
                 xb = torch.cat([xb, pad])
-            parts.append(fwd(frozen, xb)[:rows])
+            with dispatch_guard(self.strict, self.device, {"states": frozen, "xb": xb}):
+                parts.append(fwd(frozen, xb)[:rows])
         return torch.cat(parts) if len(parts) > 1 else parts[0]
 
     def _insert(self, key: Tuple[int, int], value: torch.Tensor, states, x) -> None:
@@ -206,7 +221,7 @@ def store_for(layers: Sequence[Any], config, device) -> Optional[ActivationStore
     if not config.cache_activations:
         return None
     budget = int(float(config.activation_budget_mb) * (1 << 20))
-    return ActivationStore(layers, device, budget_bytes=budget)
+    return ActivationStore(layers, device, budget_bytes=budget, strict=config.strict)
 
 
 __all__ = ["ActivationStore", "store_for"]

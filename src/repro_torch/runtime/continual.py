@@ -57,10 +57,15 @@ lock is never held across a launch.  Give each continual engine its own
 another engine over the same network would serve, and train its adapters
 from, a base it did not choose.
 
-The reference's strict mode (its recompile sentinel over the tier's jitted
-cells, the transfer guard and the finite-state check) is not ported; the
-reference also warms its jitted row-shape traces with one prediction at
-bind time, which the port, having no traces, does not.
+Strict mode (``ServiceConfig(strict=True)``): the tenant-view forward,
+the frozen-prefix projection, the Hebbian update and each merge run
+under the dispatch guard, their rows staged on the device first; the
+recompile sentinel watches ``continual_update``, ``continual_view``,
+``continual_prefix`` and one ``continual_merge[n]`` per contributor count
+beside the batched plan's callables (:meth:`ContinualPlan._strict_registry`);
+each update and merge is checked finite.  As the reference does, a strict
+plan predicts one zero row at bind time, so the head meets its row-sized
+signature before the sentinel's first baseline.
 """
 from __future__ import annotations
 
@@ -71,10 +76,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.strict import counted, dispatch_guard, finite_checker
 from repro_torch.core.layers import DenseLayer, LayerState
 from repro_torch.core.learning import MarginalState, weights_from_marginals
 from repro_torch.runtime.epoch_engine import forward_stack
 from repro_torch.runtime.metrics import ServiceMetrics
+from repro_torch.runtime.program import check_finite
 from repro_torch.runtime.service import SERVE_PLANS, BatchedPlan, ServiceConfig
 from repro_torch.runtime.trace import DriftDetected as DriftDetectedEvent
 from repro_torch.runtime.trace import MergeApplied, RollbackApplied
@@ -276,15 +283,25 @@ class ContinualPlan(BatchedPlan):
                 "the hybrid SGD readout overrides the DenseLayer readout at "
                 "inference; adapt a hidden layer instead"
             )
+        strict = config.strict
+        layer = self._layer
+        if self._supervised:
+            self._update = counted(lambda s, xk, yb: layer.train_batch(s, xk, yb)[0], strict)
+        else:
+            self._update = counted(lambda s, xk: layer.train_batch(s, xk)[0], strict)
         # The frozen prefix maps feedback rows to the adapted layer's input
         # code: below-li layers never change in this tier, so the prefix
         # states are always the live base states.
-        self._prefix = forward_stack(compiled.layers[:li]) if li > 0 else None
-        # Tenant view: the full stack with the adapter substituted at li.
-        # (core.compiled imports this package's modules, so not at the top.)
+        self._prefix = counted(forward_stack(compiled.layers[:li]), strict) if li > 0 else None
+        # Tenant view: the full stack with the adapter substituted at li, a
+        # private callable, so the compiled network's own forward keeps its
+        # strict baseline.  (core.compiled imports this package's modules,
+        # so not at the top.)
         from repro_torch.core.compiled import build_forward
 
-        self._view_fwd = build_forward(compiled.layers)
+        self._view_fwd = counted(build_forward(compiled.layers), strict)
+        self._merge_cells: Dict[int, Callable] = {}  # contributors -> merge
+        self._finite_check = finite_checker() if strict else None
         # --- host-side bookkeeping (commits under the plan lock) ---------
         self._adapters: Dict[str, _Adapter] = {}
         base_state = compiled.state.layers[li]
@@ -305,6 +322,13 @@ class ContinualPlan(BatchedPlan):
         self.metrics.configure_drift(
             cc.drift_window, cc.drift_min_samples, cc.drift_threshold
         )
+        if strict:
+            # The per-item surface runs the head at the one-row bucket,
+            # while a preceding fit or evaluate ran it at their chunk
+            # sizes: meet that signature now, before the sentinel's first
+            # baseline, as the reference warms its row-shaped traces.
+            pre = compiled.layers[0].spec.pre
+            self._scores(np.zeros((config.bucket_for(1), pre.n_units), np.float32))
 
     # ----------------------------------------------------------- lifecycle
     def learn(self, fb: Feedback) -> Dict[str, Any]:
@@ -341,6 +365,7 @@ class ContinualPlan(BatchedPlan):
         if self._applied_since_merge >= self.cc.merge_every:
             self._merge(tenant=fb.tenant, trace_id=tid)
             merged = True
+        self._strict_check("learn")
         return {
             "tenant": fb.tenant,
             "correct": correct,
@@ -374,10 +399,12 @@ class ContinualPlan(BatchedPlan):
                  ) -> Tuple[bool, float]:
         """Prequential drift observation through the tenant's view."""
         xd = torch.from_numpy(x[None, :]).to(self.device)
-        scores = self._view_fwd(
-            self._view_states(ad), self.compiled.state.readout, xd
-        )
-        row = scores[0].cpu().numpy()  # one score row back per feedback sample
+        states, readout = self._view_states(ad), self.compiled.state.readout
+        with dispatch_guard(self.config.strict, self.device,
+                            {"states": states, "readout": readout, "x": xd}):
+            scores = self._view_fwd(states, readout, xd)
+        # torchlint: allow[TL001] reason=prequential evaluation reads one score row per feedback sample, outside the guard
+        row = scores[0].cpu().numpy()
         pred = int(np.argmax(row))
         z = np.exp(row - row.max())
         confidence = float(z.max() / z.sum())
@@ -393,14 +420,16 @@ class ContinualPlan(BatchedPlan):
         yb = ad.buf_y
         ad.buf_x, ad.buf_y = [], []
         xd = torch.from_numpy(xb).to(self.device)
-        xk = xd if self._prefix is None else self._prefix(
-            tuple(self.compiled.state.layers[: self._li]), xd
-        )
-        if self._supervised:
-            yd = torch.tensor(yb, dtype=torch.int32, device=self.device)
-            new_state = self._layer.train_batch(ad.state, xk, yd)[0]
-        else:
-            new_state = self._layer.train_batch(ad.state, xk)[0]
+        yd = torch.tensor(yb, dtype=torch.int32, device=self.device) if self._supervised else None
+        prefix_states = tuple(self.compiled.state.layers[: self._li])
+        with dispatch_guard(self.config.strict, self.device,
+                            {"state": ad.state, "prefix": prefix_states, "x": xd, "y": yd}):
+            xk = xd if self._prefix is None else self._prefix(prefix_states, xd)
+            if self._supervised:
+                new_state = self._update(ad.state, xk, yd)
+            else:
+                new_state = self._update(ad.state, xk)
+        check_finite(self, new_state, f"continual update (layer {self._li})")
         with self._lock:
             ad.state = new_state
             ad.applied += 1
@@ -437,9 +466,15 @@ class ContinualPlan(BatchedPlan):
         strategy = MERGE_STRATEGIES[self.cc.merge_strategy]
         base_state = self.compiled.state.layers[self._li]
         states = (base_state,) + tuple(ad.state for _, ad in contributors)
-        merged = merge_states(
-            self._layer.spec, states, strategy(self._base_weight, applied), sum(applied)
-        )
+        merge = self._merge_cells.get(len(states))
+        if merge is None:
+            spec = self._layer.spec
+            merge = counted(lambda st, w, inc: merge_states(spec, st, w, inc), self.config.strict)
+            with self._lock:
+                self._merge_cells[len(states)] = merge
+        with dispatch_guard(self.config.strict, self.device, {"states": states}):
+            merged = merge(states, strategy(self._base_weight, applied), sum(applied))
+        check_finite(self, merged, "continual merge")
         forks = {name: merged.clone() for name, _ in contributors}
         with self._lock:
             self._merge_seq += 1
@@ -578,6 +613,18 @@ class ContinualPlan(BatchedPlan):
         self.metrics.drift.reset_current()
 
     # ------------------------------------------------------------- surfaces
+    def _strict_registry(self) -> Dict[str, Any]:
+        reg = super()._strict_registry()
+        reg["continual_update"] = self._update
+        reg["continual_view"] = self._view_fwd
+        if self._prefix is not None:
+            reg["continual_prefix"] = self._prefix
+        with self._lock:
+            cells = dict(self._merge_cells)
+        for n, fn in cells.items():
+            reg[f"continual_merge[{n}]"] = fn
+        return reg
+
     @property
     def drifting(self) -> bool:
         """True while the current window reads degraded: the Router's

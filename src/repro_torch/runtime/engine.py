@@ -424,7 +424,8 @@ class AsyncEngine:
                                        batch=len(batch))
             try:
                 x = np.stack([np.asarray(w.item) for w in batch])
-                scores = self.plan.predict(x).cpu().numpy()  # the results go back as host arrays
+                # torchlint: allow[TL001] reason=futures resolve to host arrays; one read back a micro-batch, after the plan's guarded dispatch
+                scores = self.plan.predict(x).cpu().numpy()
                 with self._cv:
                     self.batches += 1
                 t_done = time.perf_counter()
@@ -469,6 +470,7 @@ class AsyncEngine:
 
         def serve(item, trace_id):
             if not isinstance(item, Feedback):
+                # torchlint: allow[TL001] reason=futures resolve to host score rows; after the plan's guarded dispatch
                 return self.plan.infer(np.asarray(item)).cpu().numpy()
             t0 = time.perf_counter()
             ack = self.plan.learn(item)

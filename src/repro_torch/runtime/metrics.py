@@ -49,6 +49,7 @@ class Counter:
     point-in-time consistent; standalone counters default to a private lock.
     """
 
+    _TORCHLINT_LOCKS = ("_lock",)  # TL004: the lock may arrive as a parameter
 
     def __init__(self, lock: Optional[Any] = None) -> None:
         self._lock = lock if lock is not None else threading.Lock()
@@ -69,6 +70,7 @@ class Counter:
 class Gauge:
     """A point-in-time value (queue depth, active slots)."""
 
+    _TORCHLINT_LOCKS = ("_lock",)  # TL004: the lock may arrive as a parameter
 
     def __init__(self, lock: Optional[Any] = None) -> None:
         self._lock = lock if lock is not None else threading.Lock()
@@ -95,6 +97,7 @@ class Histogram:
     ``count``/``sum``/``max`` are exact over every observation ever made.
     """
 
+    _TORCHLINT_LOCKS = ("_lock",)  # TL004: the lock may arrive as a parameter
 
     def __init__(self, window: int = 2048, lock: Optional[Any] = None) -> None:
         if window < 1:
@@ -236,6 +239,7 @@ class DriftWindow:
     constructor so one bundle snapshot is point-in-time consistent.
     """
 
+    _TORCHLINT_LOCKS = ("_lock",)  # TL004: the lock may arrive as a parameter
 
     def __init__(
         self,
@@ -373,6 +377,8 @@ class ServiceMetrics:
         "online_updates", "updates_shed", "merges", "rollbacks",
         "drift_events",
     )
+
+    _TORCHLINT_LOCKS = ("_lock",)  # TL004: the lock may arrive as a parameter
 
     def __init__(self, window: int = 2048) -> None:
         self._lock = threading.RLock()

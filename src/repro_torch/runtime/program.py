@@ -10,7 +10,9 @@ that level.  Every epoch's history entry splits its wall time into the
 host's enqueue span (``host_s``) and the wait for the device at the one
 synchronisation that ends the epoch (``device_wait_s``); with
 ``ExecutionConfig(trace=...)`` each entry is also a ``train.<phase>`` span
-on ``compiled.tracer``.
+on ``compiled.tracer``.  With ``ExecutionConfig(strict=True)`` the state
+is checked finite (:func:`check_finite`) after every epoch, after that
+synchronisation and outside every dispatch guard.
 """
 from __future__ import annotations
 
@@ -152,6 +154,7 @@ def _timed(history: List[dict], entry: dict, t0: float, net) -> None:
     the training trace."""
     t1 = time.perf_counter()
     if net.device.type == "cuda":
+        # torchlint: allow[TL001] reason=the one sync per phase boundary; it splits host_s from device_wait_s, outside every guard
         torch.cuda.synchronize(net.device)
     t2 = time.perf_counter()
     entry["host_s"] = t1 - t0
@@ -162,6 +165,15 @@ def _timed(history: List[dict], entry: dict, t0: float, net) -> None:
     if tracer is not None:
         attrs = {k: v for k, v in entry.items() if k not in ("phase", "seconds")}
         tracer.record(tracer.TRAIN_TRACE_ID, f"train.{entry['phase']}", t0, t2, **attrs)
+
+
+def check_finite(net, tree, where: str) -> None:
+    """Strict mode's finite guard: raise NonFiniteError naming the first
+    non-finite leaf of ``tree`` and ``where``, when the network was
+    compiled with ``ExecutionConfig(strict=True)``; a no-op otherwise.
+    The check reads one scalar back, so call it outside every guard."""
+    if net._finite_check is not None:
+        net._finite_check(tree, where=where)
 
 
 def _phase_input(net, level: int, states, x, batch_size, history):
@@ -192,6 +204,7 @@ def _run_hidden_phase(net, phase, x, n, n_total, batch_size, shuffle, verbose, h
         t0 = time.perf_counter()
         state = step(state, net._epoch_indices(n, n_total, shuffle))
         _timed(history, {"phase": f"hidden{li}", "epoch": epoch}, t0, net)
+        check_finite(net, state, f"hidden layer {li}, epoch {epoch}")
         if verbose:
             print(f"[fit/{net.plan.name}] hidden layer {li} epoch {epoch + 1}/{phase.epochs}")
     states[li] = state
@@ -216,6 +229,7 @@ def _run_bcpnn_phase(net, phase, x, y, n, n_total, batch_size, shuffle, verbose,
         t0 = time.perf_counter()
         state = step(state, net._epoch_indices(n, n_total, shuffle))
         _timed(history, {"phase": "readout", "epoch": epoch}, t0, net)
+        check_finite(net, state, f"bcpnn readout epoch {epoch}")
         if verbose:
             print(f"[fit/{net.plan.name}] readout epoch {epoch + 1}/{phase.epochs}")
     states[li] = state
@@ -237,6 +251,7 @@ def _run_sgd_phase(net, phase, x, y, n, n_total, batch_size, shuffle, verbose, h
         t0 = time.perf_counter()
         params, opt_state, loss = step(params, opt_state, net._epoch_indices(n, n_total, shuffle))
         _timed(history, {"phase": "sgd_readout", "epoch": epoch}, t0, net)
+        check_finite(net, params, f"sgd readout epoch {epoch}")
         if verbose:
             print(f"[fit/{net.plan.name}] sgd readout epoch {epoch + 1}/{phase.epochs} "
                   f"loss={float(loss):.4f}")
@@ -251,6 +266,7 @@ __all__ = [
     "TrainProgram",
     "ProgramResult",
     "READOUTS",
+    "check_finite",
     "compile_program",
     "run_program",
 ]

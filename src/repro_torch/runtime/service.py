@@ -41,9 +41,11 @@ ported:
 
 ``serve_fleet`` binds a model to a :class:`~repro_torch.runtime.router.Router`
 fronting N decode engines over the one shared model (``ServiceConfig(
-router=RouterConfig(...))``).  The reference's ``strict=`` option is
-absent, so passing it raises a ``TypeError`` that names it: it comes with
-the port's strict slice.
+router=RouterConfig(...))``).  ``ServiceConfig(strict=True)`` turns on the
+hot-path guard (:mod:`repro_torch.analysis.strict`) for the plan's
+dispatches: each runs under the dispatch guard, its inputs staged on the
+device first, and a recompile sentinel asserts the plan's callables meet
+one input signature each across repeated rounds.
 
 :class:`InferenceService` owns the request queue (admission control via
 ``max_queue``; ordering via ``policy``: "fcfs" arrival order, or "sjf"
@@ -68,6 +70,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.strict import RecompileSentinel, counted, dispatch_guard
 from repro_torch.runtime.epoch_engine import rows_to
 from repro_torch.runtime.metrics import ServiceMetrics
 
@@ -76,6 +79,7 @@ POLICIES = ("fcfs", "sjf")
 
 def _sync(device: Optional[torch.device]) -> None:
     if device is not None and device.type == "cuda":
+        # torchlint: allow[TL001] reason=a served batch's latency ends on the device; outside every guard
         torch.cuda.synchronize(device)
 
 
@@ -158,6 +162,17 @@ class ServiceConfig:
                 a ``Future`` and decode slots admit new requests mid-flight.
                 For streaming plans the async surface serves per-item
                 INFERENCE (sync submit+drain feeds training samples).
+    strict:     the hot-path guard (``repro_torch.analysis.strict``): the
+                batched head, the streaming cells, the prefill and the
+                fused decode step (and the continual tier's update, view
+                and merge) run under the dispatch guard, which refuses a
+                host sync in the dispatching thread (only there: a caller
+                thread reading results back is untouched) and any input
+                off the device; a recompile sentinel asserts the plan's
+                callables meet one input signature each across repeated
+                submit/predict/generate rounds (a new prefill bucket gets
+                its own baseline).  Observation only: results are those of
+                the same run without it.
     router:     a ``repro_torch.runtime.router.RouterConfig`` for the fleet
                 front door: ``serve_fleet()`` builds N decode engines over
                 the one shared model behind one Router (per-tenant queues,
@@ -184,6 +199,7 @@ class ServiceConfig:
     max_queue: Optional[int] = None
     layer: int = 0
     async_mode: bool = False
+    strict: bool = False
     router: Optional[Any] = None
     continual: Optional[Any] = None
     trace: Optional[Any] = None
@@ -262,13 +278,37 @@ class ServePlan:
         self.config = config
         self.metrics = metrics if metrics is not None else ServiceMetrics()
         self._lock = threading.Lock()
+        # Strict-mode recompile sentinel over this plan's callables; None
+        # unless ``config.strict``.
+        self._sentinel = RecompileSentinel() if config.strict else None
         # Per-request tracer, attached by the service via bind_tracer();
         # None keeps every span site a dead check.
         self.tracer = None
 
     def bind_tracer(self, tracer) -> None:
+        """Attach the service's Tracer; also hooks the strict-mode
+        sentinel's rebaseline into the event journal."""
         with self._lock:
             self.tracer = tracer
+        if self._sentinel is not None and tracer is not None:
+            def _journal_rebaseline(sizes, _t=tracer):
+                from repro_torch.runtime.trace import RecompileRebaseline
+
+                _t.emit(RecompileRebaseline(sizes=dict(sizes)))
+
+            self._sentinel.on_rebaseline = _journal_rebaseline
+
+    def _strict_registry(self) -> Dict[str, Any]:
+        """name -> watched callable, collected anew at every check (the
+        registries grow: new prefill buckets, new cells)."""
+        return {}
+
+    def _strict_check(self, where: str) -> None:
+        if self._sentinel is None:
+            return
+        for name, fn in self._strict_registry().items():
+            self._sentinel.watch(name, fn)
+        self._sentinel.check(where)
 
     def _unsupported(self, what: str):
         raise NotImplementedError(f"{type(self).__name__} ({self.name!r}) does not serve {what}")
@@ -320,7 +360,11 @@ class BatchedPlan(ServePlan):
         super().__init__(config, metrics)
         self.compiled = compiled
         self.device = compiled.device
-        self._fwd = compiled._forward_fn()
+        # The plan's own handles on the network's shared forward and head:
+        # with strict they count this plan's signatures, whatever else
+        # calls the network's.
+        self._fwd = counted(compiled._forward_fn(), config.strict)
+        self._head = counted(compiled._head_fn(), config.strict)
         self._requests = 0
         self._rows = 0
         self._padded_rows = 0
@@ -354,8 +398,21 @@ class BatchedPlan(ServePlan):
                 self._canon.popitem(last=False)
             return anchor
 
+    def _strict_registry(self) -> Dict[str, Any]:
+        """The plan's forward and head; the network's projections are
+        watched too when the network was compiled with ``strict=True``
+        (then its store also guards each projection chunk)."""
+        compiled = self.compiled
+        reg: Dict[str, Any] = {"forward": self._fwd, "head": self._head}
+        if compiled.activations is not None:
+            for (j, k), fn in compiled.activations.projections().items():
+                reg[f"proj[{j}->{k}]"] = fn
+        return reg
+
     def _scores(self, xb: np.ndarray) -> torch.Tensor:
-        """One padded chunk -> class scores, through the shared head."""
+        """One padded chunk -> class scores, through the shared head; the
+        chunk (or its cached projection) is staged on the device before
+        the guarded dispatch."""
         compiled = self.compiled
         state = compiled.state
         if compiled.activations is not None and compiled.hidden_layers:
@@ -363,10 +420,14 @@ class BatchedPlan(ServePlan):
             h = compiled.activations.level(
                 len(compiled.hidden_layers), list(state.layers), xb, chunk=xb.shape[0]
             )
-            hd = rows_to(h, 0, h.shape[0], self.device)  # a spilled level comes back
-            return compiled._head_fn()(state.layers, state.readout, hd)
-        xd = rows_to(xb, 0, xb.shape[0], self.device)
-        return self._fwd(state.layers, state.readout, xd)
+            xd = rows_to(h, 0, h.shape[0], self.device)  # a spilled level comes back
+            fn = self._head
+        else:
+            xd = rows_to(xb, 0, xb.shape[0], self.device)
+            fn = self._fwd
+        leaves = {"states": state.layers, "readout": state.readout, "x": xd}
+        with dispatch_guard(self.config.strict, self.device, leaves):
+            return fn(state.layers, state.readout, xd)
 
     def predict(self, x) -> torch.Tensor:
         """Class scores of host rows ``x`` (n, F) or one row (F,), on the
@@ -393,6 +454,7 @@ class BatchedPlan(ServePlan):
                 self._rows += n
         with self._lock:
             self._requests += 1
+        self._strict_check("predict")
         return torch.cat(outs) if len(outs) > 1 else outs[0]
 
     @property
@@ -441,7 +503,7 @@ class DecodeSession:
         plan = self.plan
         t0 = time.perf_counter()
         first, cache_one = plan._prefill_one(req.prompt)
-        plan._write_slot(self.caches, cache_one, slot)
+        plan._write(self.caches, cache_one, slot)
         if plan.tracer is not None:
             tid = getattr(req, "trace_id", None)
             if tid is not None:
@@ -455,6 +517,7 @@ class DecodeSession:
             "tag": tag,
         }
         plan._count_admit()
+        plan._strict_check("prefill/admit")
         return True
 
     @torch.inference_mode()
@@ -503,8 +566,13 @@ class DecodeSession:
             tokens[slot] = self.active[slot]["tokens"][-1]
             cur_lens[slot] = self.active[slot]["cur_len"]
         t0 = time.perf_counter()
-        nxt = plan._fused_step(self.caches, torch.from_numpy(tokens), torch.from_numpy(cur_lens))
-        nxt = nxt.cpu().numpy()  # greedy tokens steer EOS and admission: one read back a step
+        toks = torch.from_numpy(tokens).to(plan.device)
+        lens = torch.from_numpy(cur_lens).to(plan.device)
+        leaves = {"caches": self.caches, "tokens": toks, "cur_lens": lens}
+        with dispatch_guard(cfg.strict, plan.device, leaves):
+            nxt = plan._fused(self.caches, toks, lens)
+        # torchlint: allow[TL001] reason=greedy tokens steer EOS and admission host-side; one read back a step, outside the guard
+        nxt = nxt.cpu().numpy()
         t1 = time.perf_counter()
         plan.metrics.decode_step_s.observe(t1 - t0)
         if plan.tracer is not None:
@@ -521,6 +589,7 @@ class DecodeSession:
             st["cur_len"] += 1
             st["steps"] += 1
         plan._count_step(len(advancing))
+        plan._strict_check("decode step")
         return done
 
 
@@ -549,9 +618,12 @@ class DecodePlan(ServePlan):
         self.model = model
         self.device = model.device
         self._cache_template = model.cache_shapes(1, config.max_seq)
-        # The padded prefill lengths seen: the reference compiles one
-        # prefill for each; the eager port only counts them.
-        self._prefill_lengths = set()
+        # One prefill callable per padded length seen, as the reference
+        # compiles one for each: the eager port only counts them, and in
+        # strict mode each counts its signatures for the sentinel.
+        self._prefill_cells: Dict[int, Any] = {}
+        self._fused = counted(self._fused_step, config.strict)
+        self._write = counted(self._write_slot, config.strict)
         self._fused_steps = 0
         self._slot_steps = 0
         self._requests = 0
@@ -572,6 +644,16 @@ class DecodePlan(ServePlan):
         with self._lock:
             self._fused_steps += 1
             self._slot_steps += n_slots
+
+    def _strict_registry(self) -> Dict[str, Any]:
+        reg: Dict[str, Any] = {"fused_step": self._fused, "write_slot": self._write}
+        # Per-bucket prefill callables: a NEW bucket gets its own baseline,
+        # the SAME bucket meeting a new signature is a violation.
+        with self._lock:
+            cells = dict(self._prefill_cells)
+        for m, cell in cells.items():
+            reg[f"prefill[{m}]"] = cell
+        return reg
 
     # ----------------------------------------------------------- the step
     def _fused_step(self, caches, tokens: torch.Tensor, cur_lens: torch.Tensor) -> torch.Tensor:
@@ -600,16 +682,20 @@ class DecodePlan(ServePlan):
         t0 = time.perf_counter()
         m = self.config.bucket_for(n)
         with self._lock:
-            self._prefill_lengths.add(m)
+            cell = self._prefill_cells.get(m)
+            if cell is None:
+                cell = self._prefill_cells[m] = counted(self.model.prefill, self.config.strict)
         tokens = np.zeros((1, m), np.int64)
         tokens[0, :n] = prompt
         # last_pos gathers the logits at the true prompt end: causal
         # attention makes positions <= last_pos independent of the
         # right-padding, so the bucketed prefill equals an exact-length one.
-        logits, cache = self.model.prefill({"tokens": torch.from_numpy(tokens).to(self.device),
-                                            "last_pos": n - 1})
+        batch = {"tokens": torch.from_numpy(tokens).to(self.device), "last_pos": n - 1}
+        with dispatch_guard(self.config.strict, self.device, {"tokens": batch["tokens"]}):
+            logits, cache = cell(batch)
         cache = pad_cache_like(cache, self._cache_template)
-        first = int(torch.argmax(logits[0]))  # steers admission: one read back a prefill
+        # torchlint: allow[TL001] reason=the first token steers admission host-side; one read back a prefill, outside the guard
+        first = int(torch.argmax(logits[0]))
         self.metrics.prefill_s.observe(time.perf_counter() - t0)
         return first, cache
 
@@ -643,7 +729,7 @@ class DecodePlan(ServePlan):
                 "mean_occupancy": (
                     self._slot_steps / self._fused_steps if self._fused_steps else 0.0
                 ),
-                "prefill_cells": len(self._prefill_lengths),
+                "prefill_cells": len(self._prefill_cells),
             }
 
 
@@ -665,17 +751,30 @@ class StreamingPlan(ServePlan):
             cache_size=config.cache_size,
         )
 
+    def _strict_registry(self) -> Dict[str, Any]:
+        """The session's cells (shared per layer by the compiled network):
+        one per micro-batch size, so a new size gets its own baseline."""
+        reg: Dict[str, Any] = {}
+        for b, cell in self.session._train_cells.items():
+            reg[f"stream_train[{b}]"] = cell
+        for b, cell in self.session._infer_cells.items():
+            reg[f"stream_infer[{b}]"] = cell
+        return reg
+
     def feed(self, sample) -> None:
         self.session.feed(sample)
+        self._strict_check("feed")
 
     def infer(self, sample) -> np.ndarray:
         t0 = time.perf_counter()
         out = self.session.infer(sample)  # a host array: the device is done
         self.metrics.batch_s.observe(time.perf_counter() - t0)
+        self._strict_check("infer")
         return out
 
     def flush(self) -> None:
         self.session.flush()
+        self._strict_check("flush")
 
     def close(self) -> None:
         self.session.close()

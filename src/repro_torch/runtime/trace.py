@@ -2,9 +2,9 @@
 
 A copy of the JAX package's ``repro/runtime/trace.py`` (stdlib only); the
 port records the router's, the engine's, the decode plan's
-(``plan.prefill``, ``plan.decode_step``) and the continual plan's spans and
-the training program's ``train.<phase>`` spans.  The reference's
-``RecompileRebaseline`` event belongs to its strict mode, not ported.
+(``plan.prefill``, ``plan.decode_step``) and the continual plan's spans,
+the training program's ``train.<phase>`` spans, and strict mode's
+:class:`RecompileRebaseline` event.
 
 Aggregate p95s (``repro_torch.runtime.metrics``) tell you the fabric is slow;
 they cannot tell you WHERE one request spent its time.  This module adds
@@ -22,7 +22,8 @@ the per-request view:
   Perfetto (https://ui.perfetto.dev) or ``chrome://tracing``.
 * An :class:`EventJournal` records typed operational **events**
   (:class:`EngineRestart`, :class:`DriftDetected`, :class:`MergeApplied`,
-  :class:`RollbackApplied`, :class:`DeadlineShed`, :class:`TenantShed`)
+  :class:`RollbackApplied`, :class:`RecompileRebaseline`,
+  :class:`DeadlineShed`, :class:`TenantShed`)
   in a bounded deque with an optional JSONL sink, each carrying the
   correlating trace_id / tenant / engine slot.
 
@@ -55,7 +56,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 __all__ = [
     "TraceConfig", "Tracer", "SpanRecord", "EventJournal", "build_tracer",
     "EngineRestart", "DriftDetected", "MergeApplied", "RollbackApplied",
-    "DeadlineShed", "TenantShed",
+    "RecompileRebaseline", "DeadlineShed", "TenantShed",
 ]
 
 
@@ -189,6 +190,18 @@ class RollbackApplied:
 
     kind = "rollback_applied"
     rollbacks: Optional[int] = None
+    trace_id: Optional[int] = None
+    tenant: Optional[str] = None
+    engine: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RecompileRebaseline:
+    """Strict-mode RecompileSentinel adopted new cache sizes (an
+    intentional change, e.g. reconfiguring a service)."""
+
+    kind = "recompile_rebaseline"
+    sizes: Optional[Dict[str, int]] = None
     trace_id: Optional[int] = None
     tenant: Optional[str] = None
     engine: Optional[str] = None

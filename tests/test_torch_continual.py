@@ -586,19 +586,18 @@ class TestDriftRollback:
 
 # ------------------------------------------------- the interleaved lifecycle
 class TestStrictMode:
-    """The reference runs this lifecycle under its strict mode (the
-    recompile sentinel over the tier's jitted cells), which the port does
-    not have: ``strict`` is refused by name, and the same interleaved
-    lifecycle runs with an exact count of forwards and updates instead."""
+    """The reference's lifecycle under strict mode: the tier's callables
+    (update, tenant view, frozen prefix, one merge per contributor count)
+    register with the plan's recompile sentinel, each meets one signature
+    across the interleaved updates, merges and inferences, and the counts
+    of forwards and updates are exact."""
 
     def test_full_lifecycle_strict_clean(self):
-        with pytest.raises(TypeError, match="strict"):
-            ServiceConfig(strict=True, continual=_cc())
         compiled, xs, ys = _fitted()
-        svc = compiled.serve(ServiceConfig(continual=_cc()))
+        svc = compiled.serve(ServiceConfig(strict=True, continual=_cc()))
         plan = svc.plan
         calls = {"view": 0, "update": 0}
-        view, train = plan._view_fwd, plan._layer.train_batch
+        view, train = plan._view_fwd.fn, plan._layer.train_batch
 
         def counted_view(*a):
             calls["view"] += 1
@@ -608,7 +607,7 @@ class TestStrictMode:
             calls["update"] += 1
             return train(*a)
 
-        plan._view_fwd, plan._layer.train_batch = counted_view, counted_train
+        plan._view_fwd.fn, plan._layer.train_batch = counted_view, counted_train
         acks = []
         for k in range(24):  # updates + merges + interleaved inference
             acks.append(plan.learn(Feedback(xs[k], int(ys[k]))))
@@ -617,6 +616,12 @@ class TestStrictMode:
         assert calls["view"] == 24
         assert calls["update"] == sum(a["applied"] for a in acks) == 6
         assert sum(a["merged"] for a in acks) == 3
+        reg = plan._strict_registry()
+        assert {"continual_update", "continual_view", "continual_prefix"} <= set(reg)
+        assert any(n.startswith("continual_merge[") for n in reg)
+        sizes = plan._sentinel.sizes()
+        tier = {n: v for n, v in sizes.items() if n.startswith("continual_")}
+        assert tier and all(v == 1 for v in tier.values()), sizes
 
 
 # ------------------------------------- streaming adoption store invalidation

@@ -826,3 +826,70 @@ def test_datapath_fit_on_card_matches_cpu(card):
     # A trace one format ulp apart moves the scores by about as much; the
     # bf16-state fit above is held the same way.
     torch.testing.assert_close(gpu.predict(xt).cpu(), cpu.predict(xt), rtol=0, atol=2.0**-6)
+
+
+# ------------------------------------------------------- the hot-path guard
+def _guard_net(card, **config):
+    ds = mnist_like(n_train=256, n_test=64, n_features=32, seed=0)
+    x, layout = complementary_code(ds.x_train)
+    net = Network(seed=0).add(
+        StructuralPlasticityLayer(layout, UnitLayout(4, 8), fan_in=16, lam=0.05, gain=4.0)
+    ).add(DenseLayer(UnitLayout(4, 8), onehot_layout(10), lam=0.05))
+    c = net.compile(ExecutionConfig(device=str(card), **config))
+    c.fit((np.asarray(x, np.float32), ds.y_train), epochs_hidden=1, epochs_readout=1,
+          batch_size=64)
+    return c, np.asarray(x, np.float32), ds.y_train
+
+
+@pytest.mark.cuda
+def test_guard_refuses_a_sync_in_its_thread_only(card):
+    import threading
+
+    from repro_torch.analysis.strict import HostTransferError, dispatch_guard
+
+    t = torch.arange(64, device=card, dtype=torch.float32)
+    with pytest.raises(HostTransferError, match="synchronizing"):
+        with dispatch_guard(True, card):
+            t.sum().item()
+    seen = {}
+    with dispatch_guard(True, card):
+        th = threading.Thread(target=lambda: seen.update(v=t.sum().item()))
+        th.start()
+        th.join(timeout=60)
+    assert seen["v"] == float(t.sum())
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+def test_strict_fit_on_card_equals_plain(card):
+    strict, x, y = _guard_net(card, strict=True)
+    plain, _, _ = _guard_net(card)
+    for a, b in zip(strict.state.layers, plain.state.layers):
+        for ta, tb in zip(a.marginals, b.marginals):
+            assert torch.equal(ta, tb)
+        assert torch.equal(a.w, b.w)
+    sizes = strict._sentinel.sizes()
+    assert any(k.endswith(">masked_matmul.plan") for k in sizes)
+    assert all(v == 1 for v in sizes.values()), sizes
+
+
+@pytest.mark.cuda
+def test_cpu_state_leaf_on_card_raises_without_running(card):
+    from repro_torch.analysis.strict import HostTransferError
+
+    c, x, y = _guard_net(card, strict=True)
+    s0 = c.state.layers[0]
+    c.state = c.state._replace(layers=(s0._replace(w=s0.w.cpu()),) + c.state.layers[1:])
+    ops.reset_launches()
+    with pytest.raises(HostTransferError, match=r"state\.w: a tensor on cpu"):
+        c.partial_fit((x, y), batch_size=64)
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_use_kernels_false_runs_plain_on_card(card):
+    ops.reset_launches()
+    c, x, y = _guard_net(card, use_kernels=False)
+    assert not any(ops.launch_counts().values())
+    kernel, _, _ = _guard_net(card)
+    assert abs(c.evaluate((x, y)) - kernel.evaluate((x, y))) <= 0.03

@@ -1,8 +1,9 @@
 """``python -m repro_torch.launch.serve`` on the CPU: every mode exits 0 and
 prints the reference launcher's line shapes (``repro/launch/serve.py``);
 the observability flags write files that the port's ``checkmetrics``
-(``python -m repro_torch.runtime.export``) accepts; ``--strict`` and a
-model too large for the card are refused by name."""
+(``python -m repro_torch.runtime.export``) accepts; ``--strict`` serves
+with the hot-path guard on; a model too large for the card is refused by
+name."""
 import json
 import os
 import re
@@ -83,9 +84,23 @@ def test_observability_files_pass_checkmetrics(tmp_path, capsys):
     assert r.stdout.startswith("checkmetrics: OK")
 
 
-def test_strict_is_refused_by_name(capsys):
-    with pytest.raises(SystemExit, match="--strict is not ported yet.*strict slice"):
-        launch.main(["--device", "cpu", "--strict"])
+def test_strict_is_refused_by_name(capsys, monkeypatch):
+    """``--strict`` is accepted and runs on the CPU: the launcher's service
+    binds ServiceConfig(strict=True), and its line is the plain one."""
+    from repro_torch.runtime import service
+
+    seen = []
+    real = service.serve_model
+
+    def spy(model, config=None):
+        seen.append(config.strict)
+        return real(model, config)
+
+    monkeypatch.setattr(launch, "serve_model", spy)
+    launch.main(["--device", "cpu", "--strict", "--requests", "2", "--max-new", "3"])
+    assert seen == [True]
+    out = capsys.readouterr().out
+    assert re.search(r"^\[serve/sync\] gemma3-1b: 2 reqs, 6 tokens", out, re.M), out
 
 
 def test_full_refuses_a_model_larger_than_the_card(monkeypatch):

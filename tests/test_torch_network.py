@@ -286,10 +286,15 @@ def test_fused_config_validation():
             precision=PrecisionPolicy.named("bf20"),
         )
     assert ExecutionConfig(device="cpu", fused_phase=True).fused_phase is True
-    # The spec needs no kernel switch: the fused kernel is the path.
+    # The fused kernel is the path: use_kernels left None (the device
+    # decides) or True is accepted, False refused, in the spec and the config.
     assert BCPNNLayerSpec(pre=UnitLayout(2, 2), post=UnitLayout(2, 2), fused_phase=True).fused_phase
-    with pytest.raises(TypeError, match="use_kernels"):
-        ExecutionConfig(device="cpu", fused_phase=True, use_kernels=True)
+    assert ExecutionConfig(device="cpu", fused_phase=True, use_kernels=True).use_kernels is True
+    with pytest.raises(ValueError, match="use_kernels=False"):
+        ExecutionConfig(device="cpu", fused_phase=True, use_kernels=False)
+    with pytest.raises(ValueError, match="use_kernels=False"):
+        BCPNNLayerSpec(pre=UnitLayout(2, 2), post=UnitLayout(2, 2), fused_phase=True,
+                       use_kernels=False)
     net = _torch_net()
     bound = [ExecutionConfig(device="cpu", **BF16_STATE).bind_layer(la) for la in net.layers]
     assert [b.spec.fused_phase for b in bound] == [True, False]
@@ -297,26 +302,33 @@ def test_fused_config_validation():
     assert not any(la.spec.fused_phase or la.spec.precision for la in net.layers)
 
 
-def test_unported_options_raise_by_name(data):
+def test_unported_options_raise_by_name(data, tmp_path):
+    """Only ``trainer`` (distribution) is still refused by name; the
+    hot-path options are accepted and bound."""
     ds, x, _, _ = data
-    for name in ("trainer", "use_kernels", "strict", "profile_dir"):
-        with pytest.raises(TypeError, match=name):
-            ExecutionConfig(**{name: None})
-    with pytest.raises(TypeError, match="use_kernels"):
-        StructuralPlasticityLayer(UnitLayout(2, 2), UnitLayout(2, 2), use_kernels=True)
-    net = _torch_net().compile(ExecutionConfig(device="cpu"))
+    with pytest.raises(TypeError, match="trainer"):
+        ExecutionConfig(trainer=None)
+    cfg = ExecutionConfig(device="cpu", use_kernels=False, strict=True,
+                          profile_dir=str(tmp_path))
+    assert (cfg.use_kernels, cfg.strict, cfg.profile_dir) == (False, True, str(tmp_path))
+    spl = StructuralPlasticityLayer(UnitLayout(2, 2), UnitLayout(2, 2), use_kernels=True)
+    assert spl.spec.use_kernels is True
+    assert DenseLayer(UnitLayout(2, 2), UnitLayout(1, 2), use_kernels=False).spec.use_kernels is False
+    net = _torch_net().compile(cfg)
+    assert net._sentinel is not None and net._finite_check is not None
+    assert [la.spec.use_kernels for la in net.layers] == [False, False]
     with pytest.raises(ValueError, match="readout"):
         net.fit((x, ds.y_train), readout="svm", **FIT_KW)
     # Streaming and serving are ported; the continual and fleet options take
-    # their config types only, strict mode is refused by name, and the
-    # decode plan (the LM zoo's) is accepted.
+    # their config types only, strict mode is accepted, and the decode plan
+    # (the LM zoo's) is accepted.
     for method in ("streaming", "serve"):
         assert callable(getattr(net, method))
     from repro_torch.runtime import RouterConfig, ServiceConfig
 
-    for name in ("continual", "strict"):
-        with pytest.raises(TypeError, match=name):
-            ServiceConfig(**{name: True})
+    with pytest.raises(TypeError, match="continual"):
+        ServiceConfig(continual=True)
+    assert ServiceConfig(strict=True).strict is True
     assert ServiceConfig(router=RouterConfig()).router == RouterConfig()
     assert ServiceConfig(plan="decode").plan == "decode"
     with pytest.raises(ValueError, match="engine"):

@@ -274,16 +274,26 @@ class TestServiceFrontDoor:
 
     @pytest.mark.parametrize("option,error", [
         (dict(router=object()), TypeError), (dict(continual=object()), TypeError),
-        (dict(strict=True), TypeError), (dict(plan="decode"), ValueError),
+        (dict(strict=True), None), (dict(plan="decode"), ValueError),
         (dict(plan="continual"), None),
     ], ids=["router", "continual", "strict", "decode", "continual_plan"])
     def test_unported_options_raise_by_name(self, option, error, data):
         """``continual`` and ``router`` take their config types and refuse
-        anything else by name; ``strict`` is not ported and is refused by
-        name; ``plan="decode"`` serves the LM zoo (``serve_model``), so a
-        BCPNN network's ``serve`` refuses it; ``plan="continual"`` binds
-        the continual tier."""
+        anything else by name; ``strict`` is accepted and binds the plan's
+        recompile sentinel, the served scores unchanged; ``plan="decode"``
+        serves the LM zoo (``serve_model``), so a BCPNN network's ``serve``
+        refuses it; ``plan="continual"`` binds the continual tier."""
         (name, value), = option.items()
+        if name == "strict":
+            compiled = _compiled_bcpnn(data[2])
+            x = np.asarray(data[1][:8], np.float32)
+            strict = compiled.serve(ServiceConfig(**option))
+            assert strict.plan._sentinel is not None
+            plain = compiled.serve(ServiceConfig())
+            assert plain.plan._sentinel is None
+            torch.testing.assert_close(strict.predict(x), plain.predict(x), rtol=0, atol=0)
+            assert strict.plan._sentinel.sizes()["head"] == 1
+            return
         if error is None:
             from repro_torch.runtime import ContinualPlan
             from repro_torch.runtime.service import SERVE_PLANS
