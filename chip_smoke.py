@@ -34,7 +34,12 @@ the run with a non-zero exit:
    against its plain version by ``stage_rule`` (one format ulp plus the
    f32 tolerance, at most 1% of the elements apart) at every shape phases
    4-5 launch it (``datapath_rows``) and timed beside the same kernel's
-   f32 mode on the same inputs; then print where ``bcpnn_phase``'s time
+   f32 mode on the same inputs; the forward pair also at phase 9's model
+   shard (H / 2 units), and ``bcpnn_update``'s reduced-means mode
+   (phase 9's learning cycle: the EWMA and the weights from all-reduced
+   batch means) against its plain version at the hidden layer, a model
+   rank's half of it and the readout, timed beside the f32 update from the
+   batch on the same traces; then print where ``bcpnn_phase``'s time
    goes, phase by phase (``tools/bcpnn_phase_profile.py``);
 4. drive the main paths, the paper's Listing 1 at MNIST width (784
    complementary-coded features -> 30x100 hidden -> 10 classes), through
@@ -158,7 +163,22 @@ the run with a non-zero exit:
    gaps between kernels printed; (e) the unfused fit with
    ``use_kernels=False``: no launch of ours in the counters or the trace,
    accuracy within 0.03 of the kernel path;
-9. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
+9. distribution, the paper's MPI backend, on phase 4's configuration
+   through ``ExecutionConfig(trainer=DataParallelTrainer(make_host_mesh(),
+   mode))``: (a) one rank over NCCL in this process, shard_map mode on the
+   scan and on the batch engine and pjit mode on the scan engine with the
+   fused bf16-state config, each at phase 4's accuracy rule against the
+   same path's single-device card fit, its launches exactly phase 4's
+   (shard_map: every ``bcpnn_update`` in the reduced-means mode), its
+   all-reduces counted, one hidden and one readout batch from the trained
+   state against the single-device steps (the reference's data-parallel
+   tolerance: w rtol 2e-4 / atol 2e-5, C_ij rtol 2e-4 / atol 1e-7), and
+   one all-reduce of the packed means timed; (b) two ranks on the one card
+   (two processes, gloo with CUDA tensors), shard_map on the scan engine
+   at meshes (2, 1) and (1, 2): both ranks end with the same global state
+   bit for bit, each at (a)'s rules with its exact launches; fit wall
+   time, time in all-reduce and per-batch ms printed, not gated;
+10. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
    ...}`` line.
 
 Without a CUDA device, or away from the rest of the repository, it exits
@@ -168,6 +188,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -463,6 +484,26 @@ def kernel_checks(torch, ops, ref, dev):
     onehot_o = torch.nn.functional.one_hot(
         torch.randint(0, C_o, (most_o,), generator=g, device=dev), C_o).float()
 
+    def half(*ts):  # a model rank's columns of phase 9's (1, 2) mesh
+        return [t[..., :t.shape[-1] // 2].contiguous() for t in ts]
+
+    def means_case(ai, aj, ci, cj, cij, m, tail):
+        # The reduced-means mode: the means of the batch (on one rank of
+        # phase 9, the all-reduced means), against its plain version and
+        # beside the f32 update from the batch itself on the same traces.
+        (rows, f), h = ai.shape, aj.shape[1]
+        mi, mj = ai.mean(0), aj.mean(0)
+        mij = (ai.T @ aj) / rows
+        mp = bk.means_plan(f, h, mk.n_sm(dev))
+        return dict(
+            label=(f"means mi({f}) mj({h}) mij({f},{h}){' masked' if m is not None else ''}{tail} "
+                   f"[plan TH={mp.th} TR={mp.tr} {mp.ctas} CTAs]"),
+            kernel=lambda: bk.bcpnn_update_means(mi, mj, mij, ci, cj, cij, lam, k_b=k_b, mask=m),
+            plain=lambda: ref.bcpnn_update_means(mi, mj, mij, ci, cj, cij, lam, k_b=k_b, mask=m),
+            f32=update(bk.bcpnn_update, ai, aj, ci, cj, cij, m),
+            n_bytes=4 * ((5 if m is not None else 4) * f * h + 3 * f + 4 * h),
+            n_flops=(7 if m is not None else 6) * f * h)
+
     def mm_case(a, w, b, m):
         (rows, k), n = a.shape, w.shape[1]
         p = mk.plan(rows, k, n, mk.n_sm(dev))
@@ -642,7 +683,10 @@ def kernel_checks(torch, ops, ref, dev):
                 *((h_s[:m], w_r, b_r, None) for m in rows["head"]),
                 # the --online launcher (phase 7d)
                 *((x_o[:m], w_om, b_o, mask_o) for m in on["hidden"]),
-                *((h_o[:m], w_or, b_or, None) for m in on["head"]))],
+                *((h_o[:m], w_or, b_or, None) for m in on["head"]),
+                # phase 9's model-rank shard, H / 2 units (a batch rank's
+                # B / 2 = 64 rows are a served chunk above)
+                (x, *half(w_hm, b_h, mask)))],
             # the datapath's support through both layers (gain 4 on the
             # hidden layer, 1 on the head) at every row count it takes
             modes=[mm_mode(*c) for m in dp_rows["forward"] for c in (
@@ -659,7 +703,9 @@ def kernel_checks(torch, ops, ref, dev):
                 *((s_sr[:m], 1, N_CLASSES) for m in rows["head"]),
                 # the --online launcher (phase 7d)
                 *((s_o[:m], hcu_o, mcu_o) for m in on["hidden"]),
-                *((s_or[:m], 1, C_o) for m in on["head"]))],
+                *((s_or[:m], 1, C_o) for m in on["head"]),
+                # phase 9's model-rank shard
+                (half(s_h)[0], n_hcu // 2, n_mcu))],
             modes=[sm_mode(*c) for m in dp_rows["forward"] for c in (
                 (at_rows(m)[2], n_hcu, n_mcu), (at_rows(m)[3], 1, N_CLASSES))],
         ),
@@ -701,6 +747,13 @@ def kernel_checks(torch, ops, ref, dev):
                   for m in on["update"]),
                 *(update_at(h_o[:m], onehot_o[:m], ci_or, cj_or, cij_or, None, ", --online")
                   for m in on["readout_update"]),
+            ],
+            # the reduced-means mode (phase 9's learning cycle) at the hidden
+            # layer, a model rank's half of it and the readout
+            means=[
+                means_case(x, h, ci_h, cj_h, cij_h, mask, ""),
+                means_case(x, half(h)[0], ci_h, *half(cj_h, cij_h, mask), ", a model rank's half"),
+                means_case(h, onehot, ci_r, cj_r, cij_r, None, ", readout"),
             ],
             # the datapath's learning cycle of both layers at a training
             # batch; the hidden one also with the bf16 state tier (off the
@@ -813,8 +866,34 @@ def kernel_checks(torch, ops, ref, dev):
                    replaces=spec["replaces"], max_abs_err=worst_abs, **timed, **extra, cases=cases)
         if "modes" in spec:
             rec["modes"] = {"datapath": mode_checks(torch, spec["name"], spec["modes"], flush)}
+        if "means" in spec:
+            rec["modes"]["means"] = means_checks(torch, spec["name"], spec["means"], flush)
         records.append(rec)
     return records
+
+
+def means_checks(torch, name, cases, flush):
+    """Phase 3 for the update's reduced-means mode: each case against its
+    plain version at the f32 update's tolerance (the same means in; the
+    EWMA and the logs in another order of operations), then the mode, the
+    plain version and the f32 update from the batch on the same traces
+    timed.  No single PyTorch call computes it (library_ms null)."""
+    out = []
+    for c in cases:
+        got, want = c["kernel"](), c["plain"]()
+        torch.cuda.synchronize()
+        max_abs, max_rel = compare(torch, got, want, (1e-4, 1e-5))
+        ms = device_ms(torch, c["kernel"], flush)
+        plain_ms = device_ms(torch, c["plain"], flush)
+        f32_ms = device_ms(torch, c["f32"], flush)
+        bms, bound_by = bound_ms(c["n_bytes"], c["n_flops"])
+        print(f"check {name} {c['label']}: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
+              f"(tol (1e-4, 1e-5)) kernel_ms={ms:.5f} f32_update_ms={f32_ms:.5f} "
+              f"versus_ms={plain_ms:.5f} library_ms=null bound_ms={bms:.5f} ({bound_by})")
+        out.append(dict(ms=ms, f32_update_ms=f32_ms, plain_ms=plain_ms, bound_ms=bms,
+                        bound_by=bound_by, library_ms=None, at=c["label"], max_abs_err=max_abs,
+                        max_rel_err=max_rel))
+    return dict(out[0], cases=out)
 
 
 def mode_checks(torch, name, modes, flush):
@@ -866,7 +945,7 @@ def fit_once(torch, core, net, data_split, device, cfg, fit_kw, on_card):
     x, y, xt, yt = data_split
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     t0 = time.perf_counter()
-    compiled = net.compile(core.ExecutionConfig(engine="scan", device=device, **cfg))
+    compiled = net.compile(core.ExecutionConfig(**{"engine": "scan", "device": device, **cfg}))
     result = compiled.fit((x, y), **fit_kw)
     t1 = time.perf_counter()
     scores = compiled.predict(xt)
@@ -1164,7 +1243,7 @@ def main_path(torch, ops, core, data, policy, devices=("cuda", "cpu")):
           f"{stage_s:.4f} s")
     cliffs = dict(mnist_width=cliff, e2e=cliff_e2e)
     trained = dict(net=net, split=split, nets=card_nets, configs={p: c for p, (c, _) in paths.items()},
-                   device=devices[0])
+                   device=devices[0], fit_kw=fit_kw)
     return launches, runs, stage_s, cliffs, per_batch, stages, trained
 
 
@@ -3072,12 +3151,277 @@ def hot_path_guard(torch, ops, ref, core, data, policy, card, dev, dec_cfg=None)
     return launched, dict(strict_fits=fits, seeded=seeded, serving=serving, profiles=profiles)
 
 
+# ------------------------------------------------------------------ phase 9
+# Distribution, the paper's MPI backend: Listing 1 at phase 4's width and
+# schedule through ExecutionConfig(trainer=DataParallelTrainer(mesh, mode)).
+# (a) one rank on the card over NCCL, in this process: shard_map on the scan
+# and the batch engine, pjit on the scan engine with the fused bf16-state
+# config; (b) two ranks on the one card over gloo with CUDA tensors (NCCL
+# refuses two ranks on one device), one process each, shard_map on the scan
+# engine, meshes (2, 1) and (1, 2) (the 30 hidden HCUs split 15 + 15).  The
+# one-batch rule is the reference's data-parallel tolerance
+# (tests/test_distributed.py:52-59): w rtol 2e-4 / atol 2e-5, C_ij rtol
+# 2e-4 / atol 1e-7.
+DP_RUNS = {
+    "shard_map_scan": ("shard_map", "scan", "unfused_f32"),
+    "shard_map_batch": ("shard_map", "batch", "unfused_f32"),
+    "pjit_scan_fused_bf16": ("pjit", "scan", "fused_bf16"),
+}
+DP_MESHES = ((2, 1), (1, 2))
+DP_TOL = dict(w=(2e-4, 2e-5), cij=(2e-4, 1e-7))
+DP_TIMEOUT_S = 300
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def event_ms(torch, fn, reps: int = REPS) -> float:
+    """Median ms of one call of ``fn`` between CUDA events, over ``reps``
+    calls after two warm-up calls (a collective inside cannot be captured
+    in a CUDA graph, so this counts any host wait inside the call too)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def dp_batch_check(torch, layers, states, x, y, tr, dev, label):
+    """One hidden and one readout batch of B rows from the same states
+    through the trainer's steps (this rank's rows and units, then the
+    gather) against the single-device steps on the whole batch; fails
+    beyond DP_TOL.  Returns the largest |difference| of w and C_ij, and the
+    events ms of the trainer's hidden step."""
+    (hidden, readout), (hs, rs) = layers, states
+    xb = torch.as_tensor(x[:B], device=dev)
+    yb = torch.as_tensor(y[:B], device=dev)
+    rows = tr.rows(B)
+    hb = hidden.forward(hs, xb)
+    step_h, step_r = tr.hidden_step(hidden), tr.readout_step(readout)
+    local_h, local_r = tr.place_state(hidden, hs), tr.place_state(readout, rs)
+    pairs = {
+        "hidden": (tr.gather_state(hidden, step_h(local_h, xb[rows])),
+                   hidden.train_batch(hs, xb)[0]),
+        "readout": (tr.gather_state(readout, step_r(local_r, hb[rows], yb[rows])),
+                    readout.train_batch(rs, hb, yb)[0]),
+    }
+    torch.cuda.synchronize()
+    errs = {}
+    for name, (got, want) in pairs.items():
+        for leaf, (rtol, atol) in DP_TOL.items():
+            g = (got.w if leaf == "w" else got.marginals.cij).float()
+            w = (want.w if leaf == "w" else want.marginals.cij).float()
+            diff = (g - w).abs()
+            check(bool((diff <= rtol * w.abs() + atol).all()),
+                  f"9 {label}: one {name} batch, {leaf} {float(diff.max()):.3e} beyond rtol {rtol} "
+                  f"atol {atol} of the single-device step")
+            errs[f"{name}/{leaf}"] = float(diff.max())
+    step_ms = event_ms(torch, lambda: step_h(local_h, xb[rows]))
+    return errs, step_ms
+
+
+def dp_rank(argv) -> int:
+    """One rank of phase 9b, started by :func:`two_ranks` as ``chip_smoke.py
+    --dp-rank RANK WORLD PORT MODEL OUTDIR DEVICE``: gloo with the tensors
+    on DEVICE ("cuda": the card), Listing 1 fitted in shard_map mode on the
+    scan engine with its launches and collectives counted from the compile,
+    the one-batch check, then the rank's global state (npz) and report
+    (json) into OUTDIR."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rank, world, port, model, out = int(argv[0]), int(argv[1]), argv[2], int(argv[3]), Path(argv[4])
+    dev = torch.device(argv[5], 0) if argv[5] == "cuda" else torch.device(argv[5])
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import core, data
+    from repro_torch.checkpoint import flat_from_network_state
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.precision import policy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    try:
+        tr = D.DataParallelTrainer(make_host_mesh(model=model, device_type=dev.type), "shard_map")
+        net, split, fit_kw, _ = listing1(core, data, policy)
+        ops.reset_launches()
+        D.reset_collectives()
+        compiled, run = fit_once(torch, core, net, split, str(dev), dict(trainer=tr), fit_kw, True)
+        counts, coll, coll_s = ops.launch_counts(), D.collective_counts(), D.collective_seconds()
+        errs, step_ms = dp_batch_check(torch, compiled.layers, compiled.state.layers, split[0],
+                                       split[1], tr, dev, f"rank {rank} of {world}x{model}")
+        out.mkdir(parents=True, exist_ok=True)
+        np.savez(out / f"rank{rank}.npz", **flat_from_network_state(compiled.state))
+        (out / f"rank{rank}.json").write_text(json.dumps(dict(
+            acc=run["acc"], fit_s=run["fit_s"], launches=counts, collectives=coll,
+            all_reduce_s=coll_s["all_reduce"], step_errors=errs, step_ms=step_ms,
+            epochs=[{k: h[k] for k in ("phase", "seconds")} for h in run["history"]])))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def two_ranks(torch, ops, trained, runs, card, dev):
+    """Phase 9b: each mesh of DP_MESHES as two processes on the one card.
+    Both ranks must end with the same global state bit for bit, each at
+    phase 4's accuracy rule against the single-device card fit, with the
+    one-batch check passed and its launches exactly those of the path:
+    the forward pair once a hidden batch (on its rows), once a projection
+    chunk of its share and three times a test chunk; one reduced-means
+    bcpnn_update a learning cycle and no other kernel."""
+    import numpy as np
+
+    x, _, xt, _ = trained["split"]
+    fit_kw = trained["fit_kw"]
+    batches, test_chunks = len(x) // B, -(-len(xt) // P)
+    cycles = (fit_kw["epochs_hidden"] + fit_kw["epochs_readout"]) * batches
+    launched, report = {}, {}
+    for shape in DP_MESHES:
+        name = f"{shape[0]}x{shape[1]}"
+        out = ROOT / "build" / "phase9" / name  # the ranks' states, ~38 MB a rank
+        port, world = free_port(), shape[0] * shape[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", str(r),
+                                   str(world), str(port), str(shape[1]), str(out), dev.type])
+                 for r in range(world)]
+        try:
+            codes = [p.wait(timeout=DP_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        check(codes == [0] * world, f"9b {name}: rank exit codes {codes}")
+        ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+        states = [dict(np.load(out / f"rank{r}.npz")) for r in range(world)]
+        shutil.rmtree(out)
+        for r in range(1, world):
+            check(states[r].keys() == states[0].keys()
+                  and all(states[r][k].dtype == states[0][k].dtype
+                          and states[r][k].shape == states[0][k].shape
+                          and states[r][k].tobytes() == states[0][k].tobytes() for k in states[0]),
+                  f"9b {name}: rank {r}'s global state differs from rank 0's")
+        forwards = fit_kw["epochs_hidden"] * batches + -(-batches // shape[0]) + 3 * test_chunks
+        want = {"masked_matmul": forwards, "hcu_softmax": forwards, "bcpnn_update": cycles,
+                "bcpnn_update.means": cycles}
+        card_acc = runs["unfused_f32/card"]["acc"]
+        for r, rep in enumerate(ranks):
+            check(launches_equal(rep["launches"], want),
+                  f"9b {name} rank {r}: launches {json.dumps(rep['launches'])}, want {json.dumps(want)}")
+            check(rep["collectives"]["all_reduce"] == cycles + 3,
+                  f"9b {name} rank {r}: {rep['collectives']} all-reduces, want {cycles + 3}")
+            check(rep["acc"] >= 0.5 and abs(rep["acc"] - card_acc) <= 0.03,
+                  f"9b {name} rank {r}: accuracy {rep['acc']} vs the single-device card fit's {card_acc}")
+            launched[f"dp2/{name}/rank{r}"] = rep["launches"]
+        report[name] = dict(ranks=ranks, wall_s=wall)
+        print(f"9b [{card}] mesh {name}, gloo, two ranks on one card: wall {wall:.2f} s; "
+              + "; ".join(f"rank {r}: accuracy {rep['acc']:.4f} fit_wall_s={rep['fit_s']:.4f} "
+                          f"all_reduce {rep['collectives']['all_reduce']}x {rep['all_reduce_s']:.4f} s "
+                          f"(host) hidden step {rep['step_ms']:.4f} ms (events) one-batch errors "
+                          f"{json.dumps(rep['step_errors'])} launches {json.dumps(rep['launches'])}"
+                          for r, rep in enumerate(ranks))
+              + "; states equal bit for bit")
+    return launched, report
+
+
+def distribution(torch, ops, core, trained, runs, launches4, card, dev, backend="nccl"):
+    """Phase 9: (a) one rank over ``backend`` (NCCL) in this process, the
+    three runs of DP_RUNS, each at phase 4's accuracy rule against the same
+    path's single-device card fit, its launches exactly phase 4's
+    (shard_map: the unfused path's, every bcpnn_update in the reduced-means
+    mode; pjit: the fused path's), its all-reduces counted, and one hidden
+    and one readout batch against the single-device steps; then (b).  A
+    rehearsal on the CPU passes ``dev`` (the CPU) and ``backend="gloo"``."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.mesh import make_host_mesh
+
+    x, y, _, _ = trained["split"]
+    fit_kw = trained["fit_kw"]
+    batches = len(x) // B
+    hidden_batches = fit_kw["epochs_hidden"] * batches
+    cycles = hidden_batches + fit_kw["epochs_readout"] * batches
+    # Besides one a learning cycle (pjit: and one a readout batch, its
+    # labels): the hidden shards' gather, and the readout's projected level
+    # (the ranks' hit-or-miss flag, then the projection).
+    want_collectives = {"shard_map": cycles + 3, "pjit": cycles + fit_kw["epochs_readout"] * batches + 3}
+    launched, report = {}, {}
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_host_mesh(device_type=dev.type)
+        for name, (mode, engine, path) in DP_RUNS.items():
+            tr = D.DataParallelTrainer(mesh, mode)
+            cfg = {**trained["configs"][path], "trainer": tr, "engine": engine}
+            ops.reset_launches()
+            D.reset_collectives()
+            _, run = fit_once(torch, core, trained["net"], trained["split"], str(dev), cfg,
+                              fit_kw, True)
+            counts, coll, coll_s = ops.launch_counts(), D.collective_counts(), D.collective_seconds()
+            want = dict(launches4[path])
+            if mode == "shard_map":
+                want["bcpnn_update.means"] = want["bcpnn_update"]
+            check(launches_equal(counts, want),
+                  f"9a {name}: launches {json.dumps(counts)}, want {json.dumps(want)}")
+            check(coll["all_reduce"] == want_collectives[mode],
+                  f"9a {name}: {coll['all_reduce']} all-reduces, want {want_collectives[mode]}")
+            single = runs[f"{path}/card"]["acc"]
+            check(run["acc"] >= 0.5 and abs(run["acc"] - single) <= 0.03,
+                  f"9a {name}: accuracy {run['acc']} vs the single-device card fit's {single}")
+            card_net = trained["nets"][path]
+            errs, step_ms = dp_batch_check(torch, card_net.layers, card_net.state.layers, x, y, tr,
+                                           dev, f"9a {name}")
+            launched[f"dp/{name}"] = counts
+            report[name] = dict(acc=run["acc"], single_device_acc=single, fit_s=run["fit_s"],
+                                all_reduce=coll["all_reduce"], all_reduce_s=coll_s["all_reduce"],
+                                step_errors=errs, step_ms=step_ms, launches=counts)
+            print(f"9a [{card}] {name} ({backend}, one rank): accuracy {run['acc']:.4f} (single device "
+                  f"{single:.4f}) fit_wall_s={run['fit_s']:.4f} all_reduce {coll['all_reduce']}x "
+                  f"{coll_s['all_reduce']:.4f} s (host) hidden step {step_ms:.4f} ms (events) "
+                  f"one-batch errors {json.dumps(errs)} launches {json.dumps(counts)}")
+        # One all-reduce of the hidden layer's packed means alone.
+        F, H = 2 * N_FEATURES, HIDDEN[0] * HIDDEN[1]
+        buf = torch.zeros(F + H + F * H, device=dev)
+        group = D.DataParallelTrainer(mesh).batch_group
+        report["all_reduce_ms"] = event_ms(torch, lambda: D.all_reduce(buf, group))
+        print(f"9a [{card}] one all_reduce of the packed means ({4 * buf.numel() / 1e6:.1f} MB, "
+              f"{backend}, one rank): {report['all_reduce_ms']:.4f} ms (events)")
+    finally:
+        dist.destroy_process_group()
+    two, report["two_ranks"] = two_ranks(torch, ops, trained, runs, card, dev)
+    launched.update(two)
+    return launched, report
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dp-rank"]:
+        return dp_rank(sys.argv[2:])
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import core, data
     from repro_torch.kernels import _build, ops, ref
@@ -3148,7 +3492,14 @@ def main() -> int:
     guard_report["wall_s"] = time.perf_counter() - t0
     print(f"phase 8 (the hot-path guard) wall: {guard_report['wall_s']:.2f} s")
 
-    # Phase 9: the records.
+    # Phase 9: distribution, the paper's MPI backend.
+    t0 = time.perf_counter()
+    dp_launches, dp_report = distribution(torch, ops, core, trained, runs, launches, card, dev)
+    launches.update(dp_launches)
+    dp_report["wall_s"] = time.perf_counter() - t0
+    print(f"phase 9 (distribution) wall: {dp_report['wall_s']:.2f} s")
+
+    # Phase 10: the records.
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in launches.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -3174,6 +3525,7 @@ def main() -> int:
         "fabric": fabric_report,
         "decoder": dec_report,
         "hot_path_guard": guard_report,
+        "distribution": dp_report,
     }))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -26,9 +26,13 @@ predict chunk dispatches under a guard that refuses a host sync or an
 off-device input, a recompile sentinel watches every callable the network
 builds, and the BCPNN state is checked finite after every epoch.
 ``profile_dir=`` runs each ``fit`` under ``torch.profiler`` and writes a
-Chrome trace there.  The reference's ``trainer`` (distribution) is not
-ported yet: it is absent, so passing it raises a ``TypeError`` that names
-it.
+Chrome trace there.  ``trainer=DataParallelTrainer(make_host_mesh(), mode)``
+(``repro_torch.core.distributed``, the paper's MPI backend) trains each
+global batch over the ranks of an initialised process group: each rank
+stacks its rows, hidden layers are split over a ``model`` axis, and at the
+end of each phase the shards are gathered, so ``state``, ``predict``,
+``evaluate``, ``save``, ``streaming()`` and ``serve()`` see the global
+state on every rank, as on one device.
 
 ``predict``, the batched serving plan and the streaming sessions share one
 forward (:meth:`CompiledNetwork._forward_fn`) and one readout head
@@ -150,6 +154,14 @@ class ExecutionConfig:
                  activity on a CUDA device) and writes a Chrome trace into
                  this directory (``compiled.last_profile`` names it): the
                  device-level view beside the host-side phase spans.
+    trainer:     a ``repro_torch.core.distributed.DataParallelTrainer``:
+                 every rank of its mesh compiles and fits the same network
+                 on the same data, and each global batch is trained over
+                 the ranks (mode "shard_map": local means and one
+                 all-reduce a learning cycle, the paper's MPI backend;
+                 "pjit": the global batch rebuilt on every rank).  The
+                 batch size must split evenly over the batch ranks.  The
+                 SGD readout averages its gradients over them.
     """
 
     engine: str = "scan"
@@ -163,6 +175,7 @@ class ExecutionConfig:
     strict: bool = False
     trace: Any = None
     profile_dir: Optional[str] = None
+    trainer: Any = None
 
     def __post_init__(self):
         if self.trace is not None:
@@ -172,6 +185,13 @@ class ExecutionConfig:
                 raise TypeError(f"trace must be a TraceConfig, got {type(self.trace).__name__}")
         if self.engine not in PLANS:
             raise ValueError(f"Unknown engine {self.engine!r} (want one of {sorted(PLANS)})")
+        if self.trainer is not None:
+            from repro_torch.core.distributed import DataParallelTrainer
+
+            if not isinstance(self.trainer, DataParallelTrainer):
+                raise ValueError(
+                    f"trainer must be a DataParallelTrainer, got {type(self.trainer).__name__}"
+                )
         if self.activation_budget_mb <= 0:
             raise ValueError("activation_budget_mb must be positive")
         if isinstance(self.precision, str):
@@ -257,6 +277,8 @@ class CompiledNetwork:
             self.config.engine, self.layers, self.device, donate=self.config.donate,
             strict=self.config.strict,
         )
+        if self.config.trainer is not None:
+            self.plan = self.config.trainer.decorate(self.plan)
         self.activations = store_for(self.layers, self.config, self.device)
         self._rng = np.random.default_rng(network.seed)
         # The hybrid readout's optimizer and epoch runner per (n_hidden,

@@ -71,10 +71,13 @@ def init_marginals(
     return MarginalState(ci=ci, cj=cj, cij=cij)
 
 
-def full_f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in full f32, as the reference's products run
-    (``preferred_element_type=float32``).  Raises while TF32 or a lower
-    matmul precision is switched on (``torch.backends.cuda.matmul.allow_tf32``,
+def full_f32_matmul(
+    a: torch.Tensor, b: torch.Tensor, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """``a @ b`` in full f32 (into ``out`` when given), as the reference's
+    products run (``preferred_element_type=float32``).  Raises while TF32
+    or a lower matmul precision is switched on
+    (``torch.backends.cuda.matmul.allow_tf32``,
     ``torch.set_float32_matmul_precision``): such a product would be a
     different function, about 1e-3 off."""
     if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
@@ -82,7 +85,7 @@ def full_f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             "this product runs in full f32: switch TF32 off "
             "(torch.set_float32_matmul_precision('highest'))"
         )
-    return a @ b
+    return torch.matmul(a, b, out=out)
 
 
 def batch_means(ai: torch.Tensor, aj: torch.Tensor):

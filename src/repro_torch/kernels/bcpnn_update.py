@@ -33,6 +33,17 @@ then the state tier's rounding): a_i and a_j rounded where they are staged,
 each mean rounded after the (cluster's) batch sum, each EWMA rounded before
 the state tier's rounding, w and the bias rounded.  It moves the bytes of
 the f32 update.
+
+The reduced-means mode (:func:`bcpnn_update_means`, C entry
+``bcpnn_update_means_f32``) is the update of the paper's MPI backend: the
+batch means arrive already all-reduced over the ranks
+(``repro_torch.core.distributed.dp_learning_cycle``), and one launch runs
+the EWMA of the three traces and the weights from their logs, the
+product's sum replaced by the mean in the same ``trace`` and ``epilogue4``.
+It is elementwise and bound by bytes: at the MNIST hidden layer it reads
+m_ij, C_ij and the mask and writes C_ij' and w, 20 bytes an element, about
+94 MB (0.028 ms at 3.35 TB/s).  Its tiling is the pure function
+:func:`means_plan`.
 """
 from __future__ import annotations
 
@@ -48,6 +59,7 @@ from repro_torch.kernels.masked_matmul import MAX_CLUSTER, _cdiv, n_sm
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launches)
 datapath_launches = 0  # ... of them in the datapath mode
+means_launches = 0  # ... of them in the reduced-means mode
 
 
 @dataclass(frozen=True)
@@ -127,6 +139,42 @@ _ARGTYPES = (
     + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 )
 _fn = None
+_MEANS_ARGTYPES = (
+    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+)
+_means_fn = None
+MEANS_MAX_TH = 1024  # columns of a reduced-means tile (csrc/bcpnn_update.cu)
+MEANS_MAX_TR = 1024  # rows of a tile
+MEANS_RUNS = 1024    # runs of four elements a CTA of 256 threads takes at most
+
+
+@dataclass(frozen=True)
+class MeansPlan:
+    th: int       # columns of a tile, a multiple of 4
+    tr: int       # rows of a tile
+    tiles_f: int
+    tiles_h: int
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles_f * self.tiles_h
+
+
+@functools.lru_cache(maxsize=None)
+def means_plan(f: int, h: int, n_sm: int) -> MeansPlan:
+    """The tiling of a reduced-means update of (f, h) on ``n_sm`` SMs:
+    the columns in the fewest tiles of at most :data:`MEANS_MAX_TH`,
+    balanced and rounded up to a multiple of 4; rows per tile so that a CTA
+    takes at most :data:`MEANS_RUNS` runs of four elements, and fewer where
+    that leaves under two CTAs an SM."""
+    if min(f, h) <= 0 or n_sm <= 0:
+        raise ValueError(f"bcpnn_update.means_plan: bad shape ({f}, {h}) or n_sm {n_sm}")
+    tiles_h = _cdiv(h, MEANS_MAX_TH)
+    th = 4 * _cdiv(_cdiv(h, tiles_h), 4)
+    runs = th // 4
+    tr = max(1, min(MEANS_RUNS // runs, MEANS_MAX_TR, _cdiv(f * tiles_h, 2 * n_sm)))
+    return MeansPlan(th, tr, _cdiv(f, tr), _cdiv(h, th))
 
 
 def bcpnn_update(
@@ -237,3 +285,54 @@ def check_state(ci, cj, cij, state_mantissa, state_dtype) -> torch.dtype:
     if out not in _build.STATE:
         raise ValueError(f"state_dtype {state_dtype} is neither float32 nor bfloat16")
     return out
+
+
+def bcpnn_update_means(
+    mi: torch.Tensor,
+    mj: torch.Tensor,
+    mij: torch.Tensor,
+    ci: torch.Tensor,
+    cj: torch.Tensor,
+    cij: torch.Tensor,
+    lam: float,
+    k_b: float = 1.0,
+    mask: Optional[torch.Tensor] = None,
+    plain: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reduced-means mode: mi (F,), mj (H,), mij (F, H) are batch
+    means already all-reduced over the ranks; ci (F,), cj (H,), cij and
+    mask (F, H) the old f32 traces and the mask -> (ci', cj', cij', w,
+    bias), all fresh f32 tensors.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    unless ``plain`` asks for the plain version on the card.
+    """
+    global launches, means_launches, _means_fn
+    if _build.use_plain("bcpnn_update.means", mi, mj, mij, ci, cj, cij, mask, plain=plain):
+        return ref.bcpnn_update_means(mi, mj, mij, ci, cj, cij, lam, k_b=k_b, mask=mask)
+    f, h = mij.shape
+    if (
+        mi.shape != (f,) or mj.shape != (h,) or ci.shape != (f,) or cj.shape != (h,)
+        or cij.shape != (f, h) or (mask is not None and mask.shape != (f, h))
+    ):
+        raise ValueError(
+            f"bcpnn_update_means: shapes do not agree: mi {tuple(mi.shape)}, "
+            f"mj {tuple(mj.shape)}, mij {tuple(mij.shape)}, ci {tuple(ci.shape)}, "
+            f"cj {tuple(cj.shape)}, cij {tuple(cij.shape)}, "
+            f"mask {None if mask is None else tuple(mask.shape)}"
+        )
+    if _means_fn is None:
+        _means_fn = _build.function("bcpnn_update", "bcpnn_update_means_f32", _MEANS_ARGTYPES)
+    p = _build.planned("bcpnn_update.means_plan", means_plan, f, h, n_sm(mij.device))
+    ci_n, cj_n, bias = torch.empty_like(ci), torch.empty_like(cj), torch.empty_like(cj)
+    cij_n, w = torch.empty_like(cij), torch.empty_like(cij)
+    _build.launch(
+        "bcpnn_update.means", _means_fn, mij.device,
+        mi.data_ptr(), mj.data_ptr(), mij.data_ptr(), ci.data_ptr(), cj.data_ptr(),
+        cij.data_ptr(), None if mask is None else mask.data_ptr(), ci_n.data_ptr(),
+        cj_n.data_ptr(), cij_n.data_ptr(), w.data_ptr(), bias.data_ptr(), f, h,
+        float(lam), 1.0 - float(lam), float(k_b), p.th, p.tr,
+    )
+    launches += 1
+    means_launches += 1
+    return ci_n, cj_n, cij_n, w, bias

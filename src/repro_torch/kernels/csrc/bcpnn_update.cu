@@ -66,6 +66,26 @@
 // Every output element is written once: c_i' by the CTAs of the first H
 // tile, c_j' and the bias by rank 0 of the CTAs of the first F tile.  mask
 // may be null.  All products are IEEE f32 FMA.
+//
+// The reduced-means mode (bcpnn_update_means_f32, its own kernel) is the
+// update of the paper's MPI backend (Sec. 3): each rank takes the batch
+// means of its sub-batch, one all-reduce averages them, and every rank then
+// runs the same EWMA.  The means m_i (F), m_j (H) and m_ij (F, H) arrive
+// already reduced, so the product and the column sums above are gone:
+//   c_i' = (1-lam) c_i + lam m_i,  c_j' = (1-lam) c_j + lam m_j,
+//   C_ij' = (1-lam) C_ij + lam m_ij,  w and bias as above,
+// through the same trace() and epilogue4 with the mean in place of the
+// batch sum (inv_b = 1, so sum * inv_b is the mean exactly).  f32 traces,
+// no state tier and no datapath (the trainer refuses both in this mode).
+// It is elementwise and bound by bytes: at the MNIST hidden layer it reads
+// m_ij, C_ij and the mask and writes C_ij' and w, 20 bytes an element, 94 MB
+// (0.028 ms at 3.35 TB/s).  One CTA of 256 threads takes TR rows of one
+// column tile of TH <= 1024 columns (both from the host's plan,
+// kernels/bcpnn_update.py:means_plan): it takes log c_j' of its columns and
+// log c_i' of its rows into shared memory once, then each thread finishes
+// runs of four consecutive elements with 16-byte accesses (4-byte where H
+// or a base breaks the alignment).  c_i' is written by the CTAs of the first
+// column tile, c_j' and the bias by those of the first row tile.
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -367,6 +387,80 @@ int dispatch(const Args& a, int variant, cudaStream_t stream, std::integer_seque
 
 bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
+// --- the reduced-means mode ---
+
+constexpr int MEANS_THREADS = 256;
+constexpr int MEANS_MAX_TH = 1024;  // columns of a tile
+constexpr int MEANS_MAX_TR = 1024;  // rows of a tile
+
+struct MeansArgs {
+  const float* mi;
+  const float* mj;
+  const float* mij;
+  const float* ci;
+  const float* cj;
+  const float* cij;
+  const float* mask;
+  float* ci_out;
+  float* cj_out;
+  float* cij_out;
+  float* w_out;
+  float* bias_out;
+  int F, H, TH, TR;
+  float k_b;
+  Update u;
+};
+
+template <bool MASK, bool VEC>
+__global__ void __launch_bounds__(MEANS_THREADS) bcpnn_means_kernel(MeansArgs a) {
+  __shared__ float log_ci[MEANS_MAX_TR];
+  __shared__ __align__(16) float log_cj[MEANS_MAX_TH];
+  const int F = a.F, H = a.H, TH = a.TH, TR = a.TR;
+  const int tiles_h = cdiv(H, TH);
+  const int f0 = (static_cast<int>(blockIdx.x) / tiles_h) * TR;
+  const int h0 = (static_cast<int>(blockIdx.x) % tiles_h) * TH;
+  const int rows = min(TR, F - f0);
+  const int cols = min(TH, H - h0);
+  const int tid = threadIdx.x;
+
+  for (int c = tid; c < cols; c += MEANS_THREADS) {
+    const int gh = h0 + c;
+    const float v = trace(a.u, a.cj[gh], a.mj[gh]);
+    const float lc = logf(fmaxf(v, EPS));
+    log_cj[c] = lc;
+    if (f0 == 0) {
+      a.cj_out[gh] = v;
+      a.bias_out[gh] = a.k_b * lc;
+    }
+  }
+  for (int r = tid; r < rows; r += MEANS_THREADS) {
+    const int gf = f0 + r;
+    const float v = trace(a.u, a.ci[gf], a.mi[gf]);
+    log_ci[r] = logf(fmaxf(v, EPS));
+    if (h0 == 0) a.ci_out[gf] = v;
+  }
+  __syncthreads();
+
+  const int runs = cdiv(cols, 4);
+  for (int e = tid; e < rows * runs; e += MEANS_THREADS) {
+    const int r = e / runs;
+    const int lc = (e % runs) * 4;
+    const int n = min(4, cols - lc);
+    const size_t idx = static_cast<size_t>(f0 + r) * H + h0 + lc;
+    float m[4];
+    load4<VEC>(m, a.mij, idx, 0, n);
+    epilogue4<VEC, MASK>(a.u, a.cij, a.mask, a.cij_out, a.w_out, idx, n, m, log_ci[r],
+                         log_cj + lc);
+  }
+}
+
+template <bool MASK, bool VEC>
+int launch_means(const MeansArgs& a, cudaStream_t stream) {
+  const int tiles = cdiv(a.F, a.TR) * cdiv(a.H, a.TH);
+  bcpnn_means_kernel<MASK, VEC><<<tiles, MEANS_THREADS, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // config: 0 wide (64 x 64 tiles), 1 narrow (64 x 16, H <= 16); cl: CTAs of
@@ -401,4 +495,28 @@ extern "C" int bcpnn_update_f32(const float* ai, const float* aj, const void* ci
     case 1: return dispatch<Narrow>(a, variant, stream, all);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The reduced-means mode: mi (F), mj (H), mij (F, H) are the batch means,
+// already all-reduced; ci, cj, cij the old f32 traces; mask may be null.
+// th: columns of a tile (a multiple of 4, at most 1024; the last tile may
+// be narrower), tr: rows of a tile (at most 1024).  Returns
+// cudaErrorInvalidValue for a bad shape or tile, else the launch's error.
+extern "C" int bcpnn_update_means_f32(const float* mi, const float* mj, const float* mij,
+                                      const float* ci, const float* cj, const float* cij,
+                                      const float* mask, float* ci_out, float* cj_out,
+                                      float* cij_out, float* w_out, float* bias_out, int F,
+                                      int H, float lam, float one_m, float k_b, int th, int tr,
+                                      cudaStream_t stream) {
+  if (F <= 0 || H <= 0 || th <= 0 || th % 4 != 0 || th > MEANS_MAX_TH || tr <= 0 ||
+      tr > MEANS_MAX_TR)
+    return cudaErrorInvalidValue;
+  // inv_b = 1: trace() takes the mean where the batch kernel takes the sum.
+  const Update u{lam, one_m, 1.0f, 0, 0, 0, 0, 1.0f};
+  const MeansArgs a{mi, mj, mij, ci, cj, cij, mask, ci_out, cj_out, cij_out, w_out, bias_out,
+                    F, H, th, tr, k_b, u};
+  const bool vec = H % 4 == 0 && aligned16(mij) && aligned16(cij) && aligned16(cij_out) &&
+                   aligned16(w_out) && (mask == nullptr || aligned16(mask));
+  if (mask != nullptr) return vec ? launch_means<true, true>(a, stream) : launch_means<true, false>(a, stream);
+  return vec ? launch_means<false, true>(a, stream) : launch_means<false, false>(a, stream);
 }

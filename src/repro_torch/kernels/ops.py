@@ -14,6 +14,8 @@ quantized state tier: the new traces come back rounded to the format's
 mantissa, in bf16 when that is exact.  ``round_mantissa`` (the forward
 pair) and ``datapath_mantissa`` (the update) select the reduced datapath's
 modes, every stage rounded inside the kernel that makes it.
+:func:`bcpnn_update_means` is the update's reduced-means mode, the
+learning cycle of the data-parallel trainer (``core/distributed.py``).
 """
 from __future__ import annotations
 
@@ -38,10 +40,12 @@ DATAPATH_MODES = ("masked_matmul", "hcu_softmax", "bcpnn_update")
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last :func:`reset_launches`
-    (every mode), and under ``"<kernel>.datapath"`` those of them in the
-    datapath mode."""
+    (every mode), under ``"<kernel>.datapath"`` those of them in the
+    datapath mode, and under ``"bcpnn_update.means"`` the update's launches
+    in its reduced-means mode."""
     counts = {name: mod.launches for name, mod in KERNELS.items()}
     counts.update({f"{name}.datapath": KERNELS[name].datapath_launches for name in DATAPATH_MODES})
+    counts["bcpnn_update.means"] = _bk.means_launches
     return counts
 
 
@@ -50,6 +54,7 @@ def reset_launches() -> None:
         mod.launches = 0
     for name in DATAPATH_MODES:
         KERNELS[name].datapath_launches = 0
+    _bk.means_launches = 0
 
 
 def _state_spec(state_format) -> Tuple[Optional[int], Optional[torch.dtype]]:
@@ -119,6 +124,28 @@ def bcpnn_update(
     ci, cj, cij, w, bias = _bk.bcpnn_update(
         ai, aj, marginals.ci, marginals.cj, marginals.cij, lam, k_b=k_b, mask=mask,
         state_mantissa=mant, state_dtype=sdtype, datapath_mantissa=datapath_mantissa,
+        plain=use_kernels is False,
+    )
+    return MarginalState(ci=ci, cj=cj, cij=cij), w, bias
+
+
+def bcpnn_update_means(
+    marginals,
+    mi: torch.Tensor,
+    mj: torch.Tensor,
+    mij: torch.Tensor,
+    lam: float,
+    k_b: float = 1.0,
+    mask: Optional[torch.Tensor] = None,
+    use_kernels: Optional[bool] = None,
+):
+    """The update's reduced-means mode: the EWMA and the weights from batch
+    means already all-reduced over the ranks (the paper's MPI backend), one
+    launch.  Returns (new MarginalState, w, b); f32 traces only."""
+    from repro_torch.core.learning import MarginalState
+
+    ci, cj, cij, w, bias = _bk.bcpnn_update_means(
+        mi, mj, mij, marginals.ci, marginals.cj, marginals.cij, lam, k_b=k_b, mask=mask,
         plain=use_kernels is False,
     )
     return MarginalState(ci=ci, cj=cj, cij=cij), w, bias

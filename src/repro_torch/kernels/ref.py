@@ -2,7 +2,8 @@
 
 Each function is the semantic ground truth of one Hopper kernel
 (``masked_matmul.py`` / ``hcu_softmax.py`` / ``bcpnn_update.py`` /
-``bcpnn_phase.py`` / ``bf_round.py``) and the path their wrappers take for
+``bcpnn_phase.py`` / ``bf_round.py``; ``bcpnn_update_means`` is the
+reduced-means mode of ``bcpnn_update``) and the path their wrappers take for
 tensors that lie on the CPU.  They repeat the arithmetic of
 ``repro/kernels/ref.py`` operation for operation, in f32.  Traces stored in
 bf16 (the quantized state tier) are upcast before any arithmetic, as the
@@ -80,6 +81,37 @@ def bcpnn_update(
     if mask is not None:
         w = w * mask
     return ci_n, cj_n, cij_n, w, q(k_b * log_cj)
+
+
+def bcpnn_update_means(
+    mi: torch.Tensor,
+    mj: torch.Tensor,
+    mij: torch.Tensor,
+    ci: torch.Tensor,
+    cj: torch.Tensor,
+    cij: torch.Tensor,
+    lam: float,
+    k_b: float = 1.0,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reduced-means mode: the EWMA of the three traces from batch
+    means already all-reduced over the ranks, then w and bias from their
+    logs (``update_marginals`` + ``weights_from_marginals`` + mask of
+    ``repro/core/learning.py``, as ``repro/core/distributed.py:
+    dp_learning_cycle`` runs them).  Returns (ci', cj', cij', w, bias), f32."""
+    one_m = 1.0 - lam
+    ci_n = one_m * ci + lam * mi
+    cj_n = one_m * cj + lam * mj
+    cij_n = one_m * cij + lam * mij
+    log_cj = torch.log(torch.clamp_min(cj_n, EPS))
+    w = (
+        torch.log(torch.clamp_min(cij_n, EPS))
+        - torch.log(torch.clamp_min(ci_n, EPS))[:, None]
+        - log_cj[None, :]
+    )
+    if mask is not None:
+        w = w * mask
+    return ci_n, cj_n, cij_n, w, k_b * log_cj
 
 
 def bcpnn_phase(

@@ -18,8 +18,22 @@ the frozen stack per batch.
   zero-padded to a full chunk, so every row sees the GEMM shape of a
   training batch.  Each chunk is staged on the device first and then
   projected under strict mode's dispatch guard; the projection callable of
-  each ``(j, k)`` span is built once (:meth:`ActivationStore.projections`,
-  which the recompile sentinel watches).
+  each ``(j, k)`` span is built once, with a signature-counting twin
+  (:meth:`ActivationStore.projections`, which a recompile sentinel
+  watches) that a strict store, or a strict caller of :meth:`level` (a
+  strict serving plan over a network compiled without strict), projects
+  through; a caller that is not strict runs the bare callable.
+* Under a data-parallel trainer (``ExecutionConfig(trainer=)``) a
+  ``collective`` call of :meth:`ActivationStore.level` (the phase
+  program's, on every rank together) splits the chunks over the batch
+  ranks and gathers the level with one all-reduce into zero-filled rows:
+  each chunk has the shape it has on one device, so the level is the
+  one-device level.  Every other call (predict, serving) projects on the
+  rank that asks, and may cache the level on that rank alone, so a
+  collective call first all-reduces a flag: the cache serves it only
+  where every batch rank holds the level, and otherwise every rank
+  projects (a rank that returned early would leave the others waiting
+  in the projection's all-reduce).
 * Threads: :meth:`ActivationStore.level` and
   :meth:`ActivationStore.invalidate_above` hold one lock, so several
   serving engines may share a compiled network (without it, one thread's
@@ -75,11 +89,14 @@ class ActivationStore:
         budget_bytes: int = 512 << 20,
         host_budget_bytes: Optional[int] = None,
         strict: bool = False,
+        trainer=None,
     ):
         self.layers = list(layers)
         self.device = torch.device(device)
         self.strict = strict
+        self.trainer = trainer
         self._proj: Dict[Tuple[int, int], Callable] = {}  # (j, k) -> layers[j:k] forward
+        self._counted: Dict[Tuple[int, int], Callable] = {}  # (j, k) -> its Counted twin
         self.budget_bytes = int(budget_bytes)
         self.host_budget_bytes = (
             int(host_budget_bytes) if host_budget_bytes is not None else 4 * self.budget_bytes
@@ -90,21 +107,30 @@ class ActivationStore:
         self._lock = threading.RLock()
 
     # ------------------------------------------------------------- interface
-    def level(self, k: int, states: Sequence[Any], x, chunk: int):
-        """Representation of ``x`` at level ``k`` under frozen ``states[:k]``."""
+    def level(self, k: int, states: Sequence[Any], x, chunk: int, strict: bool = False,
+              collective: bool = False):
+        """Representation of ``x`` at level ``k`` under frozen ``states[:k]``.
+        ``strict`` (or a strict store) projects through the counted
+        callables, each chunk under the dispatch guard; ``collective``
+        (every rank calls together) shares a projection over a trainer's
+        batch ranks."""
         if k == 0:
             return x
         if not 0 < k <= len(self.layers):
             raise ValueError(f"level {k} out of range for {len(self.layers)} layers")
         with self._lock:
-            return self._level_locked(k, states, x, chunk)
+            return self._level_locked(k, states, x, chunk, strict or self.strict, collective)
 
-    def _level_locked(self, k: int, states: Sequence[Any], x, chunk: int):
+    def _level_locked(self, k: int, states: Sequence[Any], x, chunk: int, strict: bool,
+                      collective: bool):
         self._purge(states)
         # Each entry holds a strong reference to its dataset array, so the
         # id() in its key stays reserved for the entry's lifetime.
         key = (id(x), k)
         entry = self._entries.get(key)
+        trainer = self.trainer if collective else None
+        if trainer is not None and not self._every_rank_holds(entry is not None, trainer):
+            entry = None
         if entry is not None:
             self.stats["hits"] += 1
             entry.tick = self._next_tick_locked()
@@ -113,7 +139,7 @@ class ActivationStore:
         for (aid, lvl), e in self._entries.items():
             if aid == id(x) and j < lvl < k:
                 base, j = e.value, lvl
-        value = self._project(base, j, k, states, chunk)
+        value = self._project(base, j, k, states, chunk, strict, trainer)
         self._insert(key, value, states, x)
         return self._entries[key].value
 
@@ -141,9 +167,10 @@ class ActivationStore:
             return sum(e.nbytes for e in self._entries.values() if e.on_host)
 
     def projections(self) -> Dict[Tuple[int, int], Callable]:
-        """The projection callable of every ``(j, k)`` span built so far."""
+        """The counted projection callable of every ``(j, k)`` span built
+        so far: what a recompile sentinel watches."""
         with self._lock:
-            return dict(self._proj)
+            return dict(self._counted)
 
     def resident(self, k: int, x) -> Optional[str]:
         """'device' / 'host' for the cached level ``k`` of ``x``, else None."""
@@ -158,32 +185,57 @@ class ActivationStore:
         self._tick += 1
         return self._tick
 
+    def _every_rank_holds(self, held: bool, trainer) -> bool:
+        """Whether every batch rank of ``trainer`` holds the level asked
+        for (one all-reduce of a flag, on every rank together)."""
+        from repro_torch.core.distributed import all_reduce
+
+        flag = torch.tensor([int(held)], dtype=torch.int32, device=self.device)
+        return int(all_reduce(flag, trainer.batch_group).item()) == trainer.n_batch
+
     def _purge(self, states: Sequence[Any]) -> None:
         stale = [k for k, e in self._entries.items() if not e.valid_for(states)]
         for k in stale:
             del self._entries[k]
             self.stats["evictions"] += 1
 
-    def _project(self, base, j: int, k: int, states: Sequence[Any], chunk: int) -> torch.Tensor:
+    def _project(self, base, j: int, k: int, states: Sequence[Any], chunk: int,
+                 strict: bool, trainer=None) -> torch.Tensor:
         """One pass of ``base`` (level j) through layers[j:k], chunk by chunk;
-        the ragged tail is zero-padded to a full chunk and sliced."""
+        the ragged tail is zero-padded to a full chunk and sliced.  With a
+        ``trainer``, this rank projects its contiguous share of the chunks
+        into zero-filled rows of the level and one all-reduce over the
+        batch ranks fills in the others'."""
         self.stats["projections"] += 1
-        fwd = self._proj.get((j, k))
-        if fwd is None:
-            fwd = self._proj[(j, k)] = counted(forward_stack(self.layers[j:k]), self.strict)
+        if (j, k) not in self._proj:
+            self._proj[(j, k)] = forward_stack(self.layers[j:k])
+            self._counted[(j, k)] = counted(self._proj[(j, k)])
+        fwd = (self._counted if strict else self._proj)[(j, k)]
         frozen = tuple(states[j:k])
         n = base.shape[0]
         chunk = min(chunk, n)
+        starts = range(0, n, chunk)
+        if trainer is not None:
+            share = -(-len(starts) // trainer.n_batch)
+            starts = starts[trainer.batch_rank * share:(trainer.batch_rank + 1) * share]
         parts = []
-        for start in range(0, n, chunk):
+        for start in starts:
             xb = rows_to(base, start, start + chunk, self.device)
             rows = xb.shape[0]
             if rows < chunk:
                 pad = torch.zeros((chunk - rows, *xb.shape[1:]), dtype=xb.dtype, device=xb.device)
                 xb = torch.cat([xb, pad])
-            with dispatch_guard(self.strict, self.device, {"states": frozen, "xb": xb}):
+            with dispatch_guard(strict, self.device, {"states": frozen, "xb": xb}):
                 parts.append(fwd(frozen, xb)[:rows])
-        return torch.cat(parts) if len(parts) > 1 else parts[0]
+        if trainer is None:
+            return torch.cat(parts) if len(parts) > 1 else parts[0]
+        width = frozen[-1].b.shape[0]  # the last frozen layer's units
+        out = torch.zeros((n, width), dtype=torch.float32, device=self.device)
+        if parts:
+            out[starts[0]:starts[0] + sum(p.shape[0] for p in parts)] = torch.cat(parts)
+        from repro_torch.core.distributed import all_reduce
+
+        return all_reduce(out, trainer.batch_group)
 
     def _insert(self, key: Tuple[int, int], value: torch.Tensor, states, x) -> None:
         nbytes = value.numel() * value.element_size()
@@ -217,11 +269,14 @@ class ActivationStore:
 
 
 def store_for(layers: Sequence[Any], config, device) -> Optional[ActivationStore]:
-    """The store an ``ExecutionConfig`` asks for (None on the fused path)."""
+    """The store an ``ExecutionConfig`` asks for (None on the fused path).
+    Under its ``trainer`` the phase program's projections of the training
+    set are shared over the trainer's batch ranks."""
     if not config.cache_activations:
         return None
     budget = int(float(config.activation_budget_mb) * (1 << 20))
-    return ActivationStore(layers, device, budget_bytes=budget, strict=config.strict)
+    return ActivationStore(layers, device, budget_bytes=budget, strict=config.strict,
+                           trainer=config.trainer)
 
 
 __all__ = ["ActivationStore", "store_for"]

@@ -13,7 +13,10 @@ stream, so the host only enqueues and never waits inside an epoch.
   each get one;
 * the ``*_epoch_cached_fn`` builders take inputs already projected through
   the frozen prefix by the activation store, so the loop holds no frozen
-  forward at all.
+  forward at all;
+* under a data-parallel trainer (``repro_torch.core.distributed``) each
+  builder takes the trainer's step (``step_fn``) and each rank stacks only
+  its rows of every global batch (:func:`epoch_sharding`).
 
 The epoch driver (shuffle, stack, thread states through phases) lives in
 :class:`repro_torch.runtime.plans.ScanPlan`.
@@ -80,6 +83,19 @@ def rows_to(arr, start: int, stop: int, device: torch.device) -> torch.Tensor:
     return part.to(device)
 
 
+def epoch_sharding(trainer, idx: np.ndarray, batch_size: int):
+    """This rank's rows of a shuffled epoch under ``trainer``: of every
+    global batch of ``batch_size`` rows in ``idx``, the contiguous share
+    ``trainer.rows`` names, in batch order.  Returns ``(local idx, local
+    batch size)``; without a trainer, ``(idx, batch_size)``.  A batch size
+    that the batch ranks do not divide raises ``ValueError``."""
+    if trainer is None:
+        return idx, batch_size
+    rows = trainer.rows(batch_size)
+    local = np.asarray(idx).reshape(-1, batch_size)[:, rows]
+    return np.ascontiguousarray(local).reshape(-1), rows.stop - rows.start
+
+
 def forward_stack(layers: Sequence[Any]) -> Callable:
     """``(states, xb) -> xb`` through a frozen layer stack: the one frozen
     forward loop, shared by the epoch loops, BatchPlan and the store."""
@@ -91,75 +107,96 @@ def forward_stack(layers: Sequence[Any]) -> Callable:
     return fwd
 
 
-def hidden_epoch_fn(layer, below_layers: Sequence[Any]) -> Callable:
+def _hidden_step(layer, step_fn: Optional[Callable]) -> Callable:
+    return step_fn if step_fn is not None else (lambda s, xb: layer.train_batch(s, xb)[0])
+
+
+def _readout_step(layer, step_fn: Optional[Callable]) -> Callable:
+    return step_fn if step_fn is not None else (lambda s, hb, yb: layer.train_batch(s, hb, yb)[0])
+
+
+def hidden_epoch_fn(layer, below_layers: Sequence[Any], step_fn: Optional[Callable] = None
+                    ) -> Callable:
     """``(state, below_states, xs) -> state`` for one Hebbian epoch over the
-    stacked raw input ``xs`` (n_batches, B, F)."""
+    stacked raw input ``xs`` (n_batches, B, F); ``step_fn`` (a trainer's)
+    replaces the layer's ``train_batch``."""
     below = forward_stack(below_layers)
+    step = _hidden_step(layer, step_fn)
 
     def epoch(state, below_states, xs):
         for xb in xs:
-            state = layer.train_batch(state, below(below_states, xb))[0]
+            state = step(state, below(below_states, xb))
         return state
 
     return epoch
 
 
-def readout_epoch_fn(layer, hidden_layers: Sequence[Any]) -> Callable:
+def readout_epoch_fn(layer, hidden_layers: Sequence[Any], step_fn: Optional[Callable] = None
+                     ) -> Callable:
     """``(state, hidden_states, xs, ys) -> state`` for one supervised BCPNN
     readout epoch (post-activations clamped to one-hot labels)."""
     below = forward_stack(hidden_layers)
+    step = _readout_step(layer, step_fn)
 
     def epoch(state, hidden_states, xs, ys):
         for xb, yb in zip(xs, ys):
-            state = layer.train_batch(state, below(hidden_states, xb), yb)[0]
+            state = step(state, below(hidden_states, xb), yb)
         return state
 
     return epoch
 
 
-def hidden_epoch_cached_fn(layer) -> Callable:
+def hidden_epoch_cached_fn(layer, step_fn: Optional[Callable] = None) -> Callable:
     """``(state, xs) -> state``: one Hebbian epoch on pre-projected inputs."""
+    step = _hidden_step(layer, step_fn)
+
     def epoch(state, xs):
         for xb in xs:
-            state = layer.train_batch(state, xb)[0]
+            state = step(state, xb)
         return state
 
     return epoch
 
 
-def readout_epoch_cached_fn(layer) -> Callable:
+def readout_epoch_cached_fn(layer, step_fn: Optional[Callable] = None) -> Callable:
     """``(state, hs, ys) -> state``: one readout epoch on pre-projected codes."""
+    step = _readout_step(layer, step_fn)
+
     def epoch(state, hs, ys):
         for hb, yb in zip(hs, ys):
-            state = layer.train_batch(state, hb, yb)[0]
+            state = step(state, hb, yb)
         return state
 
     return epoch
 
 
-def sgd_step(opt, loss_fn: Callable) -> Callable:
+def sgd_step(opt, loss_fn: Callable, reduce_grads: Optional[Callable] = None) -> Callable:
     """``(params, opt_state, hb, yb) -> (params, opt_state, loss)``: one step
     of the hybrid readout, the gradients taken by autograd on the head's
-    tensors, then the optimizer's update added to the params (new tensors;
-    the old params are left as they were)."""
+    tensors (and averaged over the ranks by ``reduce_grads``, a trainer's
+    ``average_grads``), then the optimizer's update added to the params
+    (new tensors; the old params are left as they were)."""
     def step(params, opt_state, hb, yb):
         leaves, rebuild = tree_flatten(params)
         with torch.enable_grad():
             live = [t.detach().requires_grad_(True) for t in leaves]
             loss = loss_fn(rebuild(live), hb, yb)
             grads = torch.autograd.grad(loss, live)
+        if reduce_grads is not None:
+            grads = reduce_grads(grads)
         updates, opt_state = opt.update(rebuild(list(grads)), opt_state, params)
         return apply_updates(params, updates), opt_state, loss.detach()
 
     return step
 
 
-def sgd_epoch_fn(opt, hidden_layers: Sequence[Any], loss_fn: Callable) -> Callable:
+def sgd_epoch_fn(opt, hidden_layers: Sequence[Any], loss_fn: Callable,
+                 reduce_grads: Optional[Callable] = None) -> Callable:
     """``(params, opt_state, hidden_states, xs, ys) -> (params, opt_state,
     loss)`` for one hybrid-readout epoch over the raw input; ``loss`` is
     the last batch's."""
     below = forward_stack(hidden_layers)
-    step = sgd_step(opt, loss_fn)
+    step = sgd_step(opt, loss_fn, reduce_grads)
 
     def epoch(params, opt_state, hidden_states, xs, ys):
         loss = torch.zeros((), device=xs.device)
@@ -170,10 +207,11 @@ def sgd_epoch_fn(opt, hidden_layers: Sequence[Any], loss_fn: Callable) -> Callab
     return epoch
 
 
-def sgd_epoch_cached_fn(opt, loss_fn: Callable) -> Callable:
+def sgd_epoch_cached_fn(opt, loss_fn: Callable, reduce_grads: Optional[Callable] = None
+                        ) -> Callable:
     """``(params, opt_state, hs, ys) -> (params, opt_state, loss)``: one
     hybrid-readout epoch on pre-projected hidden codes."""
-    step = sgd_step(opt, loss_fn)
+    step = sgd_step(opt, loss_fn, reduce_grads)
 
     def epoch(params, opt_state, hs, ys):
         loss = torch.zeros((), device=hs.device)

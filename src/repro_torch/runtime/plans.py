@@ -22,6 +22,13 @@ Epoch-runner calling convention (host-side data in, new state out):
 ``x``/``y`` are the full datasets (numpy) or cached levels (tensors);
 ``idx`` is the already length-trimmed shuffled index vector of the epoch.
 
+``trainer.decorate(plan)`` (a ``repro_torch.core.distributed``
+``DataParallelTrainer``, bound by ``ExecutionConfig(trainer=...)``) swaps
+every per-batch transition for the trainer's step and makes each rank
+stack only its rows of every global batch (``epoch_sharding``); the phase
+program places each trained layer's state with :meth:`place_state` before
+its epochs and gathers it with :meth:`gather_state` after them.
+
 Both plans build each epoch (or step) callable once and keep it in
 :attr:`ExecutionPlan.callables` (the reference's ``jitted``), so repeated
 ``fit``/``partial_fit`` calls reuse them.  With ``strict`` each callable is
@@ -40,6 +47,7 @@ import torch
 
 from repro_torch.analysis.strict import counted, dispatch_guard
 from repro_torch.runtime.epoch_engine import (
+    epoch_sharding,
     forward_stack,
     gather_batch,
     hidden_epoch_cached_fn,
@@ -54,8 +62,9 @@ from repro_torch.runtime.epoch_engine import (
 
 
 class ExecutionPlan:
-    """Base strategy: owns the bound layers, the target device and the
-    registry of the callables it builds."""
+    """Base strategy: owns the bound layers, the target device, the
+    optional trainer decoration and the registry of the callables it
+    builds."""
 
     name: str = "?"
 
@@ -67,6 +76,7 @@ class ExecutionPlan:
         self.device = torch.device(device)
         self.donate = donate
         self.strict = strict
+        self.trainer = None
         # name -> epoch/step callable, for the strict-mode recompile
         # sentinel: every callable this plan builds registers here.
         self.callables: Dict[str, Callable] = {}
@@ -91,6 +101,62 @@ class ExecutionPlan:
             for name, fn in self.callables.items()
             if hasattr(fn, "_cache_size")
         }
+
+    # ----------------------------------------------------------- decoration
+    def bind_trainer(self, trainer) -> "ExecutionPlan":
+        """Called by ``DataParallelTrainer.decorate``; must precede every
+        runner and step this plan builds (they close over the trainer)."""
+        if self._runners or self.callables:
+            raise RuntimeError("cannot bind a trainer to a plan that already compiled steps")
+        self.trainer = trainer
+        return self
+
+    def place_state(self, layer, state):
+        """The state a phase's epochs train: this rank's part under a
+        trainer (its hypercolumns of a hidden layer), else ``state``."""
+        return state if self.trainer is None else self.trainer.place_state(layer, state)
+
+    def gather_state(self, layer, state):
+        """The global state after a phase's epochs (:meth:`place_state`'s
+        inverse)."""
+        return state if self.trainer is None else self.trainer.gather_state(layer, state)
+
+    def _step_fn(self, layer) -> Optional[Callable]:
+        """The trainer's per-batch step for ``layer`` (this rank's part),
+        or None for the layer's own ``train_batch``."""
+        if self.trainer is None:
+            return None
+        if isinstance(layer, self._plastic_cls):
+            return self.trainer.hidden_step(layer)
+        return self.trainer.readout_step(layer)
+
+    def _reduce_grads(self) -> Optional[Callable]:
+        return None if self.trainer is None else self.trainer.average_grads
+
+    def _rows(self, idx, batch_size):
+        """This rank's rows of the epoch and their batch size."""
+        return epoch_sharding(self.trainer, idx, batch_size)
+
+    def hidden_step(self, li: int) -> Callable:
+        """The registered per-batch ``(state, xb) -> state`` of hidden layer
+        ``li`` (the trainer's under a trainer): BatchPlan's transition and
+        the single-step surface."""
+        name = f"hidden_step[{li}]"
+        if name not in self.callables:
+            layer = self.hidden_layers[li]
+            step = self._step_fn(layer) or (lambda s, xb: layer.train_batch(s, xb)[0])
+            self._register(name, step)
+        return self.callables[name]
+
+    def readout_step(self) -> Callable:
+        """The registered per-batch ``(state, hb, yb) -> state`` of the
+        readout (the trainer's under a trainer)."""
+        name = "readout_step"
+        if name not in self.callables:
+            layer = self.readout_layer
+            step = self._step_fn(layer) or (lambda s, hb, yb: layer.train_batch(s, hb, yb)[0])
+            self._register(name, step)
+        return self.callables[name]
 
     def _register(self, name: str, fn: Callable) -> Callable:
         fn = counted(fn, self.strict)
@@ -137,6 +203,7 @@ class ScanPlan(ExecutionPlan):
         self._buffers: Dict[str, torch.Tensor] = {}  # role -> reused epoch stack
 
     def _stack(self, arr, idx, batch_size, role: str) -> torch.Tensor:
+        idx, batch_size = self._rows(idx, batch_size)
         if not self.donate:
             return stack_epoch(arr, idx, batch_size, self.device)
         shape = (idx.shape[0] // batch_size, batch_size, *arr.shape[1:])
@@ -149,8 +216,10 @@ class ScanPlan(ExecutionPlan):
 
     def hidden_epoch(self, li: int) -> Callable:
         def build():
+            layer = self.hidden_layers[li]
             epoch_fn = self._register(
-                f"hidden_epoch[{li}]", hidden_epoch_fn(self.hidden_layers[li], self.layers[:li])
+                f"hidden_epoch[{li}]",
+                hidden_epoch_fn(layer, self.layers[:li], self._step_fn(layer)),
             )
 
             def run(state, below_states, x, idx, batch_size):
@@ -164,8 +233,9 @@ class ScanPlan(ExecutionPlan):
 
     def readout_epoch(self) -> Callable:
         def build():
+            layer = self.readout_layer
             epoch_fn = self._register(
-                "readout_epoch", readout_epoch_fn(self.readout_layer, self.layers[:-1])
+                "readout_epoch", readout_epoch_fn(layer, self.layers[:-1], self._step_fn(layer))
             )
 
             def run(state, hidden_states, x, y, idx, batch_size):
@@ -180,8 +250,9 @@ class ScanPlan(ExecutionPlan):
 
     def hidden_epoch_cached(self, li: int) -> Callable:
         def build():
+            layer = self.hidden_layers[li]
             epoch_fn = self._register(
-                f"hidden_epoch_cached[{li}]", hidden_epoch_cached_fn(self.hidden_layers[li])
+                f"hidden_epoch_cached[{li}]", hidden_epoch_cached_fn(layer, self._step_fn(layer))
             )
 
             def run(state, xk, idx, batch_size):
@@ -195,8 +266,9 @@ class ScanPlan(ExecutionPlan):
 
     def readout_epoch_cached(self) -> Callable:
         def build():
+            layer = self.readout_layer
             epoch_fn = self._register(
-                "readout_epoch_cached", readout_epoch_cached_fn(self.readout_layer)
+                "readout_epoch_cached", readout_epoch_cached_fn(layer, self._step_fn(layer))
             )
 
             def run(state, hk, y, idx, batch_size):
@@ -211,7 +283,8 @@ class ScanPlan(ExecutionPlan):
 
     # The SGD runners are cached by the compiled network per (width, lr).
     def sgd_epoch(self, opt, loss_fn: Callable) -> Callable:
-        epoch_fn = self._register("sgd_epoch", sgd_epoch_fn(opt, self.hidden_layers, loss_fn))
+        epoch_fn = self._register(
+            "sgd_epoch", sgd_epoch_fn(opt, self.hidden_layers, loss_fn, self._reduce_grads()))
 
         def run(params, opt_state, hidden_states, x, y, idx, batch_size):
             xs = self._stack(x, idx, batch_size, "x")
@@ -223,7 +296,8 @@ class ScanPlan(ExecutionPlan):
         return run
 
     def sgd_epoch_cached(self, opt, loss_fn: Callable) -> Callable:
-        epoch_fn = self._register("sgd_epoch_cached", sgd_epoch_cached_fn(opt, loss_fn))
+        epoch_fn = self._register(
+            "sgd_epoch_cached", sgd_epoch_cached_fn(opt, loss_fn, self._reduce_grads()))
 
         def run(params, opt_state, hk, y, idx, batch_size):
             hs = self._stack(hk, idx, batch_size, "x")
@@ -241,6 +315,7 @@ class BatchPlan(ExecutionPlan):
     name = "batch"
 
     def _batches(self, arrs, idx, batch_size):
+        idx, batch_size = self._rows(idx, batch_size)
         for b in range(0, idx.shape[0], batch_size):
             sel = idx[b : b + batch_size]
             yield [gather_batch(a, sel, self.device) for a in arrs]
@@ -250,8 +325,7 @@ class BatchPlan(ExecutionPlan):
 
     def hidden_epoch(self, li: int) -> Callable:
         def build():
-            layer = self.hidden_layers[li]
-            step = self._register(f"hidden_step[{li}]", lambda s, xb: layer.train_batch(s, xb)[0])
+            step = self.hidden_step(li)
             below = self._below_fn(li)
 
             def run(state, below_states, x, idx, batch_size):
@@ -266,8 +340,7 @@ class BatchPlan(ExecutionPlan):
 
     def readout_epoch(self) -> Callable:
         def build():
-            layer = self.readout_layer
-            step = self._register("readout_step", lambda s, hb, yb: layer.train_batch(s, hb, yb)[0])
+            step = self.readout_step()
             below = self._below_fn(len(self.layers) - 1)
 
             def run(state, hidden_states, x, y, idx, batch_size):
@@ -282,10 +355,7 @@ class BatchPlan(ExecutionPlan):
 
     def hidden_epoch_cached(self, li: int) -> Callable:
         def build():
-            layer = self.hidden_layers[li]
-            step = self._register(
-                f"hidden_step_cached[{li}]", lambda s, xb: layer.train_batch(s, xb)[0]
-            )
+            step = self.hidden_step(li)
 
             def run(state, xk, idx, batch_size):
                 for (xb,) in self._batches([xk], idx, batch_size):
@@ -299,10 +369,7 @@ class BatchPlan(ExecutionPlan):
 
     def readout_epoch_cached(self) -> Callable:
         def build():
-            layer = self.readout_layer
-            step = self._register(
-                "readout_step_cached", lambda s, hb, yb: layer.train_batch(s, hb, yb)[0]
-            )
+            step = self.readout_step()
 
             def run(state, hk, y, idx, batch_size):
                 for hb, yb in self._batches([hk, y], idx, batch_size):
@@ -316,7 +383,7 @@ class BatchPlan(ExecutionPlan):
 
     def sgd_epoch(self, opt, loss_fn: Callable) -> Callable:
         below = self._below_fn(len(self.hidden_layers))
-        step = self._register("sgd_step", sgd_step(opt, loss_fn))
+        step = self._register("sgd_step", sgd_step(opt, loss_fn, self._reduce_grads()))
 
         def run(params, opt_state, hidden_states, x, y, idx, batch_size):
             loss = torch.zeros((), device=self.device)
@@ -329,7 +396,7 @@ class BatchPlan(ExecutionPlan):
         return run
 
     def sgd_epoch_cached(self, opt, loss_fn: Callable) -> Callable:
-        step = self._register("sgd_step_cached", sgd_step(opt, loss_fn))
+        step = self._register("sgd_step_cached", sgd_step(opt, loss_fn, self._reduce_grads()))
 
         def run(params, opt_state, hk, y, idx, batch_size):
             loss = torch.zeros((), device=self.device)

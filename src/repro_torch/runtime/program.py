@@ -12,7 +12,10 @@ synchronisation that ends the epoch (``device_wait_s``); with
 ``ExecutionConfig(trace=...)`` each entry is also a ``train.<phase>`` span
 on ``compiled.tracer``.  With ``ExecutionConfig(strict=True)`` the state
 is checked finite (:func:`check_finite`) after every epoch, after that
-synchronisation and outside every dispatch guard.
+synchronisation and outside every dispatch guard.  Under a data-parallel
+trainer the trained layer's state is placed (this rank's part) before its
+phase's epochs and gathered after them, and the training set's levels are
+projected by the batch ranks together.
 """
 from __future__ import annotations
 
@@ -182,7 +185,7 @@ def _phase_input(net, level: int, states, x, batch_size, history):
     if store is None:
         return None
     t0 = time.perf_counter()
-    xk = store.level(level, states, x, chunk=batch_size)
+    xk = store.level(level, states, x, chunk=batch_size, collective=True)
     if level > 0:
         _timed(history, {"phase": "project", "level": level}, t0, net)
     return xk
@@ -191,7 +194,8 @@ def _phase_input(net, level: int, states, x, batch_size, history):
 def _run_hidden_phase(net, phase, x, n, n_total, batch_size, shuffle, verbose, history) -> None:
     li = phase.li
     states = list(net.state.layers)
-    state = states[li]
+    layer = net.hidden_layers[li]
+    state = net.plan.place_state(layer, states[li])
     xk = _phase_input(net, li, states, x, batch_size, history)
     if xk is not None:
         run_epoch = net.plan.hidden_epoch_cached(li)
@@ -207,7 +211,7 @@ def _run_hidden_phase(net, phase, x, n, n_total, batch_size, shuffle, verbose, h
         check_finite(net, state, f"hidden layer {li}, epoch {epoch}")
         if verbose:
             print(f"[fit/{net.plan.name}] hidden layer {li} epoch {epoch + 1}/{phase.epochs}")
-    states[li] = state
+    states[li] = net.plan.gather_state(layer, state)
     net.state = net.state._replace(layers=tuple(states))
 
 
@@ -216,7 +220,7 @@ def _run_bcpnn_phase(net, phase, x, y, n, n_total, batch_size, shuffle, verbose,
         return False
     li = len(net.layers) - 1
     states = list(net.state.layers)
-    state = states[li]
+    state = net.plan.place_state(net.readout_layer, states[li])
     hk = _phase_input(net, li, states, x, batch_size, history)
     if hk is not None:
         run_epoch = net.plan.readout_epoch_cached()
@@ -232,7 +236,7 @@ def _run_bcpnn_phase(net, phase, x, y, n, n_total, batch_size, shuffle, verbose,
         check_finite(net, state, f"bcpnn readout epoch {epoch}")
         if verbose:
             print(f"[fit/{net.plan.name}] readout epoch {epoch + 1}/{phase.epochs}")
-    states[li] = state
+    states[li] = net.plan.gather_state(net.readout_layer, state)
     net.state = net.state._replace(layers=tuple(states))
     return True
 

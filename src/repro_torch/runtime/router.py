@@ -777,9 +777,21 @@ class Router:
     ) -> Optional[Tuple[_RouterWork, _EngineSlot]]:
         """DRR across tenants, EDF within, capacity-gated engine choice.
         Expired/dead-pool work is moved into ``shed`` for the caller to
-        fail outside the lock."""
+        fail outside the lock.
+
+        Each engine's inbox depth is read once, before the scan: an engine
+        thread that takes an item mid-scan must not hand the freed slot to
+        a tenant later in the ring while the tenant at the ring's head,
+        which holds the credit, was just turned away as full.  (The JAX
+        package's Router reads the depth live at every tenant, so which
+        tenant is served there can depend on thread timing.)"""
         now = time.perf_counter()
         cfg = self.config
+        depths = {
+            name: slot.engine.inbox_depth
+            for name, slot in self._slots.items()
+            if slot.engine is not None
+        }
         for attempt in (0, 1):
             n = len(self._ring)
             credit_blocked = False
@@ -791,7 +803,7 @@ class Router:
                     continue
                 if t.deficit < 1.0:
                     continue
-                picked = self._pop_tenant_locked(t, now, shed)
+                picked = self._pop_tenant_locked(t, now, shed, depths)
                 if picked is None:
                     credit_blocked = True  # capacity, not credit
                     continue
@@ -825,10 +837,12 @@ class Router:
         t: _TenantState,
         now: float,
         shed: List[Tuple[_RouterWork, BaseException]],
+        depths: Dict[str, int],
     ) -> Optional[Tuple[_RouterWork, _EngineSlot]]:
         """EDF across this tenant's pool heaps, considering only pools
-        whose engines have inbox capacity.  Sheds expired / cancelled /
-        dead-pool work encountered at the heads."""
+        whose engines have inbox capacity (by ``depths``, the inbox depths
+        the pick read).  Sheds expired / cancelled / dead-pool work
+        encountered at the heads."""
         best_pool: Optional[str] = None
         best_slot: Optional[_EngineSlot] = None
         best_key = None
@@ -855,7 +869,7 @@ class Router:
                 break
             if not heap:
                 continue
-            slot = self._slot_for_pool_locked(pool, now, tenant=t.name)
+            slot = self._slot_for_pool_locked(pool, now, depths, tenant=t.name)
             if slot is None:
                 if self._pool_dead_locked(pool):
                     # Every slot exhausted its restart budget: fail the
@@ -923,7 +937,11 @@ class Router:
         return bool(slots) and all(s.dead for s in slots)
 
     def _slot_for_pool_locked(
-        self, pool: str, now: float, tenant: Optional[str] = None
+        self,
+        pool: str,
+        now: float,
+        depths: Dict[str, int],
+        tenant: Optional[str] = None,
     ) -> Optional[_EngineSlot]:
         """The pool's best engine with inbox capacity: lowest cached p95
         queue-wait (telemetry-driven), tie-broken by inbox depth then
@@ -954,7 +972,7 @@ class Router:
                         return None  # restarting: hold, don't migrate
                     if (
                         slot.config.max_queue is not None
-                        and engine.inbox_depth >= slot.config.max_queue
+                        and depths[slot.name] >= slot.config.max_queue
                     ):
                         return None  # full: hold for the pinned engine
                     return slot
@@ -967,7 +985,7 @@ class Router:
             engine = slot.engine
             if engine.state != "running":
                 continue
-            depth = engine.inbox_depth
+            depth = depths[slot.name]
             if self.config.routing != "round_robin":
                 if now - slot.p95_read_t > self.config.p95_refresh_s:
                     snap = slot.metrics.snapshot()

@@ -212,7 +212,7 @@ class ServiceConfig:
             from repro_torch.runtime.continual import ContinualConfig
 
             if self.continual is not None and not isinstance(self.continual, ContinualConfig):
-                raise TypeError(
+                raise ValueError(
                     f"continual must be a ContinualConfig, got {type(self.continual).__name__}"
                 )
             if self.plan not in (None, "continual"):
@@ -245,7 +245,7 @@ class ServiceConfig:
             from repro_torch.runtime.router import RouterConfig
 
             if not isinstance(self.router, RouterConfig):
-                raise TypeError(f"router must be a RouterConfig, got {type(self.router).__name__}")
+                raise ValueError(f"router must be a RouterConfig, got {type(self.router).__name__}")
         if self.trace is not None:
             from repro_torch.runtime.trace import TraceConfig
 
@@ -399,9 +399,9 @@ class BatchedPlan(ServePlan):
             return anchor
 
     def _strict_registry(self) -> Dict[str, Any]:
-        """The plan's forward and head; the network's projections are
-        watched too when the network was compiled with ``strict=True``
-        (then its store also guards each projection chunk)."""
+        """The plan's forward and head, and the network's counted
+        projections: a strict plan projects through those (each chunk
+        guarded) whether or not the network was compiled strict."""
         compiled = self.compiled
         reg: Dict[str, Any] = {"forward": self._fwd, "head": self._head}
         if compiled.activations is not None:
@@ -418,7 +418,8 @@ class BatchedPlan(ServePlan):
         if compiled.activations is not None and compiled.hidden_layers:
             xb = self._canonical(xb)
             h = compiled.activations.level(
-                len(compiled.hidden_layers), list(state.layers), xb, chunk=xb.shape[0]
+                len(compiled.hidden_layers), list(state.layers), xb, chunk=xb.shape[0],
+                strict=self.config.strict,
             )
             xd = rows_to(h, 0, h.shape[0], self.device)  # a spilled level comes back
             fn = self._head

@@ -706,6 +706,34 @@ class TestStrictServing:
         sizes = svc.plan._sentinel.sizes()
         assert sizes["head"] == 1 and any(k.startswith("proj[") for k in sizes)
 
+    def test_strict_plan_over_a_non_strict_deep_network_watches_its_projections(self, dataset):
+        """A strict BatchedPlan over a deep network compiled without strict
+        projects through the network's counted projections and its sentinel
+        watches them, as the reference plan's registry holds the store's
+        jitted projections; a predict on the network itself, not strict,
+        still runs the bare projection and leaves their counts alone."""
+        from repro_torch.runtime import ServiceConfig
+
+        ds, x, layout = dataset
+        net = Network(seed=0)
+        net.add(StructuralPlasticityLayer(layout, UnitLayout(4, 8), fan_in=16, lam=0.05,
+                                          init_jitter=1.0, gain=4.0))
+        net.add(StructuralPlasticityLayer(UnitLayout(4, 8), UnitLayout(2, 8), fan_in=2, lam=0.05,
+                                          init_jitter=1.0, gain=4.0))
+        net.add(DenseLayer(UnitLayout(2, 8), onehot_layout(10), lam=0.05))
+        c = net.compile(ExecutionConfig(device="cpu"))
+        c.fit((x, ds.y_train), **KW)
+        svc = c.serve(ServiceConfig(plan="batched", max_batch=64, strict=True))
+        a = svc.predict(x[:64])
+        b = svc.predict(x[64:128])
+        assert a.shape == b.shape == (64, 10)
+        sizes = svc.plan._sentinel.sizes()
+        assert sizes["proj[0->2]"] == 1, sizes  # level 2: the two hidden layers
+        watched = c.activations.projections()
+        before = {k: fn._cache_size() for k, fn in watched.items()}
+        c.predict(x[:48], batch_size=48)  # a new shape, not strict
+        assert {k: fn._cache_size() for k, fn in watched.items()} == before
+
     def test_batched_async_engine_strict_matches_plain(self, dataset):
         from repro_torch.runtime import ServiceConfig
 

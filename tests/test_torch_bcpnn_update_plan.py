@@ -95,3 +95,29 @@ def test_phase_plan_rejects_bad_shapes():
     for bad in [(0, 4, 1, 1), (4, 0, 1, 1), (4, 4, 0, 1), (4, 4, 1, 0)]:
         with pytest.raises(ValueError):
             pk.plan(*bad)
+
+
+# The reduced-means mode's tiling (csrc/bcpnn_update.cu:bcpnn_means_kernel):
+# the hidden layer, a model rank's half of it, the readout, and odd shapes.
+MEANS_SWEEP = [(1568, 3000), (1568, 1500), (3000, 10), (1, 1), (17, 7), (64, 32), (5, 4097),
+               (100000, 3), (300, 1024), (300, 1025)]
+
+
+@pytest.mark.parametrize("n_sm", [N_SM, 16, 1])
+@pytest.mark.parametrize("shape", MEANS_SWEEP)
+def test_means_plan_obeys_the_kernel_contract(shape, n_sm):
+    f, h = shape
+    p = bk.means_plan(f, h, n_sm)
+    assert 0 < p.th <= bk.MEANS_MAX_TH and p.th % 4 == 0, "tiles of whole 16-byte runs"
+    assert 0 < p.tr <= bk.MEANS_MAX_TR
+    assert p.tr * (p.th // 4) <= bk.MEANS_RUNS, "a CTA takes at most MEANS_RUNS runs"
+    assert p.tiles_f * p.tr >= f > (p.tiles_f - 1) * p.tr, "the grid covers F"
+    assert p.tiles_h * p.th >= h > (p.tiles_h - 1) * p.th, "the grid covers H"
+    assert p.ctas == p.tiles_f * p.tiles_h
+
+
+def test_means_plan_main_path_choices():
+    assert bk.means_plan(1568, 3000, N_SM) == bk.MeansPlan(th=1000, tr=4, tiles_f=392, tiles_h=3)
+    assert bk.means_plan(3000, 10, N_SM) == bk.MeansPlan(th=12, tr=12, tiles_f=250, tiles_h=1)
+    with pytest.raises(ValueError, match="bad shape"):
+        bk.means_plan(0, 10, N_SM)

@@ -893,3 +893,60 @@ def test_use_kernels_false_runs_plain_on_card(card):
     assert not any(ops.launch_counts().values())
     kernel, _, _ = _guard_net(card)
     assert abs(c.evaluate((x, y)) - kernel.evaluate((x, y))) <= 0.03
+
+
+# ------------------------------------------------ the reduced-means mode
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_mask", [True, False])
+@pytest.mark.parametrize("fh", [(1568, 3000), (1568, 1500), (3000, 10), (17, 7), (300, 1025)])
+def test_bcpnn_update_means_matches_plain_on_card(card, fh, use_mask):
+    """The update's reduced-means mode against its plain version, from the
+    means of a batch: the hidden layer, a model rank's half, the readout,
+    an odd shape (4-byte runs) and a width past one column tile."""
+    f, h = fh
+    p = _problem(64, f, 1, h, use_mask, card)
+    mi, mj, mij = p["x"].mean(0), p["aj"].mean(0), p["x"].T @ p["aj"] / 64
+    args = (mi, mj, mij, p["ci"], p["cj"], p["cij"], 0.05)
+    before = ops.launch_counts()
+    got = bk.bcpnn_update_means(*args, k_b=0.7, mask=p["mask"])
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["bcpnn_update.means"] == before["bcpnn_update.means"] + 1
+    assert after["bcpnn_update"] == before["bcpnn_update"] + 1
+    want = ref.bcpnn_update_means(*args, k_b=0.7, mask=p["mask"])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.cuda
+def test_trainer_steps_at_world_size_1_on_card(card):
+    """A one-rank NCCL group on the card: the shard_map steps launch the
+    forward pair and the reduced-means update, and equal the single-device
+    steps within the reference's data-parallel tolerance."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import DataParallelTrainer
+    from repro_torch.launch.mesh import make_host_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        tr = DataParallelTrainer(make_host_mesh(), "shard_map")
+        layer = StructuralPlasticityLayer(UnitLayout(32, 2), UnitLayout(4, 16), fan_in=16,
+                                          gain=4.0, init_jitter=1.0)
+        st = layer.init(torch.Generator(device=card).manual_seed(0))
+        x = torch.rand(64, 64, generator=torch.Generator(device=card).manual_seed(1), device=card)
+        ops.reset_launches()
+        got = tr.gather_state(layer, tr.hidden_step(layer)(tr.place_state(layer, st), x))
+        counts = ops.launch_counts()
+        assert (counts["masked_matmul"], counts["hcu_softmax"], counts["bcpnn_update"],
+                counts["bcpnn_update.means"]) == (1, 1, 1, 1)
+        want = layer.train_batch(st, x)[0]
+        torch.testing.assert_close(got.w, want.w, rtol=2e-4, atol=2e-5)
+        torch.testing.assert_close(got.marginals.cij, want.marginals.cij, rtol=2e-4, atol=1e-7)
+    finally:
+        dist.destroy_process_group()

@@ -303,11 +303,14 @@ def test_fused_config_validation():
 
 
 def test_unported_options_raise_by_name(data, tmp_path):
-    """Only ``trainer`` (distribution) is still refused by name; the
-    hot-path options are accepted and bound."""
+    """Every ExecutionConfig option is ported: ``trainer`` (distribution)
+    takes a DataParallelTrainer, and the hot-path options are accepted and
+    bound.  A ServiceConfig option of the wrong type raises ValueError, as
+    in the reference."""
     ds, x, _, _ = data
-    with pytest.raises(TypeError, match="trainer"):
-        ExecutionConfig(trainer=None)
+    assert ExecutionConfig(trainer=None).trainer is None
+    with pytest.raises(ValueError, match="trainer"):
+        ExecutionConfig(trainer=object())
     cfg = ExecutionConfig(device="cpu", use_kernels=False, strict=True,
                           profile_dir=str(tmp_path))
     assert (cfg.use_kernels, cfg.strict, cfg.profile_dir) == (False, True, str(tmp_path))
@@ -326,8 +329,10 @@ def test_unported_options_raise_by_name(data, tmp_path):
         assert callable(getattr(net, method))
     from repro_torch.runtime import RouterConfig, ServiceConfig
 
-    with pytest.raises(TypeError, match="continual"):
+    with pytest.raises(ValueError, match="continual"):
         ServiceConfig(continual=True)
+    with pytest.raises(ValueError, match="router"):
+        ServiceConfig(router=True)
     assert ServiceConfig(strict=True).strict is True
     assert ServiceConfig(router=RouterConfig()).router == RouterConfig()
     assert ServiceConfig(plan="decode").plan == "decode"

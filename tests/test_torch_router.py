@@ -174,6 +174,44 @@ class TestScheduling:
         heavy_in_window = sum(1 for x in window if x < 100)
         assert 2.5 <= heavy_in_window / 4 <= 5.5
 
+    def test_engine_freed_mid_pick_keeps_the_ring_order(self):
+        """The engine thread takes its inbox item while the scheduler is
+        scanning the ring: the tenant at the ring's head, holding the
+        credit, was turned away as full, and the slot that just freed must
+        not go to a tenant after it in the same scan.  The pick reads each
+        inbox depth once; the next pick serves the head tenant."""
+
+        class _EmptiedMidScan:
+            """An engine whose inbox holds one item at the first read of
+            its depth and none at every later read."""
+
+            state = "running"
+            plan = None
+
+            def __init__(self):
+                self.reads = 0
+
+            @property
+            def inbox_depth(self):
+                self.reads += 1
+                return 1 if self.reads == 1 else 0
+
+        r = fleet(sleepy_factory(), tenants={"heavy": TenantConfig(weight=4),
+                                             "light": TenantConfig(weight=1)})
+        r.submit(0, tenant="heavy")
+        r.submit(100, tenant="light")
+        engine = _EmptiedMidScan()
+        (slot,) = r._slots.values()
+        real, slot.engine = slot.engine, engine
+        with r._cv:
+            r._ring_idx = r._ring.index("heavy")
+            r._tenants["heavy"].deficit = r._tenants["light"].deficit = 1.0
+            assert r._pick_locked([]) is None
+            work, _ = r._pick_locked([])
+        assert work.item == 0
+        slot.engine = real
+        r.drain_and_stop(timeout=10)
+
     def test_priority_orders_within_tenant(self):
         served = []
         r = fleet(sleepy_factory(served=served))

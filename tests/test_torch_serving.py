@@ -273,13 +273,13 @@ class TestServiceFrontDoor:
             ServiceConfig(trace="on")
 
     @pytest.mark.parametrize("option,error", [
-        (dict(router=object()), TypeError), (dict(continual=object()), TypeError),
+        (dict(router=object()), ValueError), (dict(continual=object()), ValueError),
         (dict(strict=True), None), (dict(plan="decode"), ValueError),
         (dict(plan="continual"), None),
     ], ids=["router", "continual", "strict", "decode", "continual_plan"])
     def test_unported_options_raise_by_name(self, option, error, data):
         """``continual`` and ``router`` take their config types and refuse
-        anything else by name; ``strict`` is accepted and binds the plan's
+        anything else by name with ValueError, as the reference does; ``strict`` is accepted and binds the plan's
         recompile sentinel, the served scores unchanged; ``plan="decode"``
         serves the LM zoo (``serve_model``), so a BCPNN network's ``serve``
         refuses it; ``plan="continual"`` binds the continual tier."""
