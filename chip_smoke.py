@@ -133,11 +133,10 @@ the run with a non-zero exit:
    client threads, 16 requests) and a fleet of two decode engines over the
    one model (two tenants, deadlines, one crash and restart, one copy of
    the weights in memory); and the launcher as a user runs it
-   (``python -m repro_torch.launch.serve --full ...``, ``--online``, and a
-   model too large for the card refused by its bytes), the ``--online``
-   path once more in this process with its launches counted and each
-   launch's shape among phase 3's.  The decode path launches none of the
-   five kernels;
+   (``python -m repro_torch.launch.serve --full ...`` and ``--online``),
+   the ``--online`` path once more in this process with its launches
+   counted and each launch's shape among phase 3's.  The decode path
+   launches none of the five kernels;
 8. the hot-path guard (``repro_torch.analysis.strict``), at MNIST width on
    the card: (a) each of phase 4's four paths twice without strict and once
    with ``ExecutionConfig(strict=True)``, two fit and evaluate rounds each
@@ -178,7 +177,31 @@ the run with a non-zero exit:
    at meshes (2, 1) and (1, 2): both ranks end with the same global state
    bit for bit, each at (a)'s rules with its exact launches; fit wall
    time, time in all-reduce and per-batch ms printed, not gated;
-10. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
+10. the MoE family with MLA attention at full width, with phase 7's slots,
+   buckets, prompts and gates: (a) moonshot-v1-16b-a3b as the repository
+   configures it (48 layers, 64 experts top-6 + 2 shared, GQA, bf16,
+   random weights from seed 0); (b) deepseek-v2-236b at its published
+   width cut to 4 layers (MLA with 128 heads, 160 experts).  The forward
+   and bucketed-versus-exact checks run on the same weights under a
+   capacity factor of E / k, which drops nothing (a bucketed MoE prefill
+   equals an exact one only while nothing drops), each replaying the
+   routing of the path it is held to; the slot gates leave out the rows
+   whose own token the two bf16 orders routed differently.  Every routing
+   difference must be a near-tie of the router's probabilities
+   (MOE_BF16_ROUTE_RTOL).
+   The dropped assignments of each bucketed prefill at the configured 1.25
+   are printed, and prefill and decode-step times against the bytes the
+   step reads (the routed experts it chose, counted from its routing).
+   Then (d) the async engine and a fleet of two engines over moonshot,
+   strict serving of moonshot at depth 4 (tokens equal to the plain
+   service's), the launcher (``--arch moonshot-v1-16b-a3b --full`` serves,
+   ``--arch deepseek-v2-236b --full`` is refused by its bytes), and (c)
+   moonshot's width at depth 3 in f32, the card against the CPU at the
+   configured capacity: every routing call equal but at near-ties of the
+   CPU's probabilities (1e-5 relative), kept slots equal, logits within
+   1e-4 relative + 1e-4 x std where no flip reached, tokens equal up to
+   the first near-tie.  The path launches none of the five kernels;
+11. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
    ...}`` line.
 
 Without a CUDA device, or away from the rest of the repository, it exits
@@ -287,6 +310,21 @@ DEC_REPS = 5  # graph replays of a prefill or a decode step, each milliseconds l
 # of the same inputs, so the token gate is sound.  bf16 orders were read
 # 0.027 apart at most on an H100 (PERF.md §6).
 NEAR_TIE = 2.0 ** -3
+# MoE routing in bf16 (phase 10): two orders of one bf16 model (other GEMM
+# shapes) route a token differently only at a near-tie of its router
+# probabilities.  A router logit near 1 moves by a bf16 ulp (2^-7) at each
+# rounding, and a relative gap between two probabilities is about the gap
+# between their logits, so a flip's gap stays within a few ulps;
+# MOE_BF16_ROUTE_RTOL bounds it with room.  A flipped token's row leaves
+# the logit gates (``route_diffs``).
+MOE_BF16_ROUTE_RTOL = 2.0 ** -4
+# ... and where the model's own bf16 drift is larger (moonshot's 48 layers:
+# two prefills of one prompt at other GEMM shapes, routing replayed, land
+# 0.15 apart in the logits and 0.10 apart in the router's probabilities, on
+# an H100), the MoE forward check's bounds are MOE_DRIFT_FACTOR x that
+# drift: the decode path may be no further from forward than twice what
+# the model's own GEMM shapes move it.
+MOE_DRIFT_FACTOR = 2.0
 # prefill + decode logits against forward's over the whole sequence, bf16:
 # max |difference| at most this share of the logits' standard deviation.
 DEC_FORWARD_TOL = 2.0 ** -3
@@ -2081,6 +2119,8 @@ class LogitRecorder:
     def __init__(self, torch, model):
         self.torch, self.model, self.device = torch, model, model.device
         self.prefills, self.steps = [], []
+        self.placed = {}  # rid -> (its first fused step, its slot), set by logits()
+        self.current = None  # the call in progress: ("prefill", i) or ("step", j)
 
     def cache_shapes(self, batch, seq):
         return self.model.cache_shapes(batch, seq)
@@ -2089,11 +2129,13 @@ class LogitRecorder:
         return self.model.init_cache(batch, seq)
 
     def prefill(self, batch):
+        self.current = ("prefill", len(self.prefills))
         logits, cache = self.model.prefill(batch)
         self.prefills.append((batch["tokens"][0, :batch["last_pos"] + 1], logits[0]))
         return logits, cache
 
     def decode_step(self, cache, token, cur_len):
+        self.current = ("step", len(self.steps))
         logits, cache = self.model.decode_step(cache, token, cur_len)
         self.steps.append((token[:, 0], cur_len, logits))
         return logits, cache
@@ -2118,6 +2160,7 @@ class LogitRecorder:
             check(len(pre) == 1 and len(runs) == 1,
                   f"request {c.rid}: {len(pre)} prefills and {len(runs)} runs of steps fed it")
             j, s = runs[0]
+            self.placed[c.rid] = (j, s)
             lg = torch.stack([pre[0]] + [self.steps[j + k][2][s] for k in range(n_steps)]).float()
             check(torch.equal(lg.argmax(-1).cpu(), torch.from_numpy(c.tokens).long()),
                   f"request {c.rid}: its tokens are not its logits' argmax")
@@ -2216,18 +2259,211 @@ def matmul_f32_on_card(torch, model, cfg, dev):
     return out
 
 
-def decode_width(torch, model, cfg, dev, card):
-    """Phase 7a: gemma3-1b at its published width, bf16, through
-    ``serve_model``: the slot-batched plan against a single-slot plan, the
-    decode against ``forward`` over the whole sequence, bucketed against
-    exact-length prefills, an EOS exit; then the prefill and decode-step
-    times against the bytes' bound."""
+class RouteLog:
+    """While open, records every top-k routing of ``repro_torch.models.moe``
+    (each MoE layer of a prefill or a decode step calls ``_topk`` once):
+    the call in progress of ``rec`` (a LogitRecorder, or None), the full
+    probabilities and the chosen ids, on the host.  Reading them back syncs
+    the device, so only correctness runs and byte counts use it."""
+
+    def __init__(self, rec=None):
+        from repro_torch.models import moe
+
+        self.moe, self.rec, self.calls = moe, rec, []
+
+    def __enter__(self):
+        real = self.real = self.moe._topk
+
+        def logged(probs, k):
+            top_p, top_i = real(probs, k)
+            self.calls.append((self.rec.current if self.rec else None,
+                               probs.detach().float().cpu(), top_i.cpu()))
+            return top_p, top_i
+
+        self.moe._topk = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._topk = self.real
+
+
+def routes(log, rec, prompts, n_steps):
+    """A recorded plan's routing by request and logits row: (rid, row) ->
+    [(ids (T, k), probabilities (T, E)) per MoE layer], row 0 holding the
+    prefill's prompt tokens (pad tokens cut), row r >= 1 decode step r's
+    token of that request (idle slots dropped)."""
     import numpy as np
 
-    from repro_torch.runtime import Request, ServiceConfig, serve_model
+    by = {}
+    for call, probs, ids in log.calls:
+        kind, i = call
+        if kind == "prefill":
+            toks = rec.prefills[i][0].cpu().numpy()
+            rid = next(r for r, p in enumerate(prompts)
+                       if len(p) == len(toks) and np.array_equal(p, toks))
+            by.setdefault((rid, 0), []).append((ids[:len(toks)], probs[:len(toks)]))
+            continue
+        for rid, (j0, slot) in rec.placed.items():
+            if j0 <= i < j0 + n_steps:
+                by.setdefault((rid, i - j0 + 1), []).append(
+                    (ids[slot:slot + 1], probs[slot:slot + 1]))
+    return by
 
-    from repro_torch.runtime import DecodePlan
 
+def route_gap(probs, chosen, other) -> float:
+    """How far apart, relative, two top-k choices are in ``probs`` (E,):
+    at the first place where the ids differ, the probability of the expert
+    ``chosen`` took less that of the one ``other`` took, over the first.
+    0 for an exact tie; negative when ``other``'s is the larger there."""
+    j = int((chosen != other).nonzero()[0, 0])
+    p_c, p_o = float(probs[chosen[j]]), float(probs[other[j]])
+    return (p_c - p_o) / p_c
+
+
+class RouteReplay:
+    """While open, every top-k routing of ``repro_torch.models.moe`` takes
+    the expert ids given for its call (``ids[i]``, (T', k) for the call's
+    first T' tokens; later tokens keep their own choice), with this run's
+    own probabilities of those experts.  Two computations of one model can
+    then be compared with the same discrete routing: ``gaps`` records, for
+    every token whose own choice differed, how near a tie the two choices
+    were in this run's probabilities (``route_gap``)."""
+
+    def __init__(self, ids):
+        from repro_torch.models import moe
+
+        self.moe, self.ids, self.calls, self.gaps = moe, list(ids), 0, []
+
+    def __enter__(self):
+        real = self.real = self.moe._topk
+
+        def replay(probs, k):
+            _, own = real(probs, k)
+            want = own.clone()
+            given = self.ids[self.calls].to(own.device)
+            want[:len(given)] = given
+            for t in (own != want).any(-1).nonzero()[:, 0].tolist():
+                self.gaps.append(dict(call=self.calls, token=t, own=own[t].tolist(),
+                                      replayed=want[t].tolist(),
+                                      rel_gap=route_gap(probs[t], own[t], want[t])))
+            self.calls += 1
+            return probs.gather(-1, want), want
+
+        self.moe._topk = replay
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._topk = self.real
+        check(exc[0] is not None or self.calls == len(self.ids),
+              f"replayed {self.calls} routing calls of {len(self.ids)}")
+
+
+def route_diffs(torch, a, b, rtol, label, own_row=True, same=None):
+    """Hold run a's routing against run b's, (rid, row) by (rid, row), as
+    ``routes`` maps them, on the rows both runs fed the same tokens
+    (``same``: rid -> that number of rows, ``same_input_rows``; all when
+    None).  Where a token's expert ids differ, the two choices must be a
+    near-tie in b's probabilities (``route_gap`` under ``rtol``), else the
+    check fails.  Returns (the
+    flips, rid -> the logits rows a flip excludes).  ``own_row``: a row is
+    excluded when its own token flipped (row 0: the prompt's last token);
+    otherwise a request's rows from its first flip on, wherever in the
+    prompt or its steps that flip was (and the rest of that row's layers
+    go unchecked: their inputs differ)."""
+    flips, excluded = [], {}
+    for key in sorted(a):
+        rid, row = key
+        if same is not None and row >= same[rid]:
+            continue
+        if not own_row and rid in excluded and row >= min(excluded[rid]):
+            continue
+        check(key in b and len(a[key]) == len(b[key]),
+              f"{label}: request {rid} row {row} routed in one run only")
+        for layer, ((ia, _), (ib, pb)) in enumerate(zip(a[key], b[key])):
+            if own_row and row == 0:
+                ia, ib, pb = ia[-1:], ib[-1:], pb[-1:]
+            differ = (ia != ib).any(-1).nonzero()
+            if len(differ) == 0:
+                continue
+            t = int(differ[0, 0])
+            gap = route_gap(pb[t], ib[t], ia[t])
+            check(gap < rtol, f"{label}: request {rid} row {row} MoE layer {layer} token {t}: "
+                              f"experts {ia[t].tolist()} against {ib[t].tolist()}, "
+                              f"{gap:.3g} apart (relative)")
+            flips.append(dict(rid=rid, row=row, layer=layer, token=t, a=ia[t].tolist(),
+                              b=ib[t].tolist(), rel_gap=gap))
+            excluded.setdefault(rid, set()).add(row)
+            break
+    if not own_row:  # every row from the first flip on
+        end = max(row for _, row in a) + 1
+        excluded = {rid: set(range(min(rows), end)) for rid, rows in excluded.items()}
+    return flips, excluded
+
+
+def kept_rows(n, excluded):
+    """The logits rows below n that no routing flip excluded."""
+    return [r for r in range(n) if r not in excluded]
+
+
+def forward_check(torch, model, prompts, sc, dev, new):
+    """Each prompt through a single-slot plan over ``model`` (its prefill,
+    then new - 1 decode steps), then one ``forward`` over the prompt and its
+    decoded tokens that replays the plan's routing (each MoE layer's ids of
+    the prompt, then of each decoded token; ``RouteReplay``): bf16 routing
+    near-ties are dense enough that over 47 MoE layers every row flips
+    somewhere, and one flip moves a row's logits by several percent of
+    their spread.  Returns (prompt length, the plan's logits (new, V), the
+    forward's at the same positions, the replay's gaps) a prompt."""
+    import numpy as np
+
+    from repro_torch.runtime import DecodePlan, Request, ServiceConfig
+
+    rec = LogitRecorder(torch, model)
+    with RouteLog(rec) as log:
+        done = DecodePlan(rec, ServiceConfig(max_batch=1, **sc)).generate(
+            dec_requests(Request, prompts, new))
+    runs, routed = rec.logits(done, prompts), routes(log, rec, prompts, new - 1)
+    out = []
+    for rid, p in enumerate(prompts):
+        toks, lg = runs[rid]
+        n = len(p)
+        seq = np.concatenate([p, toks[:-1]]).astype(np.int64)
+        layers = len(routed.get((rid, 0), ()))
+        ids = [torch.cat([routed[(rid, r)][layer][0] for r in range(len(toks))])
+               for layer in range(layers)]
+        with RouteReplay(ids) as replay:
+            full, _ = model({"tokens": torch.from_numpy(seq)[None].to(dev)})
+        out.append((n, lg, full[0, n - 1:].float().clone(), replay.gaps))
+        del full
+    return out
+
+
+def gqa_step_bytes(model, cfg):
+    """(S, the step) -> the bytes a dense GQA decode step of S slots reads at least:
+    every weight (the tied table is the unembedding) and each slot's whole
+    k/v cache (the step masks over all ``max_seq`` positions)."""
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache_slot_bytes = 2 * cfg.n_layers * DEC_MAX_SEQ * cfg.n_kv_heads * cfg.d_head * 2
+    return lambda S, step: weight_bytes + S * cache_slot_bytes
+
+
+def decode_width(torch, model, cfg, dev, card, label="7a", twin=None, step_bytes=None,
+                 host_reps=20):
+    """Phase 7a (and 10a-b): a decoder at its published width, bf16,
+    through ``serve_model``: the slot-batched plan against a single-slot
+    plan, the decode against ``forward`` over the whole sequence, bucketed
+    against exact-length prefills, an EOS exit; then the prefill and
+    decode-step times against the bytes' bound (``step_bytes(S)``).
+    ``twin`` (default: the model) serves the forward and bucketed checks:
+    the same weights under a config whose MoE layers drop nothing; each
+    replays the routing of the computation it is held to (``RouteReplay``),
+    every replayed choice a near-tie of its own."""
+    import numpy as np
+
+    from repro_torch.runtime import DecodePlan, Request, ServiceConfig, serve_model
+
+    twin = model if twin is None else twin
+    step_bytes = step_bytes or gqa_step_bytes(model, cfg)
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in DEC_LENGTHS]
     sc = dict(plan="decode", max_seq=DEC_MAX_SEQ, buckets=DEC_BUCKETS)
@@ -2239,66 +2475,94 @@ def decode_width(torch, model, cfg, dev, card):
     batched = sorted(svc.generate(dec_requests(Request, prompts, DEC_NEW)), key=lambda c: c.rid)
     wall = time.perf_counter() - t0
     n_tokens = sum(len(c.tokens) for c in batched)
-    check([c.rid for c in batched] == list(range(len(prompts))), "7a: a request did not complete")
+    check([c.rid for c in batched] == list(range(len(prompts))),
+          f"{label}: a request did not complete")
     for c in batched:
         check(c.prefill_len == len(prompts[c.rid]) and c.steps == DEC_NEW
-              and len(c.tokens) == DEC_NEW, f"7a: request {c.rid} completed as {c}")
+              and len(c.tokens) == DEC_NEW, f"{label}: request {c.rid} completed as {c}")
 
     # The same slot-batched schedule and a single-slot plan, every logit
     # kept: plain plans over a recorder of the model's calls.  The recorded
     # slot-batched run repeats the served run's calls, so its tokens too.
-    runs = {}
+    # An MoE layer's routing is discrete: where the two runs' bf16 orders
+    # route a token differently (a near-tie, ``route_diffs``), that row's
+    # logits are left out of the slot gates and the token gate stops there.
+    runs, routed = {}, {}
     for name, slots in (("batched", DEC_MAX_BATCH), ("single", 1)):
         rec = LogitRecorder(torch, model)
-        done = DecodePlan(rec, ServiceConfig(max_batch=slots, **sc)).generate(
-            dec_requests(Request, prompts, DEC_NEW))
+        with RouteLog(rec) as log:
+            done = DecodePlan(rec, ServiceConfig(max_batch=slots, **sc)).generate(
+                dec_requests(Request, prompts, DEC_NEW))
         runs[name] = rec.logits(done, prompts)
-        del rec, done
+        routed[name] = routes(log, rec, prompts, DEC_NEW - 1)
+        del rec, done, log
     single = runs["single"]
     repeatable = all(np.array_equal(c.tokens, runs["batched"][c.rid][0]) for c in batched)
-    check(repeatable, "7a: the recorded slot-batched run's tokens differ from the served run's")
+    check(repeatable, f"{label}: the recorded slot-batched run's tokens differ from the served run's")
+    same = {rid: same_input_rows(runs["batched"][rid][0], single[rid][0]) for rid in single}
+    slot_flips, slot_out = route_diffs(torch, routed["batched"], routed["single"],
+                                       MOE_BF16_ROUTE_RTOL, label, same=same)
     ties = {rid: first_tie(lg) for rid, (_, lg) in single.items()}
+    ends = {rid: min([ties[rid], *slot_out.get(rid, ())]) for rid in ties}
     slot_err, rows_compared = 0.0, 0
     for c in batched:
-        k = ties[c.rid]
+        k = ends[c.rid]
         check(np.array_equal(c.tokens[:k], single[c.rid][0][:k]),
-              f"7a: request {c.rid}: slot-batched tokens {c.tokens[:k]} != single-slot "
-              f"{single[c.rid][0][:k]} before its first near-tie (step {k})")
+              f"{label}: request {c.rid}: slot-batched tokens {c.tokens[:k]} != single-slot "
+              f"{single[c.rid][0][:k]} before its first near-tie or routing flip (step {k})")
         (bt, bl), (st, sl) = runs["batched"][c.rid], single[c.rid]
-        d = same_input_rows(bt, st)
-        slot_err = max(slot_err, float((bl[:d] - sl[:d]).abs().max()))
-        rows_compared += d
+        rows = kept_rows(same_input_rows(bt, st), slot_out.get(c.rid, ()))
+        if rows:
+            slot_err = max(slot_err, float((bl[rows] - sl[rows]).abs().max()))
+        rows_compared += len(rows)
     check(slot_err <= NEAR_TIE / 2,
-          f"7a: slot-batched logits {slot_err} from single-slot ones, over NEAR_TIE / 2")
-    compared = sum(min(ties[r], DEC_NEW) for r in ties)
+          f"{label}: slot-batched logits {slot_err} from single-slot ones, over NEAR_TIE / 2")
+    compared = sum(min(ends[r], DEC_NEW) for r in ends)
 
-    # prefill + decode steps against forward over the whole sequence.
-    fwd_err = {}
-    for n in DEC_FORWARD_CHECK:
-        rid = DEC_LENGTHS.index(n)
-        toks, lg = single[rid]
-        seq = np.concatenate([prompts[rid], toks[:-1]]).astype(np.int64)
-        full, _ = model({"tokens": torch.from_numpy(seq)[None].to(dev)})
-        want = full[0, n - 1:].float()
-        err = float((lg - want).abs().max())
-        std = float(want.std())
-        fwd_err[n] = dict(max_abs=err, logit_std=std, ratio=err / std)
-        check(err <= DEC_FORWARD_TOL * std,
-              f"7a: prompt {n}: prefill + decode logits {err} from forward's (std {std})")
-        del full
-
-    # bucketed against exact-length prefills: the first token off near-ties.
-    bucket_err, bucket_ties = 0.0, 0
+    # bucketed against exact-length prefills, the bucketed one replaying
+    # the exact one's routing: the first token equal off near-ties.  They
+    # are two prefills of one prompt at other GEMM shapes, so how far apart
+    # their logits and routing probabilities land is the model's own bf16
+    # drift: the yardstick of the MoE forward check below.
+    bucket_err, bucket_gap, bucket_ties, bucket_replayed = 0.0, 0.0, 0, 0
     for rid, p in enumerate(prompts):
-        exact, _ = model.prefill({"tokens": torch.from_numpy(p.astype(np.int64))[None].to(dev)})
-        exact = exact[0].float()
-        bucket_err = max(bucket_err, float((single[rid][1][0] - exact).abs().max()))
+        t = torch.from_numpy(p.astype(np.int64))[None].to(dev)
+        m = next(b for b in DEC_BUCKETS if b >= len(p))
+        padded = torch.nn.functional.pad(t, (0, m - len(p)))
+        with RouteLog() as exact_log:
+            exact = twin.prefill({"tokens": t})[0][0].float()
+        with RouteReplay([ids for _, _, ids in exact_log.calls]) as replay:
+            bucketed = twin.prefill({"tokens": padded, "last_pos": len(p) - 1})[0][0].float()
+        bucket_replayed += len(replay.gaps)
+        bucket_gap = max([bucket_gap] + [g["rel_gap"] for g in replay.gaps])
+        bucket_err = max(bucket_err, float((bucketed - exact).abs().max()))
         top2 = exact.topk(2).values
         if float(top2[0] - top2[1]) < NEAR_TIE:
             bucket_ties += 1
             continue
-        check(int(exact.argmax()) == int(single[rid][0][0]),
-              f"7a: prompt {len(p)}: the bucketed prefill's first token differs from the exact one")
+        check(int(exact.argmax()) == int(bucketed.argmax()),
+              f"{label}: prompt {len(p)}: the bucketed prefill's first token differs from the "
+              "exact one")
+
+    # prefill + decode steps against forward over the whole sequence, on
+    # the twin.  An MoE model's bound is the larger of DEC_FORWARD_TOL x
+    # std and MOE_DRIFT_FACTOR x the drift above, and every replayed choice
+    # a near-tie of forward's own within the larger of MOE_BF16_ROUTE_RTOL
+    # and MOE_DRIFT_FACTOR x the prefills' largest gap.
+    moe = twin is not model
+    fwd_err = {}
+    sub = [prompts[DEC_LENGTHS.index(n)] for n in DEC_FORWARD_CHECK]
+    for n, lg, want, gaps in forward_check(torch, twin, sub, sc, dev, DEC_NEW):
+        err, std = float((lg - want).abs().max()), float(want.std())
+        gap = max((g["rel_gap"] for g in gaps), default=0.0)
+        tol = max(DEC_FORWARD_TOL * std, MOE_DRIFT_FACTOR * bucket_err if moe else 0.0)
+        gap_tol = max(MOE_BF16_ROUTE_RTOL, MOE_DRIFT_FACTOR * bucket_gap)
+        fwd_err[n] = dict(max_abs=err, logit_std=std, ratio=err / std, tol=tol,
+                          replayed_tokens=len(gaps), max_rel_gap=gap, gap_tol=gap_tol)
+        check(gap < gap_tol, f"{label}: prompt {n}: a replayed routing {gap} apart from "
+                             f"forward's own choice, over {gap_tol}")
+        check(err <= tol, f"{label}: prompt {n}: prefill + decode logits {err} from forward's "
+                          f"(std {std}, bound {tol})")
 
     # EOS: the token a request's undisturbed single-slot run first emits
     # at DEC_EOS_STEP (or the nearest step with a token new there) ends the
@@ -2306,19 +2570,15 @@ def decode_width(torch, model, cfg, dev, card):
     # the same logits), at that step.
     cands = [(abs(k - DEC_EOS_STEP), rid, k, int(toks[k])) for rid, (toks, _) in single.items()
              for k in range(1, len(toks)) if toks[k] not in toks[:k]]
-    check(bool(cands), "7a: no request emits a second distinct token")
+    check(bool(cands), f"{label}: no request emits a second distinct token")
     _, rid, step, tok = min(cands)
     done = serve_model(model, ServiceConfig(max_batch=1, **sc)).generate(
         [Request(rid=rid, prompt=prompts[rid], max_new_tokens=DEC_NEW, eos_id=tok)])
     check(len(done) == 1 and np.array_equal(done[0].tokens, single[rid][0][:step + 1])
-          and done[0].steps == step + 1, f"7a: the EOS request ended as {done}")
-
-    mm_f32 = matmul_f32_on_card(torch, model, cfg, dev)
+          and done[0].steps == step + 1, f"{label}: the EOS request ended as {done}")
 
     # Times.  Device: CUDA-graph replays (device_ms); host: eager calls.
     flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
-    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    cache_slot_bytes = 2 * cfg.n_layers * DEC_MAX_SEQ * cfg.n_kv_heads * cfg.d_head * 2
     prefill_ms = {}
     for m in DEC_BUCKETS:
         t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, m))).to(dev)
@@ -2337,32 +2597,39 @@ def decode_width(torch, model, cfg, dev, card):
         def fn(caches=caches, toks=toks, cur=cur):
             return model.decode_step(caches, toks, cur)
 
-        dev_ms, host = device_ms(torch, fn, flush, reps=DEC_REPS), wall_ms(torch, fn, 20)
-        bound = (weight_bytes + S * cache_slot_bytes) / PEAK_BYTES_PER_S * 1e3
-        step_ms[S] = dict(device_ms=dev_ms, wall_ms=host, enqueue_ms=enqueue_ms(torch, fn, 20),
-                          bound_ms=bound, bound_by="bytes", device_share=dev_ms / host,
+        n_bytes = step_bytes(S, fn)
+        dev_ms, host = device_ms(torch, fn, flush, reps=DEC_REPS), wall_ms(torch, fn, host_reps)
+        bound = n_bytes / PEAK_BYTES_PER_S * 1e3
+        step_ms[S] = dict(device_ms=dev_ms, wall_ms=host,
+                          enqueue_ms=enqueue_ms(torch, fn, host_reps), bound_ms=bound,
+                          bound_by="bytes", bytes=n_bytes, device_share=dev_ms / host,
                           tokens_per_s_at_wall=S / host * 1e3)
         del caches
     report = dict(
-        card=card, params=cfg.param_count(), weight_bytes=weight_bytes,
+        card=card, params=cfg.param_count(),
+        weight_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
         requests=len(prompts), prompt_lengths=list(DEC_LENGTHS), new_tokens=DEC_NEW,
         generate_wall_s=wall, tokens=n_tokens, tokens_per_s=n_tokens / wall,
         stats={k: v for k, v in svc.stats.items() if k != "telemetry"},
         first_near_tie=ties, steps_compared=compared, near_tie=NEAR_TIE,
         slot_batched_vs_single_max_abs=slot_err, logit_rows_compared=rows_compared,
-        repeatable=repeatable,
+        repeatable=repeatable, slot_batched_routing_flips=slot_flips,
         forward_vs_decode=fwd_err, bucketed_vs_exact_max_abs=bucket_err,
-        bucketed_near_ties=bucket_ties, eos=dict(rid=rid, step=step, token=tok),
-        prefill_ms=prefill_ms, decode_step=step_ms, matmul_f32=mm_f32,
+        bucketed_max_rel_gap=bucket_gap,
+        bucketed_near_ties=bucket_ties, bucketed_replayed_tokens=bucket_replayed, eos=dict(rid=rid, step=step, token=tok),
+        prefill_ms=prefill_ms, decode_step=step_ms,
     )
-    print(f"7a [{card}] gemma3-1b full width, bf16: {len(prompts)} requests x {DEC_NEW} tokens "
+    print(f"{label} [{card}] {cfg.name} full width, {cfg.n_layers} layers, bf16: "
+          f"{len(prompts)} requests x {DEC_NEW} tokens "
           f"in {wall:.3f} s ({n_tokens / wall:.1f} tok/s, {svc.stats['fused_steps']} fused "
           f"steps); tokens equal the single-slot plan's over {compared} steps before near-ties "
           f"{json.dumps(ties)}, logits {slot_err:.4g} apart over {rows_compared} rows of the "
-          f"same inputs (the recorded rerun repeats the tokens); forward vs decode "
+          f"same inputs (the recorded rerun repeats the tokens); routing flips slot-batched "
+          f"{json.dumps(slot_flips)}; forward vs decode (routing replayed) "
           f"{json.dumps(fwd_err)}; bucketed vs exact "
-          f"prefill max_abs {bucket_err:.4g} ({bucket_ties} near-ties); matmul_f32 on the card "
-          f"against the f32 product {json.dumps(mm_f32)}; EOS at step {step} of "
+          f"prefill max_abs {bucket_err:.4g} ({bucket_ties} near-ties, {bucket_replayed} tokens "
+          f"routed as the exact prefill routed them, gaps up to {bucket_gap:.4g}); EOS at step "
+          f"{step} of "
           f"request {rid}; prefill ms {json.dumps(prefill_ms)}; decode step ms "
           f"{json.dumps(step_ms)}")
     return report, prompts, {c.rid: c.tokens for c in batched}, ties
@@ -2420,8 +2687,8 @@ class _Crash(BaseException):
     """Escapes the engine's per-request Exception handler: kills its loop."""
 
 
-def decode_async_fleet(torch, model, prompts, batched, ties, dev, card):
-    """Phase 7c: the async engine (four client threads, 16 requests) and a
+def decode_async_fleet(torch, model, prompts, batched, ties, dev, card, label="7c"):
+    """Phase 7c (and 10d): the async engine (four client threads, 16 requests) and a
     fleet of two decode engines over the one model (tenants free:1 and
     paid:4, a 5 ms deadline on a quarter of the free requests, one engine
     crashing at its 4th request)."""
@@ -2469,11 +2736,11 @@ def decode_async_fleet(torch, model, prompts, batched, ties, dev, card):
         t.join(300)
     wall = time.perf_counter() - t0
     svc.drain_and_stop()
-    check(not errors and sorted(results) == list(range(len(reqs))), f"7c async: {errors[:1]!r}")
-    check(all(agrees(c) for c in results.values()), "7c async: tokens differ off near-ties")
+    check(not errors and sorted(results) == list(range(len(reqs))), f"{label} async: {errors[:1]!r}")
+    check(all(agrees(c) for c in results.values()), f"{label} async: tokens differ off near-ties")
     tel = svc.stats["telemetry"]
     check(tel["prefill_s"]["count"] == len(reqs) and tel["decode_step_s"]["count"] > 0,
-          "7c async: prefill_s / decode_step_s not recorded")
+          f"{label} async: prefill_s / decode_step_s not recorded")
     n_tok = sum(len(c.tokens) for c in results.values())
     async_report = dict(
         requests=len(reqs), wall_s=wall, tokens_per_s=n_tok / wall,
@@ -2515,12 +2782,12 @@ def decode_async_fleet(torch, model, prompts, batched, ties, dev, card):
     router.drain_and_stop(timeout=300)
     stats = router.stats
     done = [o for o in outcomes if isinstance(o, Completion)]
-    check(len(outcomes) == DEC_FLEET_REQUESTS, "7c fleet: a future did not resolve")
+    check(len(outcomes) == DEC_FLEET_REQUESTS, f"{label} fleet: a future did not resolve")
     check(stats["telemetry"]["restarts"] == 1 and not armed,
-          f"7c fleet: restarts {stats['telemetry']['restarts']}, requests by engine {seen}")
-    check(all(agrees(c) for c in done), "7c fleet: tokens differ off near-ties")
+          f"{label} fleet: restarts {stats['telemetry']['restarts']}, requests by engine {seen}")
+    check(all(agrees(c) for c in done), f"{label} fleet: tokens differ off near-ties")
     check(during - before < weight_bytes // 2,
-          f"7c fleet: {during - before} bytes more after the fleet started: a second copy "
+          f"{label} fleet: {during - before} bytes more after the fleet started: a second copy "
           f"of the {weight_bytes} bytes of weights?")
     n_tok = sum(len(c.tokens) for c in done)
     fleet_report = dict(
@@ -2528,7 +2795,7 @@ def decode_async_fleet(torch, model, prompts, batched, ties, dev, card):
         typed_errors=sorted({type(o).__name__ for o in outcomes if not isinstance(o, Completion)}),
         restarts=stats["telemetry"]["restarts"], wall_s=wall_f, tokens_per_s=n_tok / wall_f,
         memory_before=before, memory_during=during, weight_bytes=weight_bytes)
-    print(f"7c [{card}] async: {len(reqs)} requests from {DEC_ASYNC_CLIENTS} threads in "
+    print(f"{label} [{card}] async: {len(reqs)} requests from {DEC_ASYNC_CLIENTS} threads in "
           f"{wall:.3f} s ({async_report['tokens_per_s']:.1f} tok/s, occupancy "
           f"{async_report['mean_occupancy']:.2f}), latency s "
           f"{json.dumps(async_report['latency_s'])}; fleet of 2: {len(done)} of "
@@ -2569,29 +2836,15 @@ def record_shapes(mods):
     return shapes, restore
 
 
-def decode_launcher(torch, ops, card):
-    """Phase 7d: ``python -m repro_torch.launch.serve`` on the card as a
-    user runs it (the published gemma3-1b; the --online classifier), a
-    model too large for the card refused by its bytes; then the --online
-    path once more in this process, its launches counted from zero and
-    each launch's shape held to those phase 3 checked."""
-    import contextlib
-    import io
+def launcher_runs(specs, label, card):
+    """``python -m repro_torch.launch.serve ARGS`` as a user runs it, once a
+    spec (name, args, ok): an ok run exits 0 and prints its telemetry
+    line; another exits non-zero naming the bytes it would need."""
     import os
-
-    from repro_torch.kernels import bcpnn_update as bk
-    from repro_torch.kernels import hcu_softmax as sk
-    from repro_torch.kernels import masked_matmul as mk
-    from repro_torch.launch import serve
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     runs = {}
-    for name, args, ok in (
-        ("full", ["--arch", DEC_ARCH, "--full", "--requests", "8", "--max-batch", "4",
-                  "--max-seq", "1024"], True),
-        ("online", ["--online"], True),
-        ("too_large", ["--arch", "deepseek-v2-236b", "--full"], False),
-    ):
+    for name, args, ok in specs:
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args],
                            capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
@@ -2599,13 +2852,35 @@ def decode_launcher(torch, ops, card):
         lines = [ln for ln in r.stdout.splitlines() if ln.startswith(("[serve", "[telemetry]"))]
         if ok:
             check(r.returncode == 0 and any(ln.startswith("[telemetry]") for ln in lines),
-                  f"7d {name}: rc {r.returncode}: {r.stderr[-2000:]}")
+                  f"{label} {name}: rc {r.returncode}: {r.stderr[-2000:]}")
         else:
-            check(r.returncode != 0 and "bytes" in r.stderr, f"7d {name}: not refused: {r.stderr}")
+            check(r.returncode != 0 and "bytes" in r.stderr,
+                  f"{label} {name}: not refused: {r.stderr[-2000:]}")
             lines = r.stderr.strip().splitlines()[-1:]
         runs[name] = dict(rc=r.returncode, wall_s=wall, lines=lines)
         for ln in lines:
-            print(f"7d [{card}] {name}: {ln}")
+            print(f"{label} [{card}] {name}: {ln}")
+    return runs
+
+
+def decode_launcher(torch, ops, card):
+    """Phase 7d: ``python -m repro_torch.launch.serve`` on the card as a
+    user runs it (the published gemma3-1b; the --online classifier); then
+    the --online path once more in this process, its launches counted from
+    zero and each launch's shape held to those phase 3 checked."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import bcpnn_update as bk
+    from repro_torch.kernels import hcu_softmax as sk
+    from repro_torch.kernels import masked_matmul as mk
+    from repro_torch.launch import serve
+
+    runs = launcher_runs((
+        ("full", ["--arch", DEC_ARCH, "--full", "--requests", "8", "--max-batch", "4",
+                  "--max-seq", "1024"], True),
+        ("online", ["--online"], True),
+    ), "7d", card)
     ops.reset_launches()
     shapes, restore = record_shapes((mk, sk, bk))
     try:
@@ -2645,6 +2920,9 @@ def decoder(torch, ops, card, dev, cfg=None):
     init_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)  # the peak from here on, weights included
     report, prompts, batched, ties = decode_width(torch, model, cfg, dev, card)
+    report["matmul_f32"] = matmul_f32_on_card(torch, model, cfg, dev)
+    print(f"7a [{card}] matmul_f32 on the card against the f32 product "
+          f"{json.dumps(report['matmul_f32'])}")
     report["init_s"] = init_s
     report["f32_twin"] = decode_f32_twin(torch, cfg, dev, card)
     report.update(decode_async_fleet(torch, model, prompts, batched, ties, dev, card))
@@ -2988,12 +3266,13 @@ def strict_serving(torch, plain_nets, strict_nets, split, card):
     return report
 
 
-def strict_decoder(torch, dev, card, cfg=None):
-    """8c: gemma3-1b at its published width, cut to depth 6 (phase 7b's
-    twin, to keep the time limit), bf16, through serve_model with strict
-    on and off: two rounds of the same requests, tokens equal, the
-    sentinel still after round one, fused_step and each prefill bucket at
-    one signature."""
+def strict_decoder(torch, dev, card, cfg=None, layers=GUARD_DEC_LAYERS, label="8c"):
+    """8c (and 10a): a decoder at its published width (gemma3-1b unless
+    ``cfg`` says otherwise), cut to depth ``layers`` (6: phase 7b's twin,
+    to keep the time limit), bf16, through serve_model with strict on and
+    off: two rounds of the same requests, tokens equal, the sentinel still
+    after round one, fused_step and each prefill bucket at one signature.
+    The guard would raise on a host sync inside the decode step."""
     import dataclasses
 
     import numpy as np
@@ -3003,7 +3282,7 @@ def strict_decoder(torch, dev, card, cfg=None):
     from repro_torch.runtime import Request, ServiceConfig, serve_model
 
     cfg = cfg if cfg is not None else get_config(DEC_ARCH)
-    cfg = dataclasses.replace(cfg, n_layers=GUARD_DEC_LAYERS)
+    cfg = dataclasses.replace(cfg, n_layers=layers)
     model = build_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in GUARD_DEC_LENGTHS]
@@ -3020,17 +3299,17 @@ def strict_decoder(torch, dev, card, cfg=None):
         tokens[name] = rounds
         if name == "strict":
             sizes = stable_sentinel("decode", svc.plan, before)
-            check(sizes.get("fused_step") == 1, f"8c decode: sizes {sizes}")
+            check(sizes.get("fused_step") == 1, f"{label} decode: sizes {sizes}")
             check(all(v == 1 for k, v in sizes.items() if k.startswith("prefill[")),
-                  f"8c decode: sizes {sizes}")
+                  f"{label} decode: sizes {sizes}")
     for r in range(GUARD_ROUNDS):
         for a, b in zip(tokens["plain"][r], tokens["strict"][r]):
-            check(np.array_equal(a, b), f"8c decode round {r}: strict tokens {b} != plain {a}")
+            check(np.array_equal(a, b), f"{label} decode round {r}: strict tokens {b} != plain {a}")
     del model
-    print(f"8c [{card}] strict decode, gemma3-1b full width at depth {GUARD_DEC_LAYERS}: "
+    print(f"{label} [{card}] strict decode, {cfg.name} full width at depth {layers}: "
           f"{len(prompts)} requests x {GUARD_ROUNDS} rounds, tokens equal; sentinel "
           f"{json.dumps(sizes)}")
-    return dict(sentinel=sizes, depth=GUARD_DEC_LAYERS)
+    return dict(sentinel=sizes, depth=layers)
 
 
 def profile_kernels(path_to_trace):
@@ -3414,6 +3693,250 @@ def distribution(torch, ops, core, trained, runs, launches4, card, dev, backend=
     return launched, report
 
 
+# ------------------------------------------------------------ phase 10
+# The MoE family with MLA attention (PR 22), with phase 7's slots, buckets,
+# prompts and gates: moonshot-v1-16b-a3b as the repository configures it
+# (48 layers, 64 experts top-6 + 2 shared, GQA; 28.39 B parameters, 56.8 GB
+# in bf16), deepseek-v2-236b at its published width cut to 4 layers (the
+# dense first layer + 3 MoE layers: MLA with 128 heads, 160 experts; 26.6
+# GB), random weights from torch.Generator seed 0.
+MOE_ARCH, MLA_ARCH, MLA_LAYERS = "moonshot-v1-16b-a3b", "deepseek-v2-236b", 4
+MOE_STRICT_LAYERS = 4  # strict serving of moonshot, cut to depth 4
+MOE_HOST_REPS = 10  # eager calls timed a decode step (a step's host time is ~0.1 s)
+# 10c: moonshot's width at depth 3 (one dense and two MoE layers), f32, the
+# card against the CPU at the configured capacity factor.  A routed expert
+# may differ between the devices only where the CPU's probabilities at the
+# two places in question are closer than MOE_ROUTE_RTOL relative; the
+# logits are compared only on rows no such flip reached.
+MOE_F32_LAYERS, MOE_ROUTE_RTOL = 3, 1e-5
+
+
+def moe_step_bytes(torch, model, cfg):
+    """(S, the step) -> the bytes a decode step of S slots reads at least:
+    every weight but the routed experts no slot chose (counted from the
+    step's own routing, one eager call) and the embedding rows the step
+    does not look up (the untied table; a tied one is the unembedding),
+    plus each slot's whole cache (the step masks over all ``max_seq``
+    positions)."""
+    elem = 2  # bf16
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    expert = 3 * cfg.d_model * cfg.moe_d_ff * elem
+    n_moe = len(model.layers) if cfg.family == "moe" else 0
+    table = 0 if cfg.tie_embeddings else model.embed.table.numel() * elem
+    cache_slot = sum(math.prod(shape) for shape in model.cache_shapes(1, DEC_MAX_SEQ).values()) * elem
+
+    def step_bytes(S, step):
+        with RouteLog() as log:
+            step()
+        chosen = sum(len(torch.unique(idx)) for _, _, idx in log.calls)
+        return (total - n_moe * cfg.n_experts * expert + chosen * expert
+                - table + S * cfg.d_model * elem + S * cache_slot)
+
+    return step_bytes
+
+
+def prefill_drops(torch, model, cfg, prompts, dev):
+    """Each prompt's bucketed prefill, as the plan serves it, at the
+    configured capacity factor: its assignments dropped in each MoE layer
+    (``_slots``' verdicts, the prompt's own assignments; the pad tokens'
+    apart), with the bucket's capacity (``_capacity``)."""
+    from repro_torch.models import moe
+
+    out, real = {}, moe._slots
+    for p in prompts:
+        n = len(p)
+        m = next(b for b in DEC_BUCKETS if b >= n)
+        fits = []
+
+        def recorded(e_flat, n_experts, capacity):
+            slot, fit = real(e_flat, n_experts, capacity)
+            fits.append(fit)
+            return slot, fit
+
+        t = torch.zeros((1, m), dtype=torch.long, device=dev)
+        t[0, :n] = torch.from_numpy(p.astype("int64")).to(dev)
+        moe._slots = recorded
+        try:
+            model.prefill({"tokens": t, "last_pos": n - 1})
+        finally:
+            moe._slots = real
+        a = n * cfg.top_k
+        out[n] = dict(bucket=m, capacity=moe._capacity(m, cfg.top_k, cfg.n_experts,
+                                                      cfg.capacity_factor),
+                      assignments=a, dropped=[int((~f[:a]).sum()) for f in fits],
+                      pad_dropped=[int((~f[a:]).sum()) for f in fits])
+    return out
+
+
+def moe_f32_twin(torch, cfg, dev, card):
+    """Phase 10c: moonshot's width at depth 3 (one dense and two MoE
+    layers), f32, the card against the CPU from the same weights (carried
+    through the flat arrays), at the configured capacity factor (prefills
+    drop): three requests in one slot batch, every routing call held
+    against the CPU's (``route_diffs``: a flip only at a near-tie of the
+    CPU's probabilities, MOE_ROUTE_RTOL), each prefill's kept slots equal
+    up to its first flip, the logits within 1e-4 relative + 1e-4 x std on
+    every row no flip reached, tokens equal up to the first near-tie;
+    then, on the card, prefill + decode against ``forward`` in f32."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.checkpoint import causal_lm_params_from_flat, flat_from_causal_lm
+    from repro_torch.models import build_model, moe
+    from repro_torch.runtime import DecodePlan, Request, ServiceConfig
+
+    cfg32 = dataclasses.replace(cfg, n_layers=MOE_F32_LAYERS, dtype="float32")
+    card_m = build_model(cfg32, dev).init(torch.Generator(device=dev).manual_seed(0))
+    cpu_m = causal_lm_params_from_flat(cfg32, flat_from_causal_lm(card_m), device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in DEC_F32_LENGTHS]
+    runs, recs, logs, walls = {}, {}, {}, {}
+    for name, m in (("card", card_m), ("cpu", cpu_m)):
+        rec = LogitRecorder(torch, m)
+        plan = DecodePlan(rec, ServiceConfig(plan="decode", max_batch=len(prompts),
+                                             max_seq=DEC_MAX_SEQ, buckets=DEC_BUCKETS))
+        t0 = time.perf_counter()
+        with RouteLog(rec) as log:
+            done = sorted(plan.generate(dec_requests(Request, prompts, DEC_F32_NEW)),
+                          key=lambda c: c.rid)
+        walls[name] = time.perf_counter() - t0
+        runs[name], recs[name], logs[name] = rec.logits(done, prompts), rec, log
+    check(recs["card"].placed == recs["cpu"].placed,
+          "10c: the two plans placed the requests differently")
+    n_steps = DEC_F32_NEW - 1
+    card_r, cpu_r = (routes(logs[n], recs[n], prompts, n_steps) for n in ("card", "cpu"))
+    same = {rid: same_input_rows(runs["card"][rid][0], runs["cpu"][rid][0])
+            for rid in range(len(prompts))}
+    flips, out = route_diffs(torch, card_r, cpu_r, MOE_ROUTE_RTOL, "10c", own_row=False,
+                             same=same)
+    # The kept slots of each prefill (the configured capacity, drops and
+    # all) agree up to the first flipped token, and each prefill's drops.
+    kept, drops = 0, {}
+    for rid in range(len(prompts)):
+        n = len(prompts[rid])
+        cap = moe._capacity(next(b for b in DEC_BUCKETS if b >= n), cfg.top_k, cfg.n_experts,
+                            cfg.capacity_factor)
+        upto = min([f["token"] for f in flips if f["rid"] == rid and f["row"] == 0] + [n])
+        for (ic, _), (ip, _) in zip(card_r[(rid, 0)], cpu_r[(rid, 0)]):
+            kc = moe._slots(ic.reshape(-1), cfg.n_experts, cap)[1]
+            kp = moe._slots(ip.reshape(-1), cfg.n_experts, cap)[1]
+            check(torch.equal(kc[:upto * cfg.top_k], kp[:upto * cfg.top_k]),
+                  f"10c: request {rid}: kept slots differ before any flip")
+            kept += upto * cfg.top_k
+            drops.setdefault(n, []).append(int((~kp).sum()))
+    worst, compared = {}, 0
+    for rid in range(len(prompts)):
+        (ct, cl), (pt, pl) = runs["card"][rid], runs["cpu"][rid]
+        k = first_tie(pl)
+        check(np.array_equal(ct[:k], pt[:k]),
+              f"10c: request {rid}: card tokens {ct[:k]} != CPU tokens {pt[:k]} before step {k}")
+        rows = kept_rows(same_input_rows(ct, pt), out.get(rid, ()))
+        got, want = cl[rows].cpu(), pl[rows]
+        err = (got - want).abs()
+        std = float(pl.std())
+        check(bool((err <= DEC_F32_TOL * want.abs() + DEC_F32_TOL * std).all()),
+              f"10c: request {rid}: card logits {float(err.max()) if rows else 0} from the CPU's "
+              f"(std {std})")
+        worst[DEC_F32_LENGTHS[rid]] = dict(max_abs=float(err.max()) if rows else None,
+                                           logit_std=std, rows=len(rows), first_near_tie=k)
+        compared += len(rows)
+    # prefill + decode against forward on the card in f32, at full width,
+    # under a capacity factor that drops nothing: the gather-based decode
+    # step held to the capacity-buffer forward, routing replayed (a choice
+    # replayed only at a near-tie below MOE_ROUTE_RTOL).
+    twin = copy.copy(card_m)
+    twin.cfg = dataclasses.replace(cfg32, capacity_factor=cfg.n_experts / cfg.top_k)
+    sc = dict(plan="decode", max_seq=DEC_MAX_SEQ, buckets=DEC_BUCKETS)
+    fwd = {}
+    for n, lg, want, gaps in forward_check(torch, twin, prompts, sc, dev, DEC_F32_NEW):
+        err, std = (lg - want).abs(), float(want.std())
+        gap = max((g["rel_gap"] for g in gaps), default=0.0)
+        check(gap < MOE_ROUTE_RTOL, f"10c: prompt {n}: a replayed routing {gap} from forward's own")
+        check(bool((err <= DEC_F32_TOL * want.abs() + DEC_F32_TOL * std).all()),
+              f"10c: prompt {n}: f32 prefill + decode logits {float(err.max())} from forward's "
+              f"(std {std})")
+        fwd[n] = dict(max_abs=float(err.max()), logit_std=std, replayed_tokens=len(gaps),
+                      max_rel_gap=gap)
+    print(f"10c [{card}] {cfg.name} full width, depth {MOE_F32_LAYERS}, f32, capacity factor "
+          f"{cfg.capacity_factor}: card against CPU, {len(logs['cpu'].calls)} routing calls, "
+          f"{kept} prefill assignments' kept slots equal, flips {json.dumps(flips)}; logits over "
+          f"{compared} rows {json.dumps(worst)}; CPU prefill drops per MoE layer "
+          f"{json.dumps(drops)}; on the card, prefill + decode against forward (routing "
+          f"replayed, nothing dropped) {json.dumps(fwd)}; generate wall s {json.dumps(walls)}")
+    del card_m, twin
+    return dict(per_prompt=worst, rows_compared=compared, flips=flips,
+                kept_assignments_compared=kept, prefill_drops=drops, forward_vs_decode=fwd,
+                generate_wall_s=walls)
+
+
+def moe_decoders(torch, ops, card, dev):
+    """Phase 10: the MoE family with MLA at full width (10a moonshot,
+    10b deepseek-v2 at 4 layers, 10d the async engine and a fleet over
+    moonshot, strict serving of moonshot at depth 4, the launcher), then
+    10c, the f32 twin; the path launches none of the five kernels."""
+    import copy
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    ops.reset_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = dict(memory_at_start=torch.cuda.memory_allocated(dev))
+    for label, arch, layers in (("10a", MOE_ARCH, None), ("10b", MLA_ARCH, MLA_LAYERS)):
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = build_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        # The same weights under a capacity factor of E / k: a capacity of
+        # at least T, so no prefill or forward drops (the forward and
+        # bucketed checks; a bucketed MoE prefill equals an exact one only
+        # while nothing drops).
+        twin = copy.copy(model)
+        twin.cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        rep, prompts, batched, ties = decode_width(
+            torch, model, cfg, dev, card, label, twin=twin,
+            step_bytes=moe_step_bytes(torch, model, cfg), host_reps=MOE_HOST_REPS)
+        rep["init_s"] = init_s
+        rep["prefill_drops"] = prefill_drops(torch, model, cfg, prompts, dev)
+        print(f"{label} [{card}] dropped assignments per MoE layer of each bucketed prefill at "
+              f"capacity factor {cfg.capacity_factor}: {json.dumps(rep['prefill_drops'])}")
+        if arch == MOE_ARCH:
+            rep.update(decode_async_fleet(torch, model, prompts, batched, ties, dev, card,
+                                          label="10d"))
+        rep["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        rep["wall_s"] = time.perf_counter() - t0
+        print(f"{label} [{card}] {arch}: peak memory {rep['max_memory_allocated']} bytes, "
+              f"init {init_s:.2f} s, wall {rep['wall_s']:.2f} s")
+        report[arch] = rep
+        del model, twin
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch == MOE_ARCH:  # the launcher needs the card's memory free
+            report["strict"] = strict_decoder(torch, dev, card, get_config(MOE_ARCH),
+                                              layers=MOE_STRICT_LAYERS, label="10a")
+            gc.collect()
+            torch.cuda.empty_cache()
+            report["launcher"] = launcher_runs((
+                ("full", ["--arch", MOE_ARCH, "--full", "--requests", "8", "--max-batch", "4",
+                          "--max-seq", "1024"], True),
+                ("too_large", ["--arch", MLA_ARCH, "--full"], False),
+            ), "10a", card)
+    report["f32_twin"] = moe_f32_twin(torch, get_config(MOE_ARCH), dev, card)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(not any(counts.values()), f"10: the MoE decode path launched {counts}")
+    return {"moe": counts}, report
+
+
 def main() -> int:
     import torch
 
@@ -3499,7 +4022,14 @@ def main() -> int:
     dp_report["wall_s"] = time.perf_counter() - t0
     print(f"phase 9 (distribution) wall: {dp_report['wall_s']:.2f} s")
 
-    # Phase 10: the records.
+    # Phase 10: the MoE family with MLA attention at full width.
+    t0 = time.perf_counter()
+    moe_launches, moe_report = moe_decoders(torch, ops, card, dev)
+    launches.update(moe_launches)
+    moe_report["wall_s"] = time.perf_counter() - t0
+    print(f"phase 10 (the MoE decoders) wall: {moe_report['wall_s']:.2f} s")
+
+    # Phase 11: the records.
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in launches.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -3526,6 +4056,7 @@ def main() -> int:
         "decoder": dec_report,
         "hot_path_guard": guard_report,
         "distribution": dp_report,
+        "moe_decoders": moe_report,
     }))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -108,6 +108,10 @@ DEFAULT_HOT_MODULES: Tuple[str, ...] = (
     "repro_torch/core/compiled.py",
     "repro_torch/kernels/ops.py",
     "repro_torch/kernels/bcpnn_phase.py",
+    # The LM zoo's decode step (captured in a CUDA graph on the card).
+    "repro_torch/models/lm.py",
+    "repro_torch/models/attention.py",
+    "repro_torch/models/moe.py",
 )
 
 # Dotted-call suffixes that compile or transform; their first positional

@@ -16,11 +16,17 @@ The LM zoo's weights cross under the keys that the reference's
 ``save_checkpoint`` writes for ``CausalLM.init``'s pytree:
 
     embed/table   final_norm/{scale,bias}   unembed (untied only)
-    layers/{ln1,ln2}/{scale,bias}   layers/attn/{wq,wk,wv,wo}
+    layers/{ln1,ln2}/{scale,bias}
+    layers/attn/{wq,wk,wv,wo}                                   (GQA)
+    layers/attn/{kv_down,kv_norm/scale,k_up,v_up,wo,
+                 q_down,q_norm/scale,q_up | wq}                 (MLA)
     layers/mlp/{gate,up,down}
+    layers/moe/{router,gate,up,down,shared/{gate,up,down}}      (MoE)
+    dense_layers/...                  (the MoE family's first dense blocks)
 
-where every ``layers/...`` array is stacked over the layers on its leading
-axis; here each is one parameter of one ``nn.ModuleList`` entry.
+where every ``layers/...`` and ``dense_layers/...`` array is stacked over
+its stack's layers on the leading axis; here each is one parameter of one
+``nn.ModuleList`` entry.
 """
 from __future__ import annotations
 
@@ -110,8 +116,8 @@ def _lm_key(name: str):
     """A parameter's ``state_dict`` name -> (the reference's flat key, the
     layer index its stacked array is cut at, or None)."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        return "layers/" + "/".join(parts[2:]), int(parts[1])
+    if parts[0] in ("layers", "dense_layers"):
+        return parts[0] + "/" + "/".join(parts[2:]), int(parts[1])
     return "/".join(parts), None
 
 

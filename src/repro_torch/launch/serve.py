@@ -1,8 +1,9 @@
-"""Serving launcher for the port: the LM zoo's dense decoders, and the
-BCPNN classifier through the continual tier.
+"""Serving launcher for the port: the LM zoo's dense and MoE decoders, and
+the BCPNN classifier through the continual tier.
 
     python -m repro_torch.launch.serve --arch gemma3-1b --requests 8
     python -m repro_torch.launch.serve --arch gemma3-1b --full --requests 8 --max-batch 4 --max-seq 1024
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --full --requests 8 --max-batch 4 --max-seq 1024
     python -m repro_torch.launch.serve --arch gemma3-1b --requests 8 --async
     python -m repro_torch.launch.serve --fleet 2 --tenants free:1,paid:4 --deadline-s 0.5
     python -m repro_torch.launch.serve --online
@@ -19,9 +20,11 @@ requests spread across ``--tenants name:weight,...`` with per-tenant
 fair-share scheduling and an optional ``--deadline-s`` SLO.  ``--smoke``
 (the default) uses the reduced config; ``--full`` the published one, on
 the one card, refused (naming the bytes) when its parameters do not fit
-the card's memory.  The weights are random, from ``torch.Generator`` seed
-0.  Every family but the dense one is refused by ``build_model``, naming
-the slice that brings it.
+the card's memory (moonshot-v1-16b-a3b, 56.8 GB in bf16, loads on an
+80 GB card; deepseek-v2-236b, 471.5 GB, is refused).  The weights are
+random, from ``torch.Generator`` seed 0.  The dense and MoE families
+serve; every other family is refused by ``build_model``, naming the slice
+that brings it.
 
 ``--online`` serves a small BCPNN classifier through the continual tier
 instead: labeled ``Feedback`` interleaves with inference on the engine

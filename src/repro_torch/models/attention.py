@@ -1,6 +1,8 @@
-"""Attention: GQA with a sliding window, chunked online softmax, decode.
+"""Attention: GQA with a sliding window, MLA (DeepSeek-V2), chunked online
+softmax, decode.
 
-The port of the GQA part of the JAX package's ``repro/models/attention.py``.
+The port of the GQA and MLA parts of the JAX package's
+``repro/models/attention.py``.
 The prefill/forward path is the reference's online-softmax double loop over
 (q_chunk, kv_chunk) tiles, so the (S x S) score matrix is never
 materialised; decode is a single-token path over a preallocated,
@@ -14,8 +16,15 @@ scalar for every row), so a batch of decode slots at different lengths is
 one call, each row roped, written and masked at its own length: what the
 reference's ``vmap`` of its scalar-position step computes.
 
-The reference's MLA (DeepSeek-V2) and cross attention (enc-dec) wait for
-the slices that bring those families.
+MLA keeps a latent cache: ``c_kv`` (kv_lora_rank lanes, rmsnormed) and
+one shared roped ``k_rope`` a token, 512 + 64 lanes at DeepSeek-V2's
+widths where per-head k and v would take 128 x (192 + 128).  The
+prefill/forward path expands the latent to per-head k/v and runs the
+chunked attention; the decode step absorbs ``k_up`` into q and ``v_up``
+into the output, so it reads only the latent cache.
+
+The reference's cross attention (enc-dec) waits for the slice that brings
+that family.
 """
 from __future__ import annotations
 
@@ -26,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import _param, apply_rope, dense_init, matmul_f32
+from repro_torch.models.common import Norm, _param, apply_rope, dense_init, matmul_f32, rmsnorm
 
 NEG_INF = -1e30
 
@@ -261,3 +270,111 @@ def gqa_kv_for_cache(params: GQA, x: torch.Tensor, positions, cfg, theta: Option
     theta = cfg.rope_theta if theta is None else theta
     k = apply_rope(_proj(x, params.wk), positions, theta)
     return k, _proj(x, params.wv)
+
+
+# ---------------------------------------------------------------- MLA
+class MLA(nn.Module):
+    """``kv_down`` (d, KL + DR), ``kv_norm`` (KL), ``k_up`` (KL, H, DN),
+    ``v_up`` (KL, H, DV), ``wo`` (H, DV, d), and the q branch:
+    ``q_down`` (d, QL), ``q_norm`` (QL), ``q_up`` (QL, H, DN + DR) when
+    ``q_lora_rank > 0``, else ``wq`` (d, H, DN + DR)."""
+
+    def __init__(self, cfg, device=None, dtype=torch.float32):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr, dvh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        self.cfg = cfg
+        self.kv_down = _param((d, kl + dr), device, dtype)
+        self.kv_norm = Norm("rmsnorm", kl, device)
+        self.k_up = _param((kl, h, dn), device, dtype)
+        self.v_up = _param((kl, h, dvh), device, dtype)
+        self.wo = _param((h, dvh, d), device, dtype)
+        if ql > 0:
+            self.q_down = _param((d, ql), device, dtype)
+            self.q_norm = Norm("rmsnorm", ql, device)
+            self.q_up = _param((ql, h, dn + dr), device, dtype)
+        else:
+            self.wq = _param((d, h, dn + dr), device, dtype)
+
+    def init(self, generator: torch.Generator) -> None:
+        """``mla_init``'s distributions: truncated-normal fan-in on axis 0
+        of every matrix, norms at one."""
+        self.kv_norm.init()
+        mats = [self.kv_down, self.k_up, self.v_up, self.wo]
+        if self.cfg.q_lora_rank > 0:
+            self.q_norm.init()
+            mats += [self.q_down, self.q_up]
+        else:
+            mats.append(self.wq)
+        for p in mats:
+            p.copy_(dense_init(p.shape, generator, device=p.device))
+
+
+def _mla_q(params: MLA, x: torch.Tensor, positions, cfg):
+    """(q_nope (B,S,H,DN), roped q_rope (B,S,H,DR))."""
+    dn = cfg.qk_nope_dim
+    if cfg.q_lora_rank > 0:
+        ql = rmsnorm(params.q_norm, torch.matmul(x, params.q_down.to(x.dtype)))
+        q = _proj(ql, params.q_up)
+    else:
+        q = _proj(x, params.wq)
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def mla_latent(params: MLA, x: torch.Tensor, positions, cfg):
+    """c_kv (B,S,KL) + the roped shared k_rope (B,S,DR): the decode cache."""
+    kl = cfg.kv_lora_rank
+    kv = torch.matmul(x, params.kv_down.to(x.dtype))
+    c_kv = rmsnorm(params.kv_norm, kv[..., :kl])
+    k_rope = apply_rope(kv[..., kl:][..., None, :], positions, cfg.rope_theta)[..., 0, :]
+    return c_kv, k_rope
+
+
+def mla_attention(params: MLA, x: torch.Tensor, positions, cfg, causal: bool = True,
+                  latent=None) -> torch.Tensor:
+    """Train/prefill path: expand the latent to per-head k/v, chunked
+    attention at scale 1/sqrt(DN + DR).  ``latent`` passes ``mla_latent``'s
+    pair already made (prefill makes it once for attention and the cache)."""
+    b, s = x.shape[:2]
+    h = cfg.n_heads
+    dn, dr, dvh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(params, x, positions, cfg)
+    c_kv, k_rope = latent if latent is not None else mla_latent(params, x, positions, cfg)
+    k = torch.cat([_proj(c_kv, params.k_up), k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+    v = _proj(c_kv, params.v_up)
+    q = torch.cat([q_nope, q_rope], dim=-1).reshape(b, s, h, 1, dn + dr)  # KH = H, G = 1
+    out = chunked_attention(q, k, v, causal=causal, q_chunk=cfg.q_chunk,
+                            kv_chunk=cfg.kv_chunk, scale=1.0 / math.sqrt(dn + dr))
+    return torch.matmul(out.reshape(b, s, h * dvh), params.wo.to(x.dtype).reshape(h * dvh, -1))
+
+
+def mla_decode(
+    params: MLA,
+    x: torch.Tensor,  # (B, 1, d)
+    cache_ckv: torch.Tensor,  # (B, Smax, KL): already holds this token
+    cache_krope: torch.Tensor,  # (B, Smax, DR)
+    kv_len,  # (B,) or scalar
+    cfg,
+) -> torch.Tensor:
+    """Absorbed-latent decode, one position a row: ``k_up`` folds into q
+    and ``v_up`` into the output, so the step reads the latent cache alone.
+    Scores and the latent output accumulate in f32; p is cast to the
+    compute dtype before its product, as the reference casts it."""
+    dt = x.dtype
+    b = x.shape[0]
+    h, dn, dr, kl = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    smax = cache_ckv.shape[1]
+    kv_len = torch.as_tensor(kv_len, device=x.device).reshape(-1).expand(b)
+    positions = (kv_len - 1)[:, None]  # (B, 1)
+    q_nope, q_rope = _mla_q(params, x, positions, cfg)  # (B,1,H,DN), (B,1,H,DR)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, params.k_up.to(dt))  # (B,1,H,KL)
+    s_lat = matmul_f32(q_lat.reshape(b, h, kl), cache_ckv.transpose(1, 2))  # (B,H,Smax)
+    s_rope = matmul_f32(q_rope.reshape(b, h, dr), cache_krope.transpose(1, 2))
+    s = (s_lat + s_rope) / math.sqrt(dn + dr)
+    kv_pos = torch.arange(smax, device=x.device)
+    bias = _mask_bias(positions, kv_pos, True, None, kv_len[:, None, None])  # (B,1,Smax)
+    p = torch.softmax(s + bias, dim=-1)
+    out_lat = matmul_f32(p.to(dt), cache_ckv).to(dt)  # (B,H,KL)
+    out = torch.einsum("bhr,rhk->bhk", out_lat, params.v_up.to(dt))  # (B,H,DV)
+    return torch.matmul(out.reshape(b, 1, -1), params.wo.to(dt).reshape(-1, cfg.d_model))

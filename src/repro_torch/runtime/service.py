@@ -23,7 +23,7 @@ ported:
   forward is row-independent, and the kernels zero-fill the rows of a tile
   past the batch.
 * :class:`DecodePlan`: prefill + continuous slot-batched decode for the LM
-  zoo's dense decoders.  The per-slot caches live stacked in one
+  zoo's dense and MoE decoders.  The per-slot caches live stacked in one
   ``(max_batch, ...)`` cache, and every active slot advances through ONE
   ``decode_step`` call with per-slot positions (the reference ``vmap``s a
   scalar-position step; the port's step takes a position per row).  The
@@ -31,7 +31,12 @@ ported:
   the synchronous ``generate()`` and the async engine drive, so the two
   are token-identical under deterministic arrivals.  Prompt-length
   padding buckets bound the prefill shapes; prefill gathers the logits at
-  the *true* prompt end (``last_pos``), so bucketing is token-exact.
+  the *true* prompt end (``last_pos``), so bucketing is token-exact for
+  attention.  An MoE layer's capacity comes from the padded length, so
+  once the exact-length prefill drops assignments a bucketed one differs
+  from it, as the reference's does (the moe family takes the reference's
+  buckets all the same: only its stateful families prefill at exact
+  length, and the port serves none of them yet).
 * :class:`StreamingPlan`: the latency path, over the compiled network's
   :class:`~repro_torch.core.streaming.StreamingSession` (host-side
   coalescing, LRU-bounded per-size cells, state adoption on close).
@@ -690,7 +695,9 @@ class DecodePlan(ServePlan):
         tokens[0, :n] = prompt
         # last_pos gathers the logits at the true prompt end: causal
         # attention makes positions <= last_pos independent of the
-        # right-padding, so the bucketed prefill equals an exact-length one.
+        # right-padding.  MoE capacity is not: it grows with the padded
+        # length, so a bucketed MoE prefill equals an exact-length one only
+        # while the exact one drops no assignment (the reference's too).
         batch = {"tokens": torch.from_numpy(tokens).to(self.device), "last_pos": n - 1}
         with dispatch_guard(self.config.strict, self.device, {"tokens": batch["tokens"]}):
             logits, cache = cell(batch)

@@ -116,3 +116,28 @@ def test_full_refuses_a_model_larger_than_the_card(monkeypatch):
     need = cfg.param_count() * 2
     with pytest.raises(SystemExit, match=f"{need} bytes in bfloat16.*{16 << 30} bytes"):
         launch.load_model(cfg, torch.device("cuda", 0))
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v2-236b"])
+def test_serves_the_moe_archs(capsys, arch):
+    """Both MoE archs (GQA and MLA attention) serve through the launcher at
+    their smoke configs."""
+    launch.main(["--device", "cpu", "--arch", arch, "--requests", "3", "--max-new", "3",
+                 "--max-batch", "2", "--max-seq", "32"])
+    out = capsys.readouterr().out
+    assert re.search(rf"^\[serve/sync\] {arch}: 3 reqs, 9 tokens", out, re.M), out
+
+
+def test_full_moe_archs_on_an_80_gb_card(monkeypatch):
+    """On an 80 GB card --full refuses deepseek-v2-236b by its bytes
+    (235.7 B parameters, 471.5 GB in bf16); moonshot-v1-16b-a3b's 28.4 B
+    (56.8 GB) fit, so the check lets it through."""
+    class Props:
+        total_memory = 80 << 30
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: Props)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d: "an 80 GB card")
+    big = get_config("deepseek-v2-236b")
+    with pytest.raises(SystemExit, match=f"{big.param_count() * 2} bytes in bfloat16"):
+        launch.load_model(big, torch.device("cuda", 0))
+    assert get_config("moonshot-v1-16b-a3b").param_count() * 2 < Props.total_memory

@@ -472,19 +472,12 @@ def test_port_initialised_weights_decode_the_same_in_the_reference(arch):
 
 # ------------------------------------------------------------------ refusals
 @pytest.mark.parametrize("arch,slice_", [
-    ("deepseek-v2-236b", "Slice F2"), ("moonshot-v1-16b-a3b", "Slice F2"),
     ("mamba2-1.3b", "Slice F3"), ("zamba2-2.7b", "Slice F4"), ("internvl2-1b", "Slice F5"),
     ("seamless-m4t-large-v2", "Slice F6"),
 ])
 def test_build_model_names_the_slice(arch, slice_):
     cfg = tcfg.get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match=f"{cfg.family}.*{slice_}"):
-        t_build_model(cfg)
-
-
-def test_dense_mla_refused():
-    cfg = dataclasses.replace(tcfg.get_smoke_config("yi-9b"), attn_kind="mla")
-    with pytest.raises(NotImplementedError, match="MLA.*Slice F2"):
         t_build_model(cfg)
 
 

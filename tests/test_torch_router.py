@@ -476,12 +476,77 @@ SCHEDULE = (
 )
 
 
-def _run_schedule(router_cls, config_cls, tenant_cls, service_cls, plan_factory):
+class Stepper:
+    """Lets an engine serve an item only when the test says so: each plan's
+    ``infer`` waits for ``go`` and signals ``done``.  With the test thread
+    as the router's scheduler (:func:`drive_stepped`), an engine takes an
+    item only between two picks, never during a pick's scan of the
+    tenants, so the order is the DRR's alone, free of thread timing."""
+
+    def __init__(self):
+        self.go = threading.Semaphore(0)
+        self.done = threading.Semaphore(0)
+
+    def wrap(self, factory):
+        def gated(config, metrics):
+            plan = factory(config, metrics)
+            real = plan.infer
+
+            def infer(x):
+                if not self.go.acquire(timeout=30):
+                    raise TimeoutError("the test never released the item")
+                try:
+                    return real(x)
+                finally:
+                    self.done.release()
+
+            plan.infer = infer
+            return plan
+
+        return gated
+
+
+def drive_stepped(router, stepper, timeout_s=30.0):
+    """Run ``router``'s dispatch from the calling thread: the engines start,
+    the scheduler thread does not (its loop is replaced by a no-op), and
+    each ``_dispatch_once`` (one pick: shed what expired, choose tenant,
+    item and engine, submit) is followed, when it put an item in flight, by
+    that item's whole service before the next pick.  Ends when a pick makes
+    no progress and nothing is queued."""
+    router._sched_loop = lambda: None
+    router.start()
+    end = time.monotonic() + timeout_s
+    while time.monotonic() < end:
+        progressed = router._dispatch_once()
+        with router._cv:
+            inflight, depth = router._inflight, router._total_depth_locked()
+        if inflight:
+            stepper.go.release()
+            assert stepper.done.acquire(timeout=timeout_s), "the engine never served its item"
+            while True:  # the engine's completion callback ends the item's flight
+                with router._cv:
+                    if router._inflight == 0:
+                        break
+                time.sleep(0.0002)
+        elif not progressed:
+            assert depth == 0, f"a pick made no progress with {depth} items queued"
+            return
+    raise AssertionError(f"the stepped drive did not finish in {timeout_s} s")
+
+
+def _run_schedule(router_cls, config_cls, tenant_cls, service_cls, plan_factory, stepped=True):
+    """Submit SCHEDULE before the router starts, then serve it: dispatched
+    from the calling thread (``stepped``, :func:`drive_stepped`), or by the
+    router's own scheduler thread.  Returns (items in served order, each
+    item's outcome, per-tenant shed/completed counts)."""
     served = []
+    stepper = Stepper() if stepped else None
+    factory = plan_factory(served)
     router = router_cls(config_cls(tenants={
         "light": tenant_cls(weight=1), "heavy": tenant_cls(weight=4),
         "burst": tenant_cls(weight=1, max_queue=2)}))
-    router.add_engine("e0", plan_factory(served), service_cls(max_queue=1))
+    router.add_engine("e0", stepper.wrap(factory) if stepped else factory,
+                      service_cls(max_queue=1))
     outcomes = []
     for item, tenant, priority, deadline_s in SCHEDULE:
         try:
@@ -491,7 +556,10 @@ def _run_schedule(router_cls, config_cls, tenant_cls, service_cls, plan_factory)
             continue
         outcomes.append((item, fut))
     time.sleep(0.05)  # the 1 ms deadlines expire in the queue
-    router.start()
+    if stepped:
+        drive_stepped(router, stepper)
+    else:
+        router.start()
     router.drain_and_stop(timeout=30)
     resolved = []
     for out in outcomes:
@@ -508,22 +576,33 @@ def _run_schedule(router_cls, config_cls, tenant_cls, service_cls, plan_factory)
     return served, resolved, sheds
 
 
+def _port_factory(served):
+    return sleepy_factory(delay_s=0.001, served=served)
+
+
+def _ref_factory(served):
+    return lambda config, metrics: _RecordingJaxPlan(config, metrics, served)
+
+
 def test_scripted_schedule_dispatches_in_the_reference_order():
-    """The same schedule, submitted before ``start()`` to a JAX Router and a
-    port Router with one engine each (inbox depth 1): the engines serve the
-    items in the same order (priority, then EDF, within a tenant; DRR at
-    weights 1:4 across tenants), and the same items are shed with the same
-    typed errors (DeadlineExceeded dead on arrival and in the queue,
-    TenantQueueFull past a tenant's bound)."""
-    port = _run_schedule(
-        Router, RouterConfig, TenantConfig, ServiceConfig,
-        lambda served: sleepy_factory(delay_s=0.001, served=served))
-    ref = _run_schedule(
-        JRouter, JRouterConfig, JTenantConfig, JServiceConfig,
-        lambda served: (lambda config, metrics: _RecordingJaxPlan(config, metrics, served)))
-    assert port[0] == ref[0]
-    assert port[1] == ref[1]
-    assert port[2] == ref[2]
+    """The same schedule, submitted before the routers start, to a JAX
+    Router and a port Router with one engine each (inbox depth 1), both
+    dispatched from the test thread one pick at a time (an engine takes an
+    item only between two picks, so the reference's pick, which reads an
+    inbox's depth live during its scan, meets no engine mid-item): the
+    engines serve the items in the same order (priority, then EDF, within
+    a tenant; DRR at weights 1:4 across tenants), and the same items are
+    shed with the same typed errors (DeadlineExceeded dead on arrival and
+    in the queue, TenantQueueFull past a tenant's bound).  The port's own
+    scheduler thread, engines running free, serves the same order too."""
+    ref = _run_schedule(JRouter, JRouterConfig, JTenantConfig, JServiceConfig, _ref_factory)
+    port = _run_schedule(Router, RouterConfig, TenantConfig, ServiceConfig, _port_factory)
+    threaded = _run_schedule(Router, RouterConfig, TenantConfig, ServiceConfig, _port_factory,
+                             stepped=False)
+    for run in (port, threaded):
+        assert run[0] == ref[0]
+        assert run[1] == ref[1]
+        assert run[2] == ref[2]
     errors = {name for _, name, _ in port[1] if name is not None}
     assert errors == {DeadlineExceeded.__name__, TenantQueueFull.__name__}
     assert {JDeadlineExceeded.__name__, JTenantQueueFull.__name__} == errors

@@ -8,11 +8,15 @@ Runs the scripted schedule of ``tests/test_torch_router.py``
 engine with an inbox of one) once as it is, then RUNS times (default 60)
 with random sleeps of up to 10 ms injected into a third of the engine's
 ``submit``, ``_claim`` and ``_complete`` calls (a seeded
-``random.Random(0)``), and prints how many runs served the items, shed
-them or counted them differently from the first.  ``port`` drives
+``random.Random(0)``), and prints, for each drive, how many runs served
+the items, shed them or counted them differently from the first.  Both
+routers run the test's drives: ``stepped``, the test thread dispatching
+one pick at a time and the engine serving each item between two picks
+(``drive_stepped``), and ``threaded``, the router's own scheduler thread
+with the engine running free.  ``port`` drives
 ``repro_torch.runtime.Router``; ``reference`` the JAX package's, whose
-pick reads each engine's inbox depth live at every tenant of the scan.
-On the CPU; each run takes about 0.1 s.
+pick reads each engine's inbox depth live at every tenant of the scan, so
+its threaded drive can differ.  On the CPU; each run takes about 0.1 s.
 """
 import json
 import random
@@ -53,14 +57,18 @@ def main(argv) -> int:
 
         return call
 
-    def run():
-        return T._run_schedule(Router, RouterConfig, TenantConfig, ServiceConfig, factory)
+    def run(stepped):
+        return T._run_schedule(Router, RouterConfig, TenantConfig, ServiceConfig, factory,
+                               stepped=stepped)
 
-    first = run()
+    drives = {"stepped": True, "threaded": False}
+    first = {name: run(stepped) for name, stepped in drives.items()}
     for name in ("submit", "_claim", "_complete"):
         setattr(engine.AsyncEngine, name, jittered(getattr(engine.AsyncEngine, name)))
-    differ = sum(run() != first for _ in range(runs))
-    print(json.dumps({"router": which, "runs": runs, "differ": differ}))
+    differ = {name: sum(run(stepped) != first[name] for _ in range(runs))
+              for name, stepped in drives.items()}
+    print(json.dumps({"router": which, "runs": runs, "differ": differ,
+                      "stepped_equals_threaded_unjittered": first["stepped"] == first["threaded"]}))
     return 0
 
 
