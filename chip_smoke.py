@@ -201,7 +201,32 @@ the run with a non-zero exit:
    CPU's probabilities (1e-5 relative), kept slots equal, logits within
    1e-4 relative + 1e-4 x std where no flip reached, tokens equal up to
    the first near-tie.  The path launches none of the five kernels;
-11. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
+11. the state-space and front-end families at full width and depth, with
+   phase 7's slots, prompts and gates, bf16, random weights from seed 0:
+   (a) mamba2-1.3b (48 Mamba-2 layers, d 2048, state 128) and (b)
+   zamba2-2.7b (54 Mamba-2 layers and one shared attention block after
+   every 6), each prefilled at exact length (the plan's prefill cells one
+   per prompt length, none evicted) with a 1- and a 2-token prompt beside
+   phase 7's eight, prefill + decode against ``forward`` on prompts 2, 60
+   and 700 (within the larger of DEC_FORWARD_TOL x std and
+   SSM_DRIFT_FACTOR x the model's own drift between two prefill shapes),
+   and in f32 at full width and depth within 1e-4 relative + 1e-4 x std
+   (the bf16 forward's distance from the f32 one printed), and one
+   8000-token prompt (31 chunks of 256 and a ragged tail of 64): its
+   prefill's device ms, served to 16 tokens at max_seq 8192 and held
+   against ``forward``, a slot's state bytes equal to a 2-token prompt's;
+   (c) internvl2-1b with phase 7's gates, and one batch of 1024
+   patch embeddings and 32 tokens through prefill and 8 decode steps, held
+   against ``forward``; the decode-step device ms against the bytes the
+   step moves (the weights once, the hybrid's shared block at each of its
+   9 applications, each slot's f32 state read and written and its k/v up
+   to its length); (e) strict serving of zamba2 at depth 12 (tokens equal
+   to the plain service's, the sentinel still) and the launcher
+   (``--arch <each> --full``); (d) each arch's width cut in depth (4, 12,
+   4) in f32, the card against the CPU, the short prompts included
+   (logits within 1e-4 relative + 1e-4 x std, tokens equal up to the first
+   near-tie).  The paths launch none of the five kernels;
+12. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
    ...}`` line.
 
 Without a CUDA device, or away from the rest of the repository, it exits
@@ -2117,7 +2142,7 @@ class LogitRecorder:
     in which one slot was fed its tokens at its positions."""
 
     def __init__(self, torch, model):
-        self.torch, self.model, self.device = torch, model, model.device
+        self.torch, self.model, self.device, self.cfg = torch, model, model.device, model.cfg
         self.prefills, self.steps = [], []
         self.placed = {}  # rid -> (its first fused step, its slot), set by logits()
         self.current = None  # the call in progress: ("prefill", i) or ("step", j)
@@ -2448,16 +2473,22 @@ def gqa_step_bytes(model, cfg):
 
 
 def decode_width(torch, model, cfg, dev, card, label="7a", twin=None, step_bytes=None,
-                 host_reps=20):
-    """Phase 7a (and 10a-b): a decoder at its published width, bf16,
-    through ``serve_model``: the slot-batched plan against a single-slot
-    plan, the decode against ``forward`` over the whole sequence, bucketed
-    against exact-length prefills, an EOS exit; then the prefill and
-    decode-step times against the bytes' bound (``step_bytes(S)``).
-    ``twin`` (default: the model) serves the forward and bucketed checks:
-    the same weights under a config whose MoE layers drop nothing; each
-    replays the routing of the computation it is held to (``RouteReplay``),
-    every replayed choice a near-tie of its own."""
+                 host_reps=20, lengths=DEC_LENGTHS, forward_lengths=DEC_FORWARD_CHECK,
+                 drift_factor=None):
+    """Phase 7a (and 10a-b, 11a-c): a decoder at its published width,
+    bf16, through ``serve_model``: the slot-batched plan against a
+    single-slot plan, the decode against ``forward`` over the whole
+    sequence (prompts ``forward_lengths``), bucketed against exact-length
+    prefills, an EOS exit; then the prefill and decode-step times against
+    the bytes' bound (``step_bytes(S)``).  ``twin`` (default: the model)
+    serves the forward and bucketed checks: the same weights under a
+    config whose MoE layers drop nothing; each replays the routing of the
+    computation it is held to (``RouteReplay``), every replayed choice a
+    near-tie of its own.  The plans keep a prefill cell for each prompt
+    length (``cache_size``), so none is evicted.  ``drift_factor`` bounds
+    the forward check by that many times the model's own drift between
+    two prefill shapes where it is the larger (an MoE twin's is
+    MOE_DRIFT_FACTOR)."""
     import numpy as np
 
     from repro_torch.runtime import DecodePlan, Request, ServiceConfig, serve_model
@@ -2465,8 +2496,9 @@ def decode_width(torch, model, cfg, dev, card, label="7a", twin=None, step_bytes
     twin = model if twin is None else twin
     step_bytes = step_bytes or gqa_step_bytes(model, cfg)
     rng = np.random.default_rng(7)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in DEC_LENGTHS]
-    sc = dict(plan="decode", max_seq=DEC_MAX_SEQ, buckets=DEC_BUCKETS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lengths]
+    sc = dict(plan="decode", max_seq=DEC_MAX_SEQ, buckets=DEC_BUCKETS,
+              cache_size=max(8, len(lengths)))
     serve_model(model, ServiceConfig(max_batch=DEC_MAX_BATCH, **sc)).generate(
         dec_requests(Request, prompts, 2, n=1))  # warm-up: cuBLAS handles, the allocator
     svc = serve_model(model, ServiceConfig(max_batch=DEC_MAX_BATCH, **sc))
@@ -2546,16 +2578,17 @@ def decode_width(torch, model, cfg, dev, card, label="7a", twin=None, step_bytes
 
     # prefill + decode steps against forward over the whole sequence, on
     # the twin.  An MoE model's bound is the larger of DEC_FORWARD_TOL x
-    # std and MOE_DRIFT_FACTOR x the drift above, and every replayed choice
-    # a near-tie of forward's own within the larger of MOE_BF16_ROUTE_RTOL
-    # and MOE_DRIFT_FACTOR x the prefills' largest gap.
-    moe = twin is not model
+    # std and MOE_DRIFT_FACTOR x the drift above (a Mamba-2 stack's,
+    # SSM_DRIFT_FACTOR x it), and every replayed choice a near-tie of
+    # forward's own within the larger of MOE_BF16_ROUTE_RTOL and
+    # MOE_DRIFT_FACTOR x the prefills' largest gap.
+    factor = MOE_DRIFT_FACTOR if twin is not model else drift_factor
     fwd_err = {}
-    sub = [prompts[DEC_LENGTHS.index(n)] for n in DEC_FORWARD_CHECK]
+    sub = [prompts[lengths.index(n)] for n in forward_lengths]
     for n, lg, want, gaps in forward_check(torch, twin, sub, sc, dev, DEC_NEW):
         err, std = float((lg - want).abs().max()), float(want.std())
         gap = max((g["rel_gap"] for g in gaps), default=0.0)
-        tol = max(DEC_FORWARD_TOL * std, MOE_DRIFT_FACTOR * bucket_err if moe else 0.0)
+        tol = max(DEC_FORWARD_TOL * std, factor * bucket_err if factor else 0.0)
         gap_tol = max(MOE_BF16_ROUTE_RTOL, MOE_DRIFT_FACTOR * bucket_gap)
         fwd_err[n] = dict(max_abs=err, logit_std=std, ratio=err / std, tol=tol,
                           replayed_tokens=len(gaps), max_rel_gap=gap, gap_tol=gap_tol)
@@ -2608,7 +2641,7 @@ def decode_width(torch, model, cfg, dev, card, label="7a", twin=None, step_bytes
     report = dict(
         card=card, params=cfg.param_count(),
         weight_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
-        requests=len(prompts), prompt_lengths=list(DEC_LENGTHS), new_tokens=DEC_NEW,
+        requests=len(prompts), prompt_lengths=list(lengths), new_tokens=DEC_NEW,
         generate_wall_s=wall, tokens=n_tokens, tokens_per_s=n_tokens / wall,
         stats={k: v for k, v in svc.stats.items() if k != "telemetry"},
         first_near_tie=ties, steps_compared=compared, near_tie=NEAR_TIE,
@@ -2635,10 +2668,12 @@ def decode_width(torch, model, cfg, dev, card, label="7a", twin=None, step_bytes
     return report, prompts, {c.rid: c.tokens for c in batched}, ties
 
 
-def decode_f32_twin(torch, cfg, dev, card):
-    """Phase 7b: the card against the CPU, full width at depth 6 (five local
-    layers, then one global), f32, the card's weights carried to the CPU
-    through the flat arrays; three requests in one slot batch."""
+def decode_f32_twin(torch, cfg, dev, card, layers=DEC_F32_LAYERS, lengths=DEC_F32_LENGTHS,
+                    label="7b"):
+    """Phase 7b (and 11d): the card against the CPU, full width at depth
+    ``layers`` (gemma3-1b's 6: five local layers, then one global), f32,
+    the card's weights carried to the CPU through the flat arrays; a
+    request a prompt length, all in one slot batch."""
     import dataclasses
 
     import numpy as np
@@ -2647,11 +2682,11 @@ def decode_f32_twin(torch, cfg, dev, card):
     from repro_torch.models import build_model
     from repro_torch.runtime import DecodePlan, Request, ServiceConfig
 
-    cfg32 = dataclasses.replace(cfg, n_layers=DEC_F32_LAYERS, dtype="float32")
+    cfg32 = dataclasses.replace(cfg, n_layers=layers, dtype="float32")
     card_m = build_model(cfg32, dev).init(torch.Generator(device=dev).manual_seed(0))
     cpu_m = causal_lm_params_from_flat(cfg32, flat_from_causal_lm(card_m), device="cpu")
     rng = np.random.default_rng(7)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in DEC_F32_LENGTHS]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lengths]
     runs, walls = {}, {}
     for name, m in (("card", card_m), ("cpu", cpu_m)):
         rec = LogitRecorder(torch, m)
@@ -2666,17 +2701,18 @@ def decode_f32_twin(torch, cfg, dev, card):
         (ct, cl), (pt, pl) = runs["card"][rid], runs["cpu"][rid]
         k = first_tie(pl)
         check(np.array_equal(ct[:k], pt[:k]),
-              f"7b: request {rid}: card tokens {ct[:k]} != CPU tokens {pt[:k]} before step {k}")
+              f"{label}: request {rid}: card tokens {ct[:k]} != CPU tokens {pt[:k]} before "
+              f"step {k}")
         rows = same_input_rows(ct, pt)
         got, want = cl[:rows].cpu(), pl[:rows]
         std = float(want.std())
         err = (got - want).abs()
         check(bool((err <= DEC_F32_TOL * want.abs() + DEC_F32_TOL * std).all()),
-              f"7b: request {rid}: card logits {float(err.max())} from the CPU's (std {std})")
-        worst[DEC_F32_LENGTHS[rid]] = dict(max_abs=float(err.max()), logit_std=std,
-                                           steps=rows, first_near_tie=k)
+              f"{label}: request {rid}: card logits {float(err.max())} from the CPU's (std {std})")
+        worst[lengths[rid]] = dict(max_abs=float(err.max()), logit_std=std, steps=rows,
+                                   first_near_tie=k)
         compared += rows
-    print(f"7b [{card}] gemma3-1b full width, depth {DEC_F32_LAYERS}, f32: card against CPU over "
+    print(f"{label} [{card}] {cfg.name} full width, depth {layers}, f32: card against CPU over "
           f"{compared} steps of {len(prompts)} requests: {json.dumps(worst)}; generate wall s "
           f"{json.dumps(walls)}")
     del card_m
@@ -3937,6 +3973,267 @@ def moe_decoders(torch, ops, card, dev):
     return {"moe": counts}, report
 
 
+
+# ------------------------------------------------------------ phase 11
+# The state-space and front-end families, bf16, random weights from
+# torch.Generator seed 0, with phase 7's slots, buckets, prompts and gates:
+# mamba2-1.3b (48 Mamba-2 layers, d 2048, 64 heads of 64, state 128; 1.446 B
+# parameters, 2.89 GB) and zamba2-2.7b (54 Mamba-2 layers, d 2560, 80 heads
+# of 64, state 64, one shared block of 32 heads of 80 and d_ff 10240 after
+# every 6 layers; 2.42 B, 4.84 GB), whole, prefilled at exact length (their
+# plans ignore the buckets) with a 1- and a 2-token prompt beside phase 7's
+# eight, under the conv's K - 1 = 3; internvl2-1b (24 layers, d 896; 0.63 B)
+# whole, its text prompts and one batch of patch embeddings.
+SSM_ARCH, HYBRID_ARCH, VLM_ARCH = "mamba2-1.3b", "zamba2-2.7b", "internvl2-1b"
+SSM_LENGTHS = (1, 2) + DEC_LENGTHS
+SSM_FORWARD_CHECK = (2, 60, 700)
+SSM_LONG, SSM_LONG_SEQ = 8000, 8192  # 31 chunks of 256 and a ragged tail of 64
+VLM_TOKENS, VLM_NEW = 32, 8  # the text after the 1024 patch embeddings; tokens decoded after
+# 11d: each arch's width cut in depth (zamba2's 12 is two groups), f32,
+# the card against the CPU, the 1- and 2-token prompts included.
+SSM_F32_LAYERS = {SSM_ARCH: 4, HYBRID_ARCH: 12, VLM_ARCH: 4}
+SSM_F32_LENGTHS = (1, 2, 60, 700)
+HYBRID_STRICT_LAYERS = 12  # 11e: strict serving of zamba2, two groups
+# A Mamba-2 stack in bf16 with random weights is sensitive to the order
+# of its roundings: two prefills of one prompt at other chunkings, or its
+# bf16 forward and the f32 forward of the same weights, land further
+# apart than DEC_FORWARD_TOL x std at mamba2-1.3b's depth (11a prints
+# both).  The decode recurrence and the chunked scan round at other
+# places, so the stateful families' bf16 forward checks are bounded as the
+# MoE one is: the larger of DEC_FORWARD_TOL x std and SSM_DRIFT_FACTOR x
+# the model's drift between two prefill shapes.  The algorithm itself is
+# held in f32 at full width and depth (``ssm_f32_forward``: prefill +
+# decode against forward within DEC_F32_TOL).
+SSM_DRIFT_FACTOR = 2.0
+
+
+def lm_step_bytes(model, cfg):
+    """(S, the step) -> the bytes a decode step of S slots moves at least,
+    each slot at ``DEC_MAX_SEQ // 2`` tokens (``decode_width``'s timing):
+    every weight once (the untied embedding table as the S rows it looks
+    up; the hybrid's shared block once at each of its ``n_layers /
+    attn_every`` applications), and for each slot a read and a write of
+    its recurrent state (the f32 SSM state and the conv history) and a
+    read of its k/v up to its length."""
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    table = model.embed.table
+    rows = 0 if cfg.tie_embeddings else table.numel() * table.element_size()
+    shared = 0
+    if cfg.family == "hybrid":
+        shared = (cfg.n_layers // cfg.attn_every - 1) * sum(
+            p.numel() * p.element_size() for p in model.shared_attn.parameters())
+    shapes, dtypes = model.cache_shapes(1, DEC_MAX_SEQ), model.cache_dtypes()
+    state = sum(math.prod(s) * dtypes[n].itemsize for n, s in shapes.items() if n not in ("k", "v"))
+    kv = sum(math.prod(s) // DEC_MAX_SEQ * dtypes[n].itemsize for n, s in shapes.items()
+             if n in ("k", "v")) * (DEC_MAX_SEQ // 2 + 1)
+    row = cfg.d_model * table.element_size()
+    return lambda S, step: total - rows + shared + S * (row + 2 * state + kv)
+
+
+def state_bytes(cache) -> int:
+    """A cache's recurrent state (every entry but the k/v), in bytes."""
+    return sum(t.numel() * t.element_size() for n, t in cache.items() if n not in ("k", "v"))
+
+
+def long_prompt(torch, model, cfg, dev, card, label, drift):
+    """11a-b: one 8000-token prompt (31 chunks of 256 and a ragged tail of
+    64): its prefill's device ms, then served to 16 new tokens through a
+    single-slot plan with max_seq 8192, prefill + decode held to
+    ``forward`` over the whole sequence (the larger of DEC_FORWARD_TOL x
+    std and SSM_DRIFT_FACTOR x ``drift``, the model's drift between two
+    prefill shapes), and the slot's state bytes against a 2-token
+    prompt's."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    p = rng.integers(0, cfg.vocab_size, SSM_LONG).astype(np.int32)
+    t = torch.from_numpy(p.astype(np.int64))[None].to(dev)
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+
+    def fn():
+        return model.prefill({"tokens": t})
+
+    # One prefill a replay: each takes most of a second on zamba2.
+    pre = dict(device_ms=device_ms(torch, fn, flush, reps=1), wall_ms=wall_ms(torch, fn, 1))
+    with torch.inference_mode():
+        _, c_long = model.prefill({"tokens": t})
+        _, c_short = model.prefill({"tokens": t[:, :2]})
+    sizes = dict(long=state_bytes(c_long), short=state_bytes(c_short),
+                 slot_at_max_seq=[sum(math.prod(s) * model.cache_dtypes()[n].itemsize
+                                      for n, s in model.cache_shapes(1, m).items()
+                                      if n not in ("k", "v"))
+                                  for m in (DEC_MAX_SEQ, SSM_LONG_SEQ)])
+    check(sizes["long"] == sizes["short"] == sizes["slot_at_max_seq"][0]
+          == sizes["slot_at_max_seq"][1],
+          f"{label}: a slot's state bytes grow with its prompt: {sizes}")
+    del c_long, c_short
+    t0 = time.perf_counter()
+    [(n, lg, want, _)] = forward_check(torch, model, [p], dict(plan="decode", max_seq=SSM_LONG_SEQ),
+                                       dev, DEC_NEW)
+    wall = time.perf_counter() - t0
+    err, std = float((lg - want).abs().max()), float(want.std())
+    tol = max(DEC_FORWARD_TOL * std, SSM_DRIFT_FACTOR * drift)
+    check(err <= tol, f"{label}: the {n}-token prompt's prefill + decode logits {err} from "
+                      f"forward's (std {std}, bound {tol})")
+    rep = dict(prompt=SSM_LONG, max_seq=SSM_LONG_SEQ, prefill=pre, state_bytes=sizes,
+               forward_vs_decode=dict(max_abs=err, logit_std=std, ratio=err / std, tol=tol),
+               served_and_forward_wall_s=wall)
+    print(f"{label} [{card}] {cfg.name}: a {SSM_LONG}-token prompt, prefill {json.dumps(pre)} ms; "
+          f"served to {DEC_NEW} tokens at max_seq {SSM_LONG_SEQ}, prefill + decode {err:.4g} from "
+          f"forward (std {std:.4g}); state bytes a slot {json.dumps(sizes)}")
+    return rep
+
+
+def ssm_f32_forward(torch, model, cfg, dev, card, label):
+    """11a-b: the bf16 model's weights in f32 at full width and depth, on
+    the card: prefill + decode (a single-slot plan, 16 new tokens) against
+    ``forward`` over the whole sequence on SSM_FORWARD_CHECK's prompts,
+    within DEC_F32_TOL relative + DEC_F32_TOL x std; and the bf16 model's
+    ``forward`` against the f32 one on the 700-token prompt (printed: the
+    model's own bf16 error)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models import build_model
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = build_model(cfg32, dev)
+    with torch.no_grad():
+        for p32, p in zip(m32.parameters(), model.parameters()):
+            p32.copy_(p)
+    rng = np.random.default_rng(7)
+    lengths = {n: rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in SSM_LENGTHS}
+    prompts = [lengths[n] for n in SSM_FORWARD_CHECK]
+    sc = dict(plan="decode", max_seq=DEC_MAX_SEQ)
+    out = {}
+    for n, lg, want, _ in forward_check(torch, m32, prompts, sc, dev, DEC_NEW):
+        err, std = (lg - want).abs(), float(want.std())
+        check(bool((err <= DEC_F32_TOL * want.abs() + DEC_F32_TOL * std).all()),
+              f"{label}: f32 prefill + decode logits {float(err.max())} from forward's (std {std})")
+        out[n] = dict(max_abs=float(err.max()), logit_std=std)
+    t = torch.from_numpy(prompts[-1].astype(np.int64))[None].to(dev)
+    with torch.inference_mode():
+        f16 = model({"tokens": t})[0][0].float()
+        f32 = m32({"tokens": t})[0][0]
+    bf16_err = float((f16 - f32).abs().max())
+    del m32, f16, f32
+    print(f"{label} [{card}] {cfg.name} in f32 at full width and depth: prefill + decode against "
+          f"forward {json.dumps(out)}; the bf16 forward {bf16_err:.4g} from the f32 forward of "
+          f"the same weights ({len(prompts[-1])} tokens)")
+    return dict(f32_forward_vs_decode=out, bf16_vs_f32_forward_max_abs=bf16_err)
+
+
+def vlm_embeds(torch, model, cfg, dev, card, label="11c"):
+    """11c: one batch of ``n_patches`` random patch embeddings (N(0,
+    0.02^2), the token table's scale) and 32 tokens through ``prefill``,
+    held against ``forward`` of the same batch, then VLM_NEW greedy decode
+    steps from that cache held against ``forward`` over the embeddings,
+    the tokens and the decoded ones (DEC_FORWARD_TOL x std); the prefill's
+    device ms."""
+    from repro_torch.runtime import pad_cache_like
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    embeds = torch.randn((1, cfg.n_patches, cfg.d_model), generator=g, device=dev) * 0.02
+    toks = torch.randint(0, cfg.vocab_size, (1, VLM_TOKENS), generator=g, device=dev)
+    n = cfg.n_patches + VLM_TOKENS
+    batch = {"tokens": toks, "embeds": embeds}
+    with torch.inference_mode():
+        logits, cache = model.prefill(batch)
+        check(all(cache[k].shape[2] == n for k in ("k", "v")),
+              f"{label}: the prefill's cache covers {cache['k'].shape[2]} positions, want {n}")
+        cache = pad_cache_like(cache, model.cache_shapes(1, n + VLM_NEW))
+        rows, out = [logits[0].float()], [int(logits[0].argmax())]
+        for i in range(VLM_NEW - 1):
+            lg, cache = model.decode_step(cache, torch.tensor([[out[-1]]], device=dev), n + i)
+            rows.append(lg[0].float())
+            out.append(int(lg[0].argmax()))
+        seq = torch.cat([toks, torch.tensor([out[:-1]], device=dev)], dim=1)
+        full, _ = model({"tokens": seq, "embeds": embeds})
+        want = full[0, n - 1:].float()
+        got = torch.stack(rows)
+        first, _ = model(batch)
+    pre_err = float((logits[0].float() - first[0, -1].float()).abs().max())
+    err, std = float((got - want).abs().max()), float(want.std())
+    check(pre_err <= DEC_FORWARD_TOL * std and err <= DEC_FORWARD_TOL * std,
+          f"{label}: with patch embeddings, prefill {pre_err} and prefill + decode {err} from "
+          f"forward's (std {std})")
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    pre_ms = device_ms(torch, lambda: model.prefill(batch), flush, reps=DEC_REPS)
+    rep = dict(patches=cfg.n_patches, tokens=VLM_TOKENS, prefill_vs_forward_max_abs=pre_err,
+               decode_vs_forward_max_abs=err, logit_std=std, decoded=VLM_NEW,
+               prefill_device_ms=pre_ms)
+    print(f"{label} [{card}] {cfg.name}: {cfg.n_patches} patch embeddings + {VLM_TOKENS} tokens, "
+          f"prefill {pre_err:.4g} and {VLM_NEW} decoded tokens {err:.4g} from forward (std "
+          f"{std:.4g}); prefill device {pre_ms:.3f} ms")
+    return rep
+
+
+def ssm_decoders(torch, ops, card, dev):
+    """Phase 11: the state-space and front-end families at full width and
+    depth (11a mamba2-1.3b, 11b zamba2-2.7b, 11c internvl2-1b), 11e strict
+    serving of zamba2 at depth 12 and the launcher, then 11d, the f32
+    twins; the paths launch none of the five kernels."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    ops.reset_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = dict(memory_at_start=torch.cuda.memory_allocated(dev))
+    for label, arch in (("11a", SSM_ARCH), ("11b", HYBRID_ARCH), ("11c", VLM_ARCH)):
+        cfg = get_config(arch)
+        stateful = cfg.family in ("ssm", "hybrid")
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = build_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        kw = dict(lengths=SSM_LENGTHS, forward_lengths=SSM_FORWARD_CHECK,
+                  drift_factor=SSM_DRIFT_FACTOR) if stateful else {}
+        rep, _, _, _ = decode_width(torch, model, cfg, dev, card, label,
+                                    step_bytes=lm_step_bytes(model, cfg), **kw)
+        if stateful:
+            st = rep["stats"]
+            check(st["prefill_cells"] == len(set(SSM_LENGTHS)) and st["prefill_cell_evictions"] == 0,
+                  f"{label}: {st['prefill_cells']} prefill cells ({st['prefill_cell_evictions']} "
+                  f"evicted) for {len(set(SSM_LENGTHS))} prompt lengths")
+            rep["long_prompt"] = long_prompt(torch, model, cfg, dev, card, label,
+                                             rep["bucketed_vs_exact_max_abs"])
+            rep["f32"] = ssm_f32_forward(torch, model, cfg, dev, card, label)
+        else:
+            rep["embeds"] = vlm_embeds(torch, model, cfg, dev, card, label)
+        rep["init_s"] = init_s
+        rep["state_bytes_a_slot"] = state_bytes(model.init_cache(1, 1))
+        rep["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        rep["wall_s"] = time.perf_counter() - t0
+        print(f"{label} [{card}] {arch}: {rep['weight_bytes']} weight bytes, state "
+              f"{rep['state_bytes_a_slot']} bytes a slot, peak memory "
+              f"{rep['max_memory_allocated']} bytes, init {init_s:.2f} s, wall {rep['wall_s']:.2f} s")
+        report[arch] = rep
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["strict"] = strict_decoder(torch, dev, card, get_config(HYBRID_ARCH),
+                                      layers=HYBRID_STRICT_LAYERS, label="11e")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["launcher"] = launcher_runs(tuple(
+        (arch, ["--arch", arch, "--full", "--requests", "8", "--max-batch", "4",
+                "--max-seq", "1024"], True) for arch in (SSM_ARCH, HYBRID_ARCH, VLM_ARCH)),
+        "11e", card)
+    report["f32_twin"] = {
+        arch: decode_f32_twin(torch, get_config(arch), dev, card, layers=SSM_F32_LAYERS[arch],
+                              lengths=SSM_F32_LENGTHS, label="11d")
+        for arch in (SSM_ARCH, HYBRID_ARCH, VLM_ARCH)}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(not any(counts.values()), f"11: the ssm, hybrid and vlm decode paths launched {counts}")
+    return {"ssm": counts}, report
+
+
 def main() -> int:
     import torch
 
@@ -4029,7 +4326,14 @@ def main() -> int:
     moe_report["wall_s"] = time.perf_counter() - t0
     print(f"phase 10 (the MoE decoders) wall: {moe_report['wall_s']:.2f} s")
 
-    # Phase 11: the records.
+    # Phase 11: the state-space and front-end families at full width.
+    t0 = time.perf_counter()
+    ssm_launches, ssm_report = ssm_decoders(torch, ops, card, dev)
+    launches.update(ssm_launches)
+    ssm_report["wall_s"] = time.perf_counter() - t0
+    print(f"phase 11 (the state-space and front-end families) wall: {ssm_report['wall_s']:.2f} s")
+
+    # Phase 12: the records.
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in launches.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -4057,6 +4361,7 @@ def main() -> int:
         "hot_path_guard": guard_report,
         "distribution": dp_report,
         "moe_decoders": moe_report,
+        "ssm_decoders": ssm_report,
     }))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

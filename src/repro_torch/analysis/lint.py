@@ -112,6 +112,7 @@ DEFAULT_HOT_MODULES: Tuple[str, ...] = (
     "repro_torch/models/lm.py",
     "repro_torch/models/attention.py",
     "repro_torch/models/moe.py",
+    "repro_torch/models/ssm.py",
 )
 
 # Dotted-call suffixes that compile or transform; their first positional

@@ -23,10 +23,15 @@ The LM zoo's weights cross under the keys that the reference's
     layers/mlp/{gate,up,down}
     layers/moe/{router,gate,up,down,shared/{gate,up,down}}      (MoE)
     dense_layers/...                  (the MoE family's first dense blocks)
+    layers/{wz,wx,wB,wC,wdt,conv_w,conv_b,A_log,D,dt_bias,
+            norm/scale,norm_in/scale,out}                       (Mamba-2: ssm, hybrid)
+    shared_attn/{ln1,ln2}/{scale,bias}, shared_attn/attn/{wq,wk,wv,wo},
+    shared_attn/mlp/{gate,up,down}    (the hybrid family's one shared block)
 
 where every ``layers/...`` and ``dense_layers/...`` array is stacked over
 its stack's layers on the leading axis; here each is one parameter of one
-``nn.ModuleList`` entry.
+``nn.ModuleList`` entry.  ``shared_attn/...`` is not stacked: one block
+serves every group.
 """
 from __future__ import annotations
 

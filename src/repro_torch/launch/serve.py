@@ -1,9 +1,13 @@
-"""Serving launcher for the port: the LM zoo's dense and MoE decoders, and
-the BCPNN classifier through the continual tier.
+"""Serving launcher for the port: the LM zoo's decoder-only families (dense,
+MoE, SSM, hybrid, VLM), and the BCPNN classifier through the continual
+tier.
 
     python -m repro_torch.launch.serve --arch gemma3-1b --requests 8
     python -m repro_torch.launch.serve --arch gemma3-1b --full --requests 8 --max-batch 4 --max-seq 1024
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --full --requests 8 --max-batch 4 --max-seq 1024
+    python -m repro_torch.launch.serve --arch mamba2-1.3b --full --requests 8 --max-batch 4 --max-seq 1024
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --full --requests 8 --max-batch 4 --max-seq 1024
+    python -m repro_torch.launch.serve --arch internvl2-1b --full --requests 8 --max-batch 4 --max-seq 1024
     python -m repro_torch.launch.serve --arch gemma3-1b --requests 8 --async
     python -m repro_torch.launch.serve --fleet 2 --tenants free:1,paid:4 --deadline-s 0.5
     python -m repro_torch.launch.serve --online
@@ -22,9 +26,11 @@ fair-share scheduling and an optional ``--deadline-s`` SLO.  ``--smoke``
 the one card, refused (naming the bytes) when its parameters do not fit
 the card's memory (moonshot-v1-16b-a3b, 56.8 GB in bf16, loads on an
 80 GB card; deepseek-v2-236b, 471.5 GB, is refused).  The weights are
-random, from ``torch.Generator`` seed 0.  The dense and MoE families
-serve; every other family is refused by ``build_model``, naming the slice
-that brings it.
+random, from ``torch.Generator`` seed 0.  The dense, MoE, SSM (mamba2),
+hybrid (zamba2) and VLM (internvl2, text prompts) families serve; the
+SSM and hybrid families prefill at exact length (no prompt buckets: a
+recurrent state would fold the pad tokens in).  The encoder-decoder
+family is refused by ``build_model``, naming the slice that brings it.
 
 ``--online`` serves a small BCPNN classifier through the continual tier
 instead: labeled ``Feedback`` interleaves with inference on the engine

@@ -98,9 +98,14 @@ class Norm(nn.Module):
 
 
 def rmsnorm(params: Norm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * scale in f32, cast back to x's dtype.
+    ``torch.rms_norm`` makes the f32 ``x * rsqrt(mean(x^2) + eps)``: its
+    kernel reduces each row on its own, so a row's result does not depend
+    on how many rows are normalised together.  A ``torch.mean`` over the
+    last axis picks its threads by the number of rows, and one decode slot
+    and four then round apart."""
     x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    out = x32 * torch.rsqrt(var + eps) * params.scale
+    out = torch.rms_norm(x32, (x.shape[-1],), eps=eps) * params.scale
     return out.to(x.dtype)
 
 

@@ -23,7 +23,7 @@ ported:
   forward is row-independent, and the kernels zero-fill the rows of a tile
   past the batch.
 * :class:`DecodePlan`: prefill + continuous slot-batched decode for the LM
-  zoo's dense and MoE decoders.  The per-slot caches live stacked in one
+  zoo's decoder-only families.  The per-slot caches live stacked in one
   ``(max_batch, ...)`` cache, and every active slot advances through ONE
   ``decode_step`` call with per-slot positions (the reference ``vmap``s a
   scalar-position step; the port's step takes a position per row).  The
@@ -34,9 +34,12 @@ ported:
   the *true* prompt end (``last_pos``), so bucketing is token-exact for
   attention.  An MoE layer's capacity comes from the padded length, so
   once the exact-length prefill drops assignments a bucketed one differs
-  from it, as the reference's does (the moe family takes the reference's
-  buckets all the same: only its stateful families prefill at exact
-  length, and the port serves none of them yet).
+  from it, as the reference's does (the moe family takes the buckets all
+  the same).  The stateful families (ssm, hybrid) prefill at exact length:
+  a recurrent state would fold the pad tokens in.  The per-length prefill
+  callables are LRU-bounded by ``cache_size``, as the reference's cells
+  are.  Enc-dec models are refused: serving them needs a cross-attention
+  prefill.
 * :class:`StreamingPlan`: the latency path, over the compiled network's
   :class:`~repro_torch.core.streaming.StreamingSession` (host-side
   coalescing, LRU-bounded per-size cells, state adoption on close).
@@ -76,10 +79,16 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.strict import RecompileSentinel, counted, dispatch_guard
+from repro_torch.core.streaming import _LRUCells
 from repro_torch.runtime.epoch_engine import rows_to
 from repro_torch.runtime.metrics import ServiceMetrics
 
 POLICIES = ("fcfs", "sjf")
+
+# Families whose decode cache is a position-dependent recurrent state: a
+# right-padded prefill would fold pad tokens into the state, so prompt
+# bucketing is off and prefill runs at exact length.
+_STATEFUL_FAMILIES = ("ssm", "hybrid")
 
 
 def _sync(device: Optional[torch.device]) -> None:
@@ -151,8 +160,8 @@ class ServiceConfig:
     policy:     queue admission order: "fcfs" (arrival) or "sjf"
                 (shortest-prompt-first; decode plans only, the others
                 refuse it at bind time).
-    cache_size: LRU bound on the streaming plan's per-size cells (the
-                decode plan prefills eagerly and keeps no cells).
+    cache_size: LRU bound on the streaming plan's per-size cells and on
+                the decode plan's per-length prefill callables.
     plan:       "batched" | "decode" | "streaming" | "continual"; None lets
                 the entry point pick its default (``compiled.serve()`` ->
                 "continual" when ``continual`` is set, else "batched";
@@ -616,6 +625,12 @@ class DecodePlan(ServePlan):
     def __init__(self, model, config: ServiceConfig,
                  metrics: Optional[ServiceMetrics] = None):
         super().__init__(config, metrics)
+        self._family = model.cfg.family
+        if self._family == "encdec":
+            raise ValueError(
+                "DecodePlan serves decoder-only models; enc-dec serving needs a "
+                "cross-attention prefill path"
+            )
         if config.buckets is not None and config.buckets[-1] > config.max_seq:
             raise ValueError(
                 f"prompt buckets {config.buckets} exceed max_seq={config.max_seq}: a "
@@ -624,10 +639,11 @@ class DecodePlan(ServePlan):
         self.model = model
         self.device = model.device
         self._cache_template = model.cache_shapes(1, config.max_seq)
-        # One prefill callable per padded length seen, as the reference
-        # compiles one for each: the eager port only counts them, and in
-        # strict mode each counts its signatures for the sentinel.
-        self._prefill_cells: Dict[int, Any] = {}
+        # One prefill callable per padded length seen, LRU-bounded by
+        # cache_size, as the reference compiles and keeps one for each: the
+        # eager port only counts them, and in strict mode each counts its
+        # signatures for the sentinel.
+        self._prefill_cells = _LRUCells(config.cache_size)
         self._fused = counted(self._fused_step, config.strict)
         self._write = counted(self._write_slot, config.strict)
         self._fused_steps = 0
@@ -656,8 +672,8 @@ class DecodePlan(ServePlan):
         # Per-bucket prefill callables: a NEW bucket gets its own baseline,
         # the SAME bucket meeting a new signature is a violation.
         with self._lock:
-            cells = dict(self._prefill_cells)
-        for m, cell in cells.items():
+            cells = self._prefill_cells.items()
+        for m, cell in cells:
             reg[f"prefill[{m}]"] = cell
         return reg
 
@@ -678,6 +694,11 @@ class DecodePlan(ServePlan):
             caches[name][:, slot] = c[:, 0]
 
     # ------------------------------------------------------------- prefill
+    def _prompt_bucket(self, n: int) -> int:
+        if self._family in _STATEFUL_FAMILIES:
+            return n  # a recurrent state would absorb pad tokens
+        return self.config.bucket_for(n)
+
     def _prefill_one(self, prompt: np.ndarray):
         """(first greedy token, structurally padded (L, 1, max_seq, ...) cache)."""
         n = len(prompt)
@@ -686,11 +707,12 @@ class DecodePlan(ServePlan):
         if n > self.config.max_seq:
             raise ValueError(f"prompt length {n} exceeds max_seq={self.config.max_seq}")
         t0 = time.perf_counter()
-        m = self.config.bucket_for(n)
+        m = self._prompt_bucket(n)
         with self._lock:
             cell = self._prefill_cells.get(m)
             if cell is None:
-                cell = self._prefill_cells[m] = counted(self.model.prefill, self.config.strict)
+                cell = counted(self.model.prefill, self.config.strict)
+                self._prefill_cells.put(m, cell)
         tokens = np.zeros((1, m), np.int64)
         tokens[0, :n] = prompt
         # last_pos gathers the logits at the true prompt end: causal
@@ -738,6 +760,7 @@ class DecodePlan(ServePlan):
                     self._slot_steps / self._fused_steps if self._fused_steps else 0.0
                 ),
                 "prefill_cells": len(self._prefill_cells),
+                "prefill_cell_evictions": self._prefill_cells.evictions,
             }
 
 

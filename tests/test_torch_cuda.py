@@ -1002,3 +1002,63 @@ def test_moe_decode_step_on_card_matches_cpu_in_a_cuda_graph(card, arch):
                 torch.testing.assert_close(caches["card"][k].cpu(), caches["cpu"][k],
                                            rtol=1e-4, atol=1e-4)
             tok, cur = want.argmax(-1, keepdim=True), cur + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b", "internvl2-1b"])
+def test_ssm_hybrid_vlm_decode_on_card_matches_cpu_in_a_cuda_graph(card, arch):
+    """The ssm, hybrid and vlm smoke configs on the card against the CPU
+    from the same weights: prefill logits (a 2-token prompt among them,
+    under the conv's K - 1; the vlm's with patch embeddings), then four
+    decode steps of three slots at their own lengths replayed from one
+    captured CUDA graph (capture fails on any host sync), every step's
+    logits and cache within 1e-4."""
+    from repro_torch.checkpoint import causal_lm_params_from_flat, flat_from_causal_lm
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config(arch)
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = causal_lm_params_from_flat(cfg, flat_from_causal_lm(cpu), device=card)
+    rng = np.random.default_rng(3)
+    lens, smax = (19, 2, 12), 48
+    n_front = cfg.n_patches if cfg.frontend else 0
+    caches = {"cpu": cpu.init_cache(3, smax), "card": gpu.init_cache(3, smax)}
+    with torch.inference_mode():
+        for r, n in enumerate(lens):
+            batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n)))}
+            if n_front:
+                batch["embeds"] = torch.from_numpy(
+                    rng.standard_normal((1, n_front, cfg.d_model)).astype(np.float32))
+            for name, m in (("cpu", cpu), ("card", gpu)):
+                logits, c = m.prefill({k: v.to(m.device) for k, v in batch.items()})
+                for k, v in c.items():
+                    if k in ("k", "v"):
+                        caches[name][k][:, r, :v.shape[2]] = v[:, 0]
+                    else:
+                        caches[name][k][:, r] = v[:, 0]
+                if name == "cpu":
+                    want = logits
+            torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 1)))
+        cur = torch.tensor(lens) + n_front
+        static_tok, static_cur = tok.to(card), cur.to(card)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up outside the capture, on scratch caches
+            scratch = {k: v.clone() for k, v in caches["card"].items()}
+            gpu.decode_step(scratch, static_tok, static_cur)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, _ = gpu.decode_step(caches["card"], static_tok, static_cur)
+        for _ in range(4):
+            static_tok.copy_(tok)
+            static_cur.copy_(cur)
+            graph.replay()
+            want, _ = cpu.decode_step(caches["cpu"], tok, cur)
+            torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-4)
+            for k in caches["cpu"]:
+                torch.testing.assert_close(caches["card"][k].cpu(), caches["cpu"][k],
+                                           rtol=1e-4, atol=1e-4)
+            tok, cur = want.argmax(-1, keepdim=True), cur + 1

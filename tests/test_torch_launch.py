@@ -141,3 +141,15 @@ def test_full_moe_archs_on_an_80_gb_card(monkeypatch):
     with pytest.raises(SystemExit, match=f"{big.param_count() * 2} bytes in bfloat16"):
         launch.load_model(big, torch.device("cuda", 0))
     assert get_config("moonshot-v1-16b-a3b").param_count() * 2 < Props.total_memory
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b", "internvl2-1b"])
+def test_serves_the_state_space_and_vlm_archs(capsys, arch):
+    """The ssm, hybrid and vlm archs serve through the launcher at their
+    smoke configs (the stateful two at exact-length prefill, buckets
+    given or not)."""
+    launch.main(["--device", "cpu", "--arch", arch, "--requests", "3", "--max-new", "3",
+                 "--max-batch", "2", "--max-seq", "32", "--buckets", "16"])
+    out = capsys.readouterr().out
+    assert re.search(rf"^\[serve/sync\] {arch}: 3 reqs, 9 tokens", out, re.M), out
+

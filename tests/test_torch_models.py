@@ -476,7 +476,12 @@ def test_port_initialised_weights_decode_the_same_in_the_reference(arch):
     ("seamless-m4t-large-v2", "Slice F6"),
 ])
 def test_build_model_names_the_slice(arch, slice_):
+    """Slices F3-F5 are ported: their families build.  The family of a
+    slice still to come (F6) is refused, naming that slice."""
     cfg = tcfg.get_smoke_config(arch)
+    if slice_ != "Slice F6":
+        assert t_build_model(cfg, device="cpu").cfg.family == cfg.family
+        return
     with pytest.raises(NotImplementedError, match=f"{cfg.family}.*{slice_}"):
         t_build_model(cfg)
 
