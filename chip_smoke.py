@@ -226,7 +226,35 @@ the run with a non-zero exit:
    4) in f32, the card against the CPU, the short prompts included
    (logits within 1e-4 relative + 1e-4 x std, tokens equal up to the first
    near-tie).  The paths launch none of the five kernels;
-12. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
+12. the enc-dec family served and the LM zoo's training path: (a)
+   seamless-m4t-large-v2 at full width and depth (24 + 24 layers, bf16,
+   random weights from seed 0), four requests of 1,024 source frames and
+   prompts of 1-64 tokens, 16 new tokens each, served through the model's
+   own functions at 1 and 4 slots: prefill + decode against ``forward``
+   (DEC_FORWARD_TOL x std), slot-batched logits against single-slot ones
+   (NEAR_TIE / 2, tokens equal up to the first near-tie), f32 at depth
+   4 + 4 against the CPU (DEC_F32_TOL), the decode step's device and host
+   ms against its bytes' bound, the prefill's device ms, peak memory; (b)
+   gemma3-1b trained at full width and depth (f32 masters, bf16 compute,
+   remat, AdamW under warmup_cosine, 10 steps of 8 x 1024 tokens from
+   ``token_stream`` in 2 microbatches): every loss finite, the last below
+   the first, the accumulated step against the full batch (TRAIN_*), step
+   host ms, a profiled step's device busy ms, tokens/s, model FLOPs and
+   their share of the bf16 peak, peak memory; (c) one train step of
+   gemma3-1b at full width, depth 2, and of seamless-m4t at full width,
+   depth 2 + 2, on the card against the CPU from the same f32 masters: in
+   f32 the loss, gradients and updated params, in bf16 (``matmul_f32``'s
+   autograd function on the card) the loss and gradients (TWIN_*), and
+   that autograd function's backward alone at 12b's logits and attention
+   shapes against the CPU's f32 products, a planted bf16-cotangent
+   backward failing the same rules (BWD_F32_RTOL); (d)
+   ``train_loop`` on the card with a failure before and one after its
+   first checkpoint, and a run resumed by a second: the final params of
+   each equal an uninterrupted run's bit for bit; (e) ``python -m
+   repro_torch.launch.train --arch gemma3-1b --full --steps 20`` and
+   ``--arch seamless-m4t-large-v2 --smoke``, each exiting 0 with a
+   falling loss.  The paths launch none of the five kernels;
+13. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
    ...}`` line.
 
 Without a CUDA device, or away from the rest of the repository, it exits
@@ -2678,13 +2706,13 @@ def decode_f32_twin(torch, cfg, dev, card, layers=DEC_F32_LAYERS, lengths=DEC_F3
 
     import numpy as np
 
-    from repro_torch.checkpoint import causal_lm_params_from_flat, flat_from_causal_lm
+    from repro_torch.checkpoint import lm_params_from_flat, flat_from_lm
     from repro_torch.models import build_model
     from repro_torch.runtime import DecodePlan, Request, ServiceConfig
 
     cfg32 = dataclasses.replace(cfg, n_layers=layers, dtype="float32")
     card_m = build_model(cfg32, dev).init(torch.Generator(device=dev).manual_seed(0))
-    cpu_m = causal_lm_params_from_flat(cfg32, flat_from_causal_lm(card_m), device="cpu")
+    cpu_m = lm_params_from_flat(cfg32, flat_from_lm(card_m), device="cpu")
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lengths]
     runs, walls = {}, {}
@@ -3819,13 +3847,13 @@ def moe_f32_twin(torch, cfg, dev, card):
 
     import numpy as np
 
-    from repro_torch.checkpoint import causal_lm_params_from_flat, flat_from_causal_lm
+    from repro_torch.checkpoint import lm_params_from_flat, flat_from_lm
     from repro_torch.models import build_model, moe
     from repro_torch.runtime import DecodePlan, Request, ServiceConfig
 
     cfg32 = dataclasses.replace(cfg, n_layers=MOE_F32_LAYERS, dtype="float32")
     card_m = build_model(cfg32, dev).init(torch.Generator(device=dev).manual_seed(0))
-    cpu_m = causal_lm_params_from_flat(cfg32, flat_from_causal_lm(card_m), device="cpu")
+    cpu_m = lm_params_from_flat(cfg32, flat_from_lm(card_m), device="cpu")
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in DEC_F32_LENGTHS]
     runs, recs, logs, walls = {}, {}, {}, {}
@@ -4234,6 +4262,679 @@ def ssm_decoders(torch, ops, card, dev):
     return {"ssm": counts}, report
 
 
+# Phase 12: the enc-dec family served, and the LM zoo's training path.
+# 12a: seamless-m4t-large-v2 as published (24 + 24 layers, d 1024, 16
+# heads, gelu 8192, vocab 256206), bf16, random weights from seed 0; each
+# request a source of ENC_FRAMES random frame embeddings and a decoder
+# prompt, served through the model's functions at 1 and ENC_SLOTS slots.
+ENC_ARCH = "seamless-m4t-large-v2"
+ENC_FRAMES, ENC_PROMPTS, ENC_NEW, ENC_SLOTS, ENC_MAX_SEQ = 1024, (1, 5, 17, 64), 16, 4, 128
+ENC_F32_LAYERS, ENC_F32_PROMPT, ENC_F32_STEPS = 4, 17, 4
+# 12b: gemma3-1b trained as published (bf16 compute, f32 masters, remat),
+# AdamW under warmup_cosine, TRAIN_BATCH x TRAIN_SEQ tokens a step in
+# TRAIN_MICRO microbatches, TRAIN_STEPS steps of token_stream.
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 1024, 2, 10
+TRAIN_LR, TRAIN_WARMUP, TRAIN_WD = 6e-4, 2, 0.1
+# The accumulated step (TRAIN_MICRO microbatches) against the full batch in
+# one, bf16: the loss within TRAIN_LOSS_RTOL, each gradient leaf within
+# TRAIN_MICRO_GRAD_RTOL of the full batch's, normwise (the CPU tests
+# measured two bf16 orders of gemma3's smoke gradients 1.2% apart).
+TRAIN_LOSS_RTOL, TRAIN_MICRO_GRAD_RTOL = 2e-3, 5e-2
+H100_BF16_PEAK = 989e12  # dense bf16 FLOP/s, H100 SXM data sheet, at 700 W
+# 12c: the card against the CPU, one train step at full width and depth 2
+# (2 + 2 for the enc-dec); f32: the loss within TWIN_LOSS_RTOL, each
+# gradient within TWIN_GRAD_RTOL x |g| + TWIN_GRAD_RTOL x max |g| of its
+# leaf, the updated params within rtol 1e-5 / atol 1e-6 wherever the
+# CPU's gradient is at least TWIN_STEP_GRAD_FLOOR of its leaf's largest,
+# and everywhere within 2 x lr (AdamW's first move is lr x g / (|g| +
+# eps): where g is within the gradient rule's noise of zero, the two
+# moves may differ by up to 2 x lr); bf16 (matmul_f32's autograd function on the card):
+# the loss within TRAIN_LOSS_RTOL and each gradient leaf, normwise, within
+# TWIN_BF16_FACTOR x the CPU's own bf16 gradient's distance from its f32
+# one.
+TWIN_BATCH, TWIN_SEQ, TWIN_FRAMES, TWIN_LR = 1, 64, 64, 1e-3
+TWIN_LOSS_RTOL, TWIN_GRAD_RTOL, TWIN_STEP_GRAD_FLOOR, TWIN_BF16_FACTOR = 1e-5, 1e-4, 1e-3, 2.0
+# 12c also holds _MatmulF32's backward on the card directly, at 12b's
+# shapes (gemma3-1b's logits, one 1,024-token sequence against the
+# d x 262,144 tied table; a microbatch's attention score and PV tiles),
+# against the f32 autograd of the widened operands on the CPU: each f32
+# product before its rounding within BWD_F32_RTOL of the CPU's, normwise
+# (f32 sums in another order: ~1e-7; a cotangent rounded to bf16 first
+# moves it by ~1e-3, TF32 by ~5e-4), and each bf16 gradient within one
+# bf16 ulp of the CPU's f32 product plus BWD_F32_RTOL x (|g| @ |b|^T)
+# where the product cancels.  A planted backward that rounds the
+# cotangent to bf16 must fail the same rules.
+BWD_F32_RTOL = 1e-5
+# 12d: the train loop on the card, gemma3-1b's smoke width in bf16 with f32
+# masters: LOOP_STEPS steps, a checkpoint every LOOP_CKPT_EVERY.
+LOOP_STEPS, LOOP_CKPT_EVERY = 6, 2
+
+
+def encdec_serve(torch, model, sources, prompts, slots, new, max_seq):
+    """Requests served through an enc-dec model's own functions, ``slots``
+    at a time: each prefilled alone (its self-attention k/v and its cross
+    k/v copied into its slot of one cache), then every slot stepped
+    together, a position a row.  Returns rid -> (tokens (new,) numpy,
+    logits (new, V) f32 on the host)."""
+    import numpy as np
+
+    dev, frames = model.device, sources[0].shape[0]
+    out = {}
+    for first in range(0, len(prompts), slots):
+        group = list(range(first, min(first + slots, len(prompts))))
+        cache = model.init_cache(slots, max_seq, frames)
+        toks, rows = {}, {}
+        for r, rid in enumerate(group):
+            lg, made = model.prefill({"enc_embeds": sources[rid][None],
+                                      "tokens": torch.from_numpy(prompts[rid]).long()[None].to(dev)})
+            for name, t in made.items():
+                cache[name][:, r, :t.shape[2]] = t[:, 0]
+            lg = lg[0].float().cpu()
+            toks[rid], rows[rid] = [int(lg.argmax())], [lg]
+        cur = torch.tensor([len(prompts[rid]) for rid in group] + [0] * (slots - len(group)),
+                           device=dev)
+        for _ in range(new - 1):
+            tok = torch.tensor([[toks[rid][-1]] for rid in group] + [[0]] * (slots - len(group)),
+                               device=dev)
+            lg, cache = model.decode_step(cache, tok, cur)
+            lg = lg.float().cpu()  # one read a step
+            for r, rid in enumerate(group):
+                toks[rid].append(int(lg[r].argmax()))
+                rows[rid].append(lg[r])
+            cur = cur + 1
+        for rid in group:
+            out[rid] = (np.array(toks[rid]), torch.stack(rows[rid]))
+        del cache
+    return out
+
+
+def encdec_step_bytes(model, cfg, slots, max_seq, frames):
+    """The bytes a decode step of ``slots`` slots reads at least: the
+    decoder's weights but the cross attention's ``wk``/``wv`` (the step
+    reads the cached cross k/v in their place), the unembedding, and each
+    slot's self-attention k/v (the step masks over all ``max_seq``
+    positions) and cross k/v."""
+    unread = (".xattn.wk", ".xattn.wv")
+    dec = sum(p.numel() * p.element_size() for name, p in model.dec_layers.named_parameters()
+              if not name.endswith(unread))
+    dec += sum(p.numel() * p.element_size() for p in model.final_norm.parameters())
+    unemb = model.unembed.numel() * model.unembed.element_size()
+    kv = 2 * cfg.n_dec_layers * cfg.n_kv_heads * cfg.d_head * 2  # k and v, bf16, a position
+    return dec + unemb + slots * kv * (max_seq + frames)
+
+
+def encdec_f32_twin(torch, cfg, dev, card, sources):
+    """12a's f32 check: the card against the CPU at full width and depth
+    ENC_F32_LAYERS + ENC_F32_LAYERS, the card's weights carried to the CPU
+    through the flat arrays; one request, the CPU's greedy tokens fed to
+    both, every step's logits within DEC_F32_TOL relative + DEC_F32_TOL x
+    std."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.checkpoint import flat_from_lm, lm_params_from_flat
+    from repro_torch.models import build_model
+
+    cfg32 = dataclasses.replace(cfg, n_layers=ENC_F32_LAYERS, n_dec_layers=ENC_F32_LAYERS,
+                                dtype="float32")
+    card_m = build_model(cfg32, dev).init(torch.Generator(device=dev).manual_seed(0))
+    cpu_m = lm_params_from_flat(cfg32, flat_from_lm(card_m), device="cpu")
+    prompt = np.random.default_rng(11).integers(0, cfg.vocab_size, ENC_F32_PROMPT)
+    src = sources[0].float().cpu()
+    runs = {}
+    for name, m, d in (("cpu", cpu_m, torch.device("cpu")), ("card", card_m, dev)):
+        toks = runs["cpu"][0] if name == "card" else None
+        lg, cache = m.prefill({"enc_embeds": src[None].to(d),
+                               "tokens": torch.from_numpy(prompt)[None].to(d)})
+        full = m.init_cache(1, ENC_F32_PROMPT + ENC_F32_STEPS, ENC_FRAMES)
+        for k, t in cache.items():
+            full[k][:, :, :t.shape[2]] = t
+        rows, chosen = [lg[0].cpu()], [int(lg[0].argmax())]
+        for i in range(ENC_F32_STEPS):
+            tok = int(toks[i]) if toks is not None else chosen[-1]
+            lg, full = m.decode_step(full, torch.tensor([[tok]], device=d), ENC_F32_PROMPT + i)
+            rows.append(lg[0].cpu())
+            chosen.append(int(lg[0].argmax()))
+        runs[name] = (chosen, torch.stack(rows))
+    want, got = runs["cpu"][1], runs["card"][1]
+    std = float(want.std())
+    err = (got - want).abs()
+    check(bool((err <= DEC_F32_TOL * want.abs() + DEC_F32_TOL * std).all()),
+          f"12a: f32 depth {ENC_F32_LAYERS}: card logits {float(err.max())} from the CPU's "
+          f"(std {std})")
+    del card_m, cpu_m
+    return dict(max_abs=float(err.max()), logit_std=std, steps=len(want))
+
+
+def encdec_serving(torch, card, dev, cfg=None):
+    """Phase 12a: seamless-m4t-large-v2 at full width and depth, bf16,
+    served through its functions at 1 and ENC_SLOTS slots: prefill +
+    decode against ``forward`` on the same tokens (DEC_FORWARD_TOL x std),
+    slot-batched against single-slot logits (NEAR_TIE / 2, tokens equal up
+    to the first near-tie), f32 at depth ENC_F32_LAYERS against the CPU;
+    the decode step's device and host ms against its bytes' bound, the
+    prefill's device ms, peak memory."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = cfg or get_config(ENC_ARCH)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(7)
+    sources = [torch.from_numpy(rng.standard_normal((ENC_FRAMES, cfg.d_model))
+                                .astype(np.float32)).to(dev) for _ in ENC_PROMPTS]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int64) for n in ENC_PROMPTS]
+    runs = {}
+    for name, slots in (("single", 1), ("batched", ENC_SLOTS)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        runs[name] = encdec_serve(torch, model, sources, prompts, slots, ENC_NEW, ENC_MAX_SEQ)
+        runs[name + "_wall_s"] = time.perf_counter() - t1
+    single, batched = runs["single"], runs["batched"]
+    slot_err, compared, ties = 0.0, 0, {}
+    for rid in range(len(prompts)):
+        (st, sl), (bt, bl) = single[rid], batched[rid]
+        k = ties[rid] = first_tie(sl)
+        check(np.array_equal(bt[:k], st[:k]),
+              f"12a: request {rid}: slot-batched tokens {bt[:k]} != single-slot {st[:k]} before "
+              f"its first near-tie (step {k})")
+        rows = same_input_rows(bt, st)
+        slot_err = max(slot_err, float((bl[:rows] - sl[:rows]).abs().max()))
+        compared += rows
+    check(slot_err <= NEAR_TIE / 2,
+          f"12a: slot-batched logits {slot_err} from single-slot ones, over NEAR_TIE / 2")
+    fwd = {}
+    for rid, p in enumerate(prompts):
+        toks, lg = single[rid]
+        seq = torch.from_numpy(np.concatenate([p, toks[:-1]]))[None].to(dev)
+        want = model({"enc_embeds": sources[rid][None], "tokens": seq})[0][0, len(p) - 1:]
+        want = want.float().cpu()
+        err, std = float((lg - want).abs().max()), float(want.std())
+        fwd[len(p)] = dict(max_abs=err, logit_std=std, ratio=err / std)
+        check(err <= DEC_FORWARD_TOL * std,
+              f"12a: prompt {len(p)}: prefill + decode logits {err} from forward's (std {std})")
+    f32 = encdec_f32_twin(torch, cfg, dev, card, sources)
+
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    seq64 = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, max(ENC_PROMPTS)))).to(dev)
+    prefill = dict(device_ms=device_ms(
+        torch, lambda: model.prefill({"enc_embeds": sources[0][None], "tokens": seq64}), flush,
+        reps=DEC_REPS))
+    steps = {}
+    for S in (1, ENC_SLOTS):
+        cache = model.init_cache(S, ENC_MAX_SEQ, ENC_FRAMES)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (S, 1))).to(dev)
+        cur = torch.full((S,), ENC_MAX_SEQ // 2, device=dev)
+
+        def fn(cache=cache, toks=toks, cur=cur):
+            return model.decode_step(cache, toks, cur)
+
+        n_bytes = encdec_step_bytes(model, cfg, S, ENC_MAX_SEQ, ENC_FRAMES)
+        dev_ms, host = device_ms(torch, fn, flush, reps=DEC_REPS), wall_ms(torch, fn, 10)
+        steps[S] = dict(device_ms=dev_ms, wall_ms=host, bytes=n_bytes,
+                        bound_ms=n_bytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+                        device_share=dev_ms / host)
+        del cache
+    report = dict(
+        card=card, params=sum(p.numel() for p in model.parameters()),
+        config_param_count=cfg.param_count(),
+        weight_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+        frames=ENC_FRAMES, prompts=list(ENC_PROMPTS), new_tokens=ENC_NEW,
+        serve_wall_s={k: runs[k + "_wall_s"] for k in ("single", "batched")},
+        first_near_tie=ties, slot_batched_vs_single_max_abs=slot_err, rows_compared=compared,
+        forward_vs_decode=fwd, f32_twin=f32, prefill_ms=prefill, decode_step=steps,
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+        wall_s=time.perf_counter() - t0)
+    print(f"12a [{card}] {cfg.name} full width, {cfg.n_layers} + {cfg.n_dec_layers} layers, "
+          f"bf16: {report['params']} params ({cfg.param_count()} by param_count), "
+          f"{len(prompts)} requests x {ENC_NEW} tokens over {ENC_FRAMES} frames; slot-batched "
+          f"logits {slot_err:.4g} from single-slot over {compared} rows (ties {json.dumps(ties)}); "
+          f"forward vs decode {json.dumps(fwd)}; f32 depth {ENC_F32_LAYERS} card vs CPU "
+          f"{json.dumps(f32)}; prefill ({ENC_FRAMES} frames, {max(ENC_PROMPTS)} tokens) "
+          f"{json.dumps(prefill)}; decode step {json.dumps(steps)}; peak memory "
+          f"{report['max_memory_allocated']} bytes")
+    del model
+    return report
+
+
+def train_flops(cfg, n_params, batch, seq):
+    """Model FLOPs of one training step: 6 x N x tokens, plus the attention
+    products (QK^T and PV, 2 x 2 x H x d_head a key a query forward, three
+    times that with the backward), each query over the keys its layer lets
+    it see (gemma3's local layers at most ``window``)."""
+    total = 6 * n_params * batch * seq
+    for i in range(cfg.n_layers):
+        local = cfg.window is not None and not (cfg.global_every and (i + 1) % cfg.global_every == 0)
+        keys = sum(min(q + 1, cfg.window) if local else q + 1 for q in range(seq))
+        total += 3 * 4 * cfg.n_heads * cfg.d_head * keys * batch
+    return total
+
+
+def grad_gap(torch, got, want):
+    """Per leaf, ||got - want|| / ||want||, over two gradient trees."""
+    from repro_torch.optim import tree_flatten
+
+    g, w = tree_flatten(got)[0], tree_flatten(want)[0]
+    return [float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+            for a, b in zip(g, w)]
+
+
+def profiled_ms(torch, fn, trace_path):
+    """One call of ``fn`` under ``torch.profiler`` (the card's activity
+    only, so the trace stays small): (its result, ``profile_kernels`` of
+    the trace: the kernels' busy ms, their span and the idle share, the
+    longest gaps; the call's CUDA-event ms)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace_path))
+    trace = profile_kernels(trace_path)
+    trace.pop("ours")
+    Path(trace_path).unlink()
+    return out, trace, start.elapsed_time(end)
+
+
+def gemma_training(torch, card, dev, cfg=None):
+    """Phase 12b: gemma3-1b trained at full width and depth: f32 masters,
+    bf16 compute, remat, AdamW under warmup_cosine, TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens from token_stream in TRAIN_MICRO
+    microbatches.  Every loss finite, the last below the first; the
+    accumulated step's loss and gradients against the full batch's; step
+    device (profiled) and host ms, tokens/s, model FLOPs and their share of
+    the bf16 peak, peak memory."""
+    import functools
+    import statistics as st
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches, token_stream
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, microbatched_value_and_grad, warmup_cosine
+
+    cfg = cfg or get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, dev, param_dtype=torch.float32)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    params = model.params()
+    n_params = sum(p.numel() for p in model.parameters())
+    model.to("meta")  # the step reads the tree; the module's own copy is not needed
+    tokens = token_stream(TRAIN_STEPS * TRAIN_BATCH * (TRAIN_SEQ + 1) * 2, cfg.vocab_size, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in lm_batches(tokens, TRAIN_BATCH, TRAIN_SEQ, epoch=0)][:TRAIN_STEPS]
+    check(len(batches) == TRAIN_STEPS, f"12b: {len(batches)} batches for {TRAIN_STEPS} steps")
+
+    # The accumulated step's gradients against the full batch's.
+    full_l, full_g = microbatched_value_and_grad(model.loss, 1)(params, batches[0])
+    micro_l, micro_g = microbatched_value_and_grad(model.loss, TRAIN_MICRO)(params, batches[0])
+    loss_gap = abs(float(micro_l) - float(full_l)) / abs(float(full_l))
+    gaps = grad_gap(torch, micro_g, full_g)
+    check(loss_gap <= TRAIN_LOSS_RTOL and max(gaps) <= TRAIN_MICRO_GRAD_RTOL,
+          f"12b: {TRAIN_MICRO} microbatches against the full batch: loss {loss_gap}, "
+          f"gradients up to {max(gaps)} apart")
+    del full_g, micro_g
+
+    opt = AdamW(learning_rate=warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS),
+                weight_decay=TRAIN_WD)
+    opt_state = opt.init(params)
+    step = model.make_train_step(opt, n_micro=TRAIN_MICRO)
+    losses, host_ms = [], []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if i == len(batches) - 1:
+            (ROOT / "build").mkdir(exist_ok=True)
+            (params, opt_state, met), trace, event_ms = profiled_ms(
+                torch, functools.partial(step, params, opt_state, batch),
+                ROOT / "build" / "train_step.json")
+            busy_ms = trace["busy_ms"]
+        else:
+            params, opt_state, met = step(params, opt_state, batch)
+        losses.append(float(met["loss"]))
+        host_ms.append((time.perf_counter() - t1) * 1e3)
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"12b: losses {losses}")
+    tokens_step = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = st.median(host_ms[1:-1])
+    flops = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    report = dict(
+        card=card, params=n_params, config_param_count=cfg.param_count(),
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, n_micro=TRAIN_MICRO, lr=TRAIN_LR, losses=losses,
+        micro_vs_full=dict(loss_rel=loss_gap, grad_rel_max=max(gaps)),
+        host_ms=host_ms, step_host_ms=step_ms, step_device_busy_ms=busy_ms,
+        step_event_ms=event_ms, device_share=busy_ms / step_ms, profiled_step=trace,
+        tokens_per_s=tokens_step / step_ms * 1e3, model_flops=flops,
+        bf16_peak_share=flops / (step_ms / 1e3) / H100_BF16_PEAK,
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+        wall_s=time.perf_counter() - t0)
+    print(f"12b [{card}] {cfg.name} trained at full width, {cfg.n_layers} layers, {n_params} "
+          f"params, f32 masters, bf16 compute, remat: {TRAIN_STEPS} steps of {tokens_step} "
+          f"tokens ({TRAIN_MICRO} microbatches), losses {[round(v, 4) for v in losses]}; "
+          f"accumulated vs full batch {json.dumps(report['micro_vs_full'])}; step host ms "
+          f"{step_ms:.1f} (median), device busy {busy_ms:.1f} ms (profiled step: "
+          f"{json.dumps({k: trace[k] for k in ('kernels', 'span_ms', 'idle_share')})}, "
+          f"{event_ms:.1f} event ms), {report['tokens_per_s']:.0f} tok/s, {flops:.4g} model FLOPs, "
+          f"{report['bf16_peak_share']:.3f} of the bf16 peak; peak memory "
+          f"{report['max_memory_allocated']} bytes")
+    del params, opt_state, batches
+    return report
+
+
+def train_twin_step(torch, cfg, dev, batch, update: bool):
+    """One train step of ``cfg`` from the same f32 masters (seed 0, made on
+    the card) on the card and on the CPU: name -> (loss, gradients, the
+    params after the step, or None without ``update``, the seconds
+    taken)."""
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, apply_updates, tree_map
+    from repro_torch.optim.accumulation import value_and_grad
+
+    cpu = torch.device("cpu")
+    card_m = build_model(cfg, dev, param_dtype=torch.float32)
+    card_m.init(torch.Generator(device=dev).manual_seed(0))
+    params = {"card": card_m.params()}
+    params["cpu"] = tree_map(lambda t: t.to(cpu), params["card"])
+    card_m.to("meta")
+    cpu_m = build_model(cfg, cpu, param_dtype=torch.float32).to("meta")
+    out = {}
+    for name, m, d in (("card", card_m, dev), ("cpu", cpu_m, cpu)):
+        t0 = time.perf_counter()
+        b = {k: v.to(d) for k, v in batch.items()}
+        loss, grads = value_and_grad(m.loss)(params[name], b)
+        new = None
+        if update:
+            opt = AdamW(learning_rate=TWIN_LR)
+            updates, _ = opt.update(grads, opt.init(params[name]), params[name])
+            new = tree_map(lambda t: t.cpu(), apply_updates(params[name], updates))
+        out[name] = (float(loss), tree_map(lambda t: t.cpu(), grads), new,
+                     time.perf_counter() - t0)
+    return out
+
+
+def twin_holds(torch, label, f32, bf16, cfg_name):
+    """12c's rules over one model's f32 and bf16 steps (see TWIN_*)."""
+    from repro_torch.optim import tree_flatten
+
+    rep = {f"{dt}_{dev}_s": run[dev][3] for dt, run in (("f32", f32), ("bf16", bf16))
+           for dev in ("card", "cpu")}
+    (cl, cg, cp, _), (pl, pg, pp, _) = f32["card"], f32["cpu"]
+    rep["f32_loss_rel"] = abs(cl - pl) / abs(pl)
+    check(rep["f32_loss_rel"] <= TWIN_LOSS_RTOL, f"{label} {cfg_name}: f32 loss {cl} vs {pl}")
+    worst = 0.0
+    for g, w in zip(tree_flatten(cg)[0], tree_flatten(pg)[0]):
+        d = (g - w).abs()
+        lim = TWIN_GRAD_RTOL * w.abs() + TWIN_GRAD_RTOL * w.abs().max()
+        check(bool((d <= lim).all()), f"{label} {cfg_name}: f32 gradient {float(d.max())} apart")
+        worst = max(worst, float(d.max() / w.abs().max().clamp_min(1e-30)))
+    rep["f32_grad_max_rel_to_leaf_max"] = worst
+    noisy, worst_held = 0, 0.0
+    for g, w, grad in zip(tree_flatten(cp)[0], tree_flatten(pp)[0], tree_flatten(pg)[0]):
+        d = (g - w).abs()
+        held = grad.abs() >= TWIN_STEP_GRAD_FLOOR * grad.abs().max()
+        out = held & (d > 1e-6 + 1e-5 * w.abs())
+        check(not bool(out.any()) and float(d.max()) <= 2 * TWIN_LR,
+              f"{label} {cfg_name}: f32 step params {int(out.sum())} apart where the gradient "
+              f"is held, {float(d.max())} at most")
+        noisy += int((~held & (d > 1e-6 + 1e-5 * w.abs())).sum())
+        worst_held = max(worst_held, float(d[held].max()) if bool(held.any()) else 0.0)
+    rep["f32_step_params_held_max_abs"] = worst_held
+    rep["f32_step_params_apart_at_small_gradients"] = noisy
+    (cl, cg, _, _), (pl, pg, _, _) = bf16["card"], bf16["cpu"]
+    rep["bf16_loss_rel"] = abs(cl - pl) / abs(pl)
+    check(rep["bf16_loss_rel"] <= TRAIN_LOSS_RTOL, f"{label} {cfg_name}: bf16 loss {cl} vs {pl}")
+    ratios = []
+    for g, w, e in zip(tree_flatten(cg)[0], tree_flatten(pg)[0], tree_flatten(f32["cpu"][1])[0]):
+        own = float((w - e).norm())
+        gap = float((g - w).norm())
+        check(gap <= TWIN_BF16_FACTOR * own,
+              f"{label} {cfg_name}: bf16 gradient {gap} from the CPU's, its own bf16 {own}")
+        ratios.append(gap / own if own else 0.0)
+    rep["bf16_grad_gap_over_own"] = max(ratios)
+    return rep
+
+
+def matmul_f32_backward_on_card(torch, cfg, dev):
+    """12c's direct hold of ``_MatmulF32``'s backward (see BWD_F32_RTOL):
+    for each case, the gradients a train step takes (autograd through
+    ``matmul_f32``), their f32 products before rounding
+    (``_matmul_f32_grads``), and a planted variant that rounds the
+    cotangent to bf16, each against the CPU's f32 autograd of the widened
+    operands."""
+    from repro_torch.models.common import _matmul_f32_grads, matmul_f32
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    kh, grp, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.d_head
+    mb = TRAIN_BATCH // TRAIN_MICRO
+    qc, kc = min(cfg.q_chunk, TRAIN_SEQ), min(cfg.kv_chunk, TRAIN_SEQ)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    cases = {
+        "logits": (rand(1, TRAIN_SEQ, cfg.d_model), rand(cfg.vocab_size, cfg.d_model).T),
+        "score tile": (rand(mb, kh, grp * qc, d), rand(mb, kh, d, kc)),
+        "PV tile": (torch.softmax(torch.randn((mb, kh, grp * qc, kc), generator=gen, device=dev),
+                                  -1).bfloat16(), rand(mb, kh, kc, d)),
+    }
+
+    def held(f32, bf16, want, scale):
+        """(normwise rel of the f32 product, elements of the bf16 result
+        more than one ulp + BWD_F32_RTOL x scale from the CPU's), on the
+        card."""
+        rel = float((f32 - want).norm() / want.norm())
+        ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(1e-38))) - 7)
+        over = (bf16.float() - want).abs() - ulp - BWD_F32_RTOL * scale
+        return rel, int((over > 0).sum())
+
+    out = {}
+    for name, (a, b) in cases.items():
+        la, lb = a.detach().requires_grad_(True), b.detach().requires_grad_(True)
+        res = matmul_f32(la, lb)
+        g = torch.randn(res.shape, generator=gen, device=dev)
+        got = torch.autograd.grad(res, (la, lb), g)
+        f32 = _matmul_f32_grads(a, b, g)
+        plant = _matmul_f32_grads(a, b, g.bfloat16().float())
+        # the scale of each sum, |g| @ |b|^T and |a|^T @ |g|, on the card
+        sa, sb = (a.float().abs().requires_grad_(True), b.float().abs().requires_grad_(True))
+        scale = torch.autograd.grad(torch.matmul(sa, sb), (sa, sb), g.abs())
+        ca = a.float().cpu().requires_grad_(True)
+        cb = b.float().cpu().requires_grad_(True)
+        want = [t.to(dev) for t in torch.autograd.grad(torch.matmul(ca, cb), (ca, cb), g.cpu())]
+        rep = {"shape": [list(a.shape), list(b.shape)]}
+        for i, op in enumerate(("a", "b")):
+            check(got[i].dtype == (a, b)[i].dtype == torch.bfloat16,
+                  f"12c: matmul_f32 {name} grad {op} is {got[i].dtype}")
+            rel, off = held(f32[i], got[i], want[i], scale[i])
+            p_rel, p_off = held(plant[i], plant[i].bfloat16(), want[i], scale[i])
+            check(rel <= BWD_F32_RTOL and off == 0,
+                  f"12c: matmul_f32 {name} grad {op}: f32 product {rel} from the CPU's, "
+                  f"{off} bf16 elements beyond one ulp")
+            check(p_rel > BWD_F32_RTOL or p_off > 0,
+                  f"12c: the planted bf16-cotangent backward passes {name} grad {op} ({p_rel})")
+            rep[op] = dict(f32_rel=rel, bf16_beyond_ulp=off, planted_f32_rel=p_rel,
+                           planted_beyond_ulp=p_off)
+        out[name] = rep
+        del la, lb, res, g, got, f32, plant, sa, sb, scale, ca, cb, want
+    return out
+
+
+def training_twins(torch, card, dev, cfgs=None):
+    """Phase 12c: one train step of gemma3-1b at full width, depth 2, and of
+    seamless-m4t at full width, depth 2 + 2, in f32 and in bf16 (f32
+    masters), on the card and on the CPU from the same masters."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    report = {}
+    for arch in (TRAIN_ARCH, ENC_ARCH):
+        base = (cfgs or {}).get(arch) or get_config(arch)
+        cut = dict(n_layers=2, n_dec_layers=2) if base.family == "encdec" else dict(n_layers=2)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, base.vocab_size, (TWIN_BATCH, TWIN_SEQ))),
+                 "labels": torch.from_numpy(rng.integers(0, base.vocab_size, (TWIN_BATCH, TWIN_SEQ)))}
+        if base.family == "encdec":
+            batch["enc_embeds"] = torch.from_numpy(
+                rng.standard_normal((TWIN_BATCH, TWIN_FRAMES, base.d_model)).astype(np.float32))
+        steps = {dt: train_twin_step(torch, dataclasses.replace(base, dtype=dt, **cut), dev, batch,
+                                     update=dt == "float32")
+                 for dt in ("float32", "bfloat16")}
+        report[arch] = twin_holds(torch, "12c", steps["float32"], steps["bfloat16"], arch)
+        del steps
+    t1 = time.perf_counter()
+    report["matmul_f32_backward"] = matmul_f32_backward_on_card(
+        torch, (cfgs or {}).get(TRAIN_ARCH) or get_config(TRAIN_ARCH), dev)
+    report["matmul_f32_backward"]["wall_s"] = time.perf_counter() - t1
+    report["wall_s"] = time.perf_counter() - t0
+    print(f"12c [{card}] one train step at full width, depth 2 (2 + 2), card against CPU: "
+          f"{json.dumps(report)}")
+    return report
+
+
+def loop_on_card(torch, card, dev, cfg=None):
+    """Phase 12d: ``train_loop`` on the card (gemma3-1b's smoke width, bf16,
+    f32 masters): an uninterrupted run; a run with a failure before its
+    first checkpoint and one after it (restored, replayed, ``restarts``
+    counted, the history monotonic); a run stopped at step 3 and resumed by
+    a second one; the final params of each equal the first's bit for
+    bit."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import latest_checkpoint, load_flat
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.runtime import TrainLoopConfig, train_loop
+
+    cfg = cfg or dataclasses.replace(get_smoke_config(TRAIN_ARCH), dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev, param_dtype=torch.float32)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    init = model.params()
+    rng = np.random.default_rng(9)
+    batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))).to(dev)
+                for k in ("tokens", "labels")} for _ in range(LOOP_STEPS)]
+    opt = AdamW(learning_rate=warmup_cosine(1e-3, 2, LOOP_STEPS), weight_decay=0.1)
+    step = model.make_train_step(opt, n_micro=1)
+
+    def run(directory, total, injector=None):
+        return train_loop(step, init, opt.init(init), lambda i: batches[i],
+                          TrainLoopConfig(total_steps=total, ckpt_dir=directory,
+                                          ckpt_every=LOOP_CKPT_EVERY),
+                          fail_injector=injector)
+
+    def final(directory):
+        s, path = latest_checkpoint(directory)
+        return s, {k: v for k, v in load_flat(path).items()}
+
+    failed = set()
+
+    def injector(i):
+        if i in (1, 3) and i not in failed:  # before and after the first checkpoint (step 2)
+            failed.add(i)
+            raise RuntimeError(f"injected failure at step {i}")
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        a, b, c = (str(Path(tmp) / n) for n in "abc")
+        plain = run(a, LOOP_STEPS)
+        faulty = run(b, LOOP_STEPS, injector)
+        first = run(c, 3)
+        resumed = run(c, LOOP_STEPS)
+        check(plain.restarts == 0 and faulty.restarts == 2 and failed == {1, 3},
+              f"12d: restarts {plain.restarts} / {faulty.restarts}, failures {failed}")
+        check([m["step"] for m in faulty.metrics] == list(range(LOOP_STEPS)),
+              f"12d: history {[m['step'] for m in faulty.metrics]}")
+        check(first.steps_done == 3 and resumed.steps_done == LOOP_STEPS - 3
+              and resumed.metrics[0]["step"] == 3, "12d: the second run did not resume at 3")
+        (sa, fa), (sb, fb), (sc, fc) = final(a), final(b), final(c)
+        check(sa == sb == sc == LOOP_STEPS and fa.keys() == fb.keys() == fc.keys(),
+              f"12d: final checkpoints {sa} / {sb} / {sc}")
+        differ = sorted(k for k in fa if not (torch.equal(fa[k], fb[k]) and torch.equal(fa[k], fc[k])))
+        check(not differ, f"12d: final params differ from the uninterrupted run's: {differ[:5]}")
+        losses = [m["loss"] for m in plain.metrics]
+        check([m["loss"] for m in faulty.metrics] == losses,
+              "12d: the replayed run's losses differ from the uninterrupted run's")
+    report = dict(steps=LOOP_STEPS, ckpt_every=LOOP_CKPT_EVERY, restarts=faulty.restarts,
+                  losses=losses, final_bit_equal=True, keys=len(fa),
+                  wall_s=time.perf_counter() - t0)
+    print(f"12d [{card}] train_loop on the card ({cfg.name} smoke width, bf16): failures at "
+          f"steps 1 and 3 restored and replayed ({faulty.restarts} restarts), a run resumed at "
+          f"step 3; final params bit for bit the uninterrupted run's over {len(fa)} arrays")
+    return report
+
+
+def train_launcher(card, extra_env=None, specs=None):
+    """Phase 12e: ``python -m repro_torch.launch.train`` on the card as a user
+    runs it, the two launches at once: each exits 0 with a falling loss."""
+    import os
+    import re
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **(extra_env or {}))
+    specs = specs or (("gemma3-1b full", ["--arch", TRAIN_ARCH, "--full", "--steps", "20"]),
+                      ("seamless smoke", ["--arch", ENC_ARCH, "--smoke", "--steps", "20"]))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *args],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                    env=env, cwd=ROOT)
+             for name, args in specs}  # both at once: neither needs the card to itself
+    runs = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            lines = [ln for ln in stdout.splitlines() if ln.startswith("[train]")]
+            m = re.search(r"loss ([0-9.]+) -> ([0-9.]+)", stdout)
+            check(proc.returncode == 0 and m is not None
+                  and float(m.group(2)) < float(m.group(1)),
+                  f"12e {name}: rc {proc.returncode}, {lines}: {stderr[-2000:]}")
+            runs[name] = dict(rc=proc.returncode, wall_s=time.perf_counter() - t0, lines=lines)
+            for ln in lines:
+                print(f"12e [{card}] {name}: {ln}")
+    finally:
+        for proc in procs.values():  # none outlives the phase
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return runs
+
+
+def encdec_and_training(torch, ops, card, dev):
+    """Phase 12: 12a enc-dec serving, 12b gemma3-1b training, 12c the card
+    against the CPU in training, 12d the train loop, 12e the launcher; the
+    paths launch none of the five kernels."""
+    import gc
+
+    ops.reset_launches()
+    report = {}
+    for key, fn in (("encdec_serving", lambda: encdec_serving(torch, card, dev)),
+                    ("training", lambda: gemma_training(torch, card, dev)),
+                    ("card_vs_cpu", lambda: training_twins(torch, card, dev)),
+                    ("train_loop", lambda: loop_on_card(torch, card, dev)),
+                    ("launcher", lambda: train_launcher(card))):
+        t0 = time.perf_counter()
+        report[key] = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 12 {key} wall: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(not any(counts.values()), f"12: the enc-dec and training paths launched {counts}")
+    return {"encdec_train": counts}, report
+
+
 def main() -> int:
     import torch
 
@@ -4333,7 +5034,14 @@ def main() -> int:
     ssm_report["wall_s"] = time.perf_counter() - t0
     print(f"phase 11 (the state-space and front-end families) wall: {ssm_report['wall_s']:.2f} s")
 
-    # Phase 12: the records.
+    # Phase 12: the enc-dec family served, and the LM zoo's training path.
+    t0 = time.perf_counter()
+    train_launches, train_report = encdec_and_training(torch, ops, card, dev)
+    launches.update(train_launches)
+    train_report["wall_s"] = time.perf_counter() - t0
+    print(f"phase 12 (the enc-dec family and training) wall: {train_report['wall_s']:.2f} s")
+
+    # Phase 13: the records.
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in launches.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -4362,6 +5070,7 @@ def main() -> int:
         "distribution": dp_report,
         "moe_decoders": moe_report,
         "ssm_decoders": ssm_report,
+        "encdec_train": train_report,
     }))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

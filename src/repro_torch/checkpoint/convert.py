@@ -28,10 +28,17 @@ The LM zoo's weights cross under the keys that the reference's
     shared_attn/{ln1,ln2}/{scale,bias}, shared_attn/attn/{wq,wk,wv,wo},
     shared_attn/mlp/{gate,up,down}    (the hybrid family's one shared block)
 
-where every ``layers/...`` and ``dense_layers/...`` array is stacked over
-its stack's layers on the leading axis; here each is one parameter of one
-``nn.ModuleList`` entry.  ``shared_attn/...`` is not stacked: one block
-serves every group.
+and for ``EncDecLM.init``'s (the enc-dec family):
+
+    embed/table   enc_norm/{scale,bias}   final_norm/{scale,bias}   unembed
+    enc_layers/{ln1,ln2}/..., enc_layers/attn/..., enc_layers/mlp/...
+    dec_layers/{ln1,ln_x,ln2}/..., dec_layers/{attn,xattn}/{wq,wk,wv,wo},
+    dec_layers/mlp/...
+
+where every ``layers/...``, ``dense_layers/...``, ``enc_layers/...`` and
+``dec_layers/...`` array is stacked over its stack's layers on the leading
+axis; here each is one parameter of one ``nn.ModuleList`` entry.
+``shared_attn/...`` is not stacked: one block serves every group.
 """
 from __future__ import annotations
 
@@ -46,7 +53,7 @@ from repro_torch.core.compiled import NetworkState
 from repro_torch.core.layers import LayerState, StructuralPlasticityLayer
 from repro_torch.core.learning import MarginalState
 from repro_torch.core.plasticity import PlasticityState
-from repro_torch.models.lm import CausalLM, build_model
+from repro_torch.models.lm import build_model, flat_key
 
 
 def network_state_from_flat(
@@ -117,29 +124,22 @@ def flat_from_network_state(state: NetworkState) -> Dict[str, np.ndarray]:
     return flat
 
 
-def _lm_key(name: str):
-    """A parameter's ``state_dict`` name -> (the reference's flat key, the
-    layer index its stacked array is cut at, or None)."""
-    parts = name.split(".")
-    if parts[0] in ("layers", "dense_layers"):
-        return parts[0] + "/" + "/".join(parts[2:]), int(parts[1])
-    return "/".join(parts), None
-
-
-def causal_lm_params_from_flat(cfg, flat: Dict, device="cuda") -> CausalLM:
-    """A ``CausalLM`` for ``cfg`` on ``device`` (the card by default) holding the weights of flat
-    arrays (numpy or CPU tensors, as ``load_flat`` gives them) under the
-    reference's keys.  Each array is cast to the parameter's dtype: the
-    compute dtype for matrices, which the reference casts to at each use,
-    and f32 for the norms."""
-    model = build_model(cfg, device)
-    want = {_lm_key(name)[0] for name, _ in model.named_parameters()}
+def lm_params_from_flat(cfg, flat: Dict, device="cuda", param_dtype=None):
+    """The model of ``cfg`` (``build_model``'s: a ``CausalLM`` or an
+    ``EncDecLM``) on ``device`` (the card by default) holding the weights
+    of flat arrays (numpy or CPU tensors, as ``load_flat`` gives them)
+    under the reference's keys.  Each array is cast to the parameter's
+    dtype: the compute dtype for matrices, which the reference casts to at
+    each use, and f32 for the norms; with ``param_dtype`` (training) that
+    dtype for the matrices."""
+    model = build_model(cfg, device, param_dtype)
+    want = {flat_key(name)[0] for name, _ in model.named_parameters()}
     missing, extra = sorted(want - set(flat)), sorted(set(flat) - want)
     if missing or extra:
         raise KeyError(f"{cfg.name}: flat arrays missing {missing}, unexpected {extra}")
     with torch.no_grad():
         for name, p in model.named_parameters():
-            key, layer = _lm_key(name)
+            key, layer = flat_key(name)
             v = flat[key]
             t = v if isinstance(v, torch.Tensor) else decode_array(np.asarray(v))
             if layer is not None:
@@ -150,13 +150,13 @@ def causal_lm_params_from_flat(cfg, flat: Dict, device="cuda") -> CausalLM:
     return model
 
 
-def flat_from_causal_lm(model: CausalLM) -> Dict[str, np.ndarray]:
-    """The inverse of :func:`causal_lm_params_from_flat`: host f32 arrays
-    under the reference's keys, the layers' stacked (bf16 weights widen
-    to f32 exactly)."""
+def flat_from_lm(model) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`lm_params_from_flat`: host f32 arrays under
+    the reference's keys, the layers' stacked (bf16 weights widen to f32
+    exactly)."""
     flat, stacks = {}, {}
     for name, p in model.named_parameters():
-        key, layer = _lm_key(name)
+        key, layer = flat_key(name)
         a = p.detach().float().cpu().numpy()
         if layer is None:
             flat[key] = a

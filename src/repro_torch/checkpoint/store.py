@@ -15,6 +15,9 @@ checkpoint of either package loads into the other.
   tensor is written as its ``uint16`` bits and the manifest records the
   logical dtype ``"bfloat16"``; loading views the bits back as a bf16
   tensor.  No ``ml_dtypes`` is needed on either side.
+* **Async** (``AsyncCheckpointer``): the tree is copied to the host
+  synchronously, then written on a worker thread, at most one write in
+  flight; a failed write raises at the next ``wait()``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import json
 import os
 import re
 import shutil
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -83,20 +87,32 @@ def decode_array(arr: np.ndarray, logical_dtype: Optional[str] = None) -> torch.
     return torch.from_numpy(np.array(arr))
 
 
+def _snapshot(tree, copy: bool = False) -> Dict[str, Tuple[np.ndarray, str]]:
+    """Every leaf of ``tree`` on the host: ``path_key -> (array, logical
+    dtype)``.  A CPU tensor's array shares its storage unless ``copy``."""
+    out = {}
+    for k, t in _flatten(tree).items():
+        arr, dtype = _encode_tensor(t)
+        out[k] = (np.array(arr) if copy and t.device.type == "cpu" else arr, dtype)
+    return out
+
+
 def save_checkpoint(
     directory: str,
     step: int,
     tree: Any,
     retain: int = 3,
     extra: Optional[dict] = None,
+    _encoded: Optional[Dict[str, Tuple[np.ndarray, str]]] = None,
 ) -> str:
-    """Write one checkpoint of ``tree`` atomically; returns its final path.
+    """Write one checkpoint of ``tree`` (or of a host ``_snapshot`` of one)
+    atomically; returns its final path.
 
     extra: JSON-serializable metadata stored in the manifest (for a whole
     network: the layer count and the host shuffle RNG state).
     """
     os.makedirs(directory, exist_ok=True)
-    encoded = {k: _encode_tensor(t) for k, t in _flatten(tree).items()}
+    encoded = _encoded if _encoded is not None else _snapshot(tree)
     tmp = os.path.join(directory, f"tmp.{step}.{os.getpid()}")
     final = os.path.join(directory, f"step_{step:010d}")
     if os.path.exists(tmp):
@@ -189,3 +205,48 @@ def restore_into_template(
         return type(node)(rebuilt)
 
     return rebuild(template, ())
+
+
+def restore_checkpoint(path: str, template: Any) -> Any:
+    """Load the checkpoint at ``path`` into ``template``'s structure, each
+    leaf on its template leaf's device: the reference's
+    ``restore_checkpoint``, so a checkpoint of a train loop (``params/...``,
+    ``opt/step``, ``opt/mu/...``) written by either package resumes in the
+    other."""
+    return restore_into_template(load_flat(path), template)
+
+
+class AsyncCheckpointer:
+    """Overlap disk writes with training; at most one write in flight."""
+
+    def __init__(self, directory: str, retain: int = 3):
+        self.directory = directory
+        self.retain = retain
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self.last_saved: Optional[int] = None
+
+    def save(self, step: int, tree: Any) -> None:
+        """Wait for the write in flight, copy ``tree`` to the host (the
+        caller may then change its tensors), and write it on a thread."""
+        self.wait()
+        encoded = _snapshot(tree, copy=True)
+
+        def work():
+            try:
+                save_checkpoint(self.directory, step, None, self.retain, _encoded=encoded)
+                self.last_saved = step
+            except BaseException as e:  # noqa: BLE001 -- raised at wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Join the write in flight; raise its error, if it failed."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err

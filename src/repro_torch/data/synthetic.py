@@ -12,7 +12,9 @@ Generators:
 * :func:`make_image_classes` — K class prototypes on the unit cube with
   per-sample noise and distractor dimensions; `mnist_like()` (784 features,
   10 classes) and `stl10_like()` (27648 features, 10 classes) are presets
-  with the real datasets' shapes.
+  with the real datasets' shapes;
+* :func:`token_stream` — the LM zoo's training tokens: a Zipf unigram
+  stream with planted block bigrams.
 """
 from __future__ import annotations
 
@@ -85,3 +87,31 @@ def stl10_like(
     kw.setdefault("n_features", 96 * 96 * 3)
     kw.setdefault("informative_fraction", 0.25)
     return make_image_classes(n_train, n_test, seed=seed, **kw)
+
+
+def token_stream(
+    n_tokens: int,
+    vocab_size: int,
+    zipf_a: float = 1.2,
+    bigram_classes: int = 64,
+    seed: int = 0,
+) -> np.ndarray:
+    """Zipf unigram + planted block-bigram token stream (int32).
+
+    Tokens are grouped into ``bigram_classes`` blocks; with probability 0.5
+    the next token stays within the current block, which gives an LM
+    something learnable, so a training loss falls.
+    """
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    p = ranks ** (-zipf_a)
+    p /= p.sum()
+    base = rng.choice(vocab_size, size=n_tokens, p=p).astype(np.int32)
+    block = vocab_size // bigram_classes
+    if block > 0:
+        stay = rng.random(n_tokens) < 0.5
+        prev_block = np.roll(base, 1) // np.maximum(block, 1)
+        within = rng.integers(0, np.maximum(block, 1), size=n_tokens)
+        sticky = (prev_block * block + within).astype(np.int32) % vocab_size
+        base = np.where(stay, sticky, base).astype(np.int32)
+    return base

@@ -30,7 +30,8 @@ random, from ``torch.Generator`` seed 0.  The dense, MoE, SSM (mamba2),
 hybrid (zamba2) and VLM (internvl2, text prompts) families serve; the
 SSM and hybrid families prefill at exact length (no prompt buckets: a
 recurrent state would fold the pad tokens in).  The encoder-decoder
-family is refused by ``build_model``, naming the slice that brings it.
+family is refused by the decode plan, as the reference's is: its model's
+own functions (``prefill``, then ``decode_step``) serve it.
 
 ``--online`` serves a small BCPNN classifier through the continual tier
 instead: labeled ``Feedback`` interleaves with inference on the engine

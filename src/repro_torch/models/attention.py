@@ -1,8 +1,7 @@
-"""Attention: GQA with a sliding window, MLA (DeepSeek-V2), chunked online
-softmax, decode.
+"""Attention: GQA with a sliding window, MLA (DeepSeek-V2), cross attention,
+chunked online softmax, decode.
 
-The port of the GQA and MLA parts of the JAX package's
-``repro/models/attention.py``.
+The port of the JAX package's ``repro/models/attention.py``.
 The prefill/forward path is the reference's online-softmax double loop over
 (q_chunk, kv_chunk) tiles, so the (S x S) score matrix is never
 materialised; decode is a single-token path over a preallocated,
@@ -23,8 +22,9 @@ prefill/forward path expands the latent to per-head k/v and runs the
 chunked attention; the decode step absorbs ``k_up`` into q and ``v_up``
 into the output, so it reads only the latent cache.
 
-The reference's cross attention (enc-dec) waits for the slice that brings
-that family.
+Cross attention (the enc-dec family) is a GQA projection of the decoder's
+states against the encoder's, full (no causal mask) and without rope; its
+decode step reads the encoder's k/v, projected once at prefill.
 """
 from __future__ import annotations
 
@@ -136,7 +136,10 @@ def decode_attention(
     smax, dv = k_cache.shape[1], v_cache.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     dev = q.device
-    kv_len = torch.as_tensor(kv_len, device=dev).reshape(-1, 1).expand(b, 1)  # (B, 1)
+    if isinstance(kv_len, int):  # filled on the device: no host copy, so a graph captures it
+        kv_len = torch.full((b, 1), kv_len, dtype=torch.long, device=dev)
+    else:
+        kv_len = torch.as_tensor(kv_len, device=dev).reshape(-1, 1).expand(b, 1)  # (B, 1)
     kv_pos = torch.arange(smax, device=dev)
     s = matmul_f32(q.permute(0, 2, 3, 1, 4).reshape(b, kh, g, d),
                    k_cache.permute(0, 2, 3, 1)) * scale  # (B, KH, G, Smax)
@@ -242,6 +245,34 @@ def gqa_attention(
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     return gqa_out(params, out, cfg)
+
+
+def cross_attention(params: GQA, x: torch.Tensor, enc: torch.Tensor, cfg,
+                    kv=None) -> torch.Tensor:
+    """Encoder-decoder cross attention: q from the decoder's ``x`` (B, S,
+    d), k/v from the encoder's ``enc`` (B, Senc, d), full, no rope on
+    either.  ``kv`` passes ``cross_kv(params, enc)`` already made (prefill
+    makes it once for the attention and the cache)."""
+    b, s = x.shape[:2]
+    kh = cfg.n_kv_heads
+    q = _proj(x, params.wq).reshape(b, s, kh, cfg.n_heads // kh, cfg.d_head)
+    k, v = kv if kv is not None else cross_kv(params, enc)
+    out = chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    return gqa_out(params, out, cfg)
+
+
+def cross_kv(params: GQA, enc: torch.Tensor):
+    """The encoder's k and v (B, Senc, KH, D) for the decode cache."""
+    return _proj(enc, params.wk), _proj(enc, params.wv)
+
+
+def cross_decode(params: GQA, x: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor,
+                 cfg) -> torch.Tensor:
+    """One token a row against the encoder's cached k/v (every position)."""
+    b = x.shape[0]
+    kh = cfg.n_kv_heads
+    q = _proj(x, params.wq).reshape(b, 1, kh, _h_eff(cfg) // kh, cfg.d_head)
+    return gqa_out(params, decode_attention(q, xk, xv, xk.shape[1]), cfg)
 
 
 def gqa_decode(

@@ -1,12 +1,13 @@
-"""The transformer block of the dense and MoE families.
+"""The transformer block of the dense, MoE and enc-dec families.
 
 The port of ``tf_block_init`` / ``tf_block_apply`` of the JAX package's
 ``repro/models/blocks.py``: a pre-norm residual block, attention (GQA or
-MLA, by ``cfg.attn_kind``) then an MLP or an MoE.  The reference scans
-stacked layer params with per-layer scalars riding along (gemma3's window
-and rope theta); here the model loops over an ``nn.ModuleList`` and passes
-each layer's window and theta as plain arguments.  Cross attention waits
-for the slice that brings the enc-dec family.
+MLA, by ``cfg.attn_kind``), in a decoder block of the enc-dec family then
+cross attention to the encoder's states (``cross=True``: ``ln_x`` and
+``xattn``), then an MLP or an MoE.  The reference scans stacked layer
+params with per-layer scalars riding along (gemma3's window and rope
+theta); here the model loops over an ``nn.ModuleList`` and passes each
+layer's window and theta as plain arguments.
 """
 from __future__ import annotations
 
@@ -21,10 +22,11 @@ from repro_torch.models.moe import MoE, moe_apply
 
 
 class TransformerBlock(nn.Module):
-    """``ln1``, ``attn``, ``ln2``, and ``mlp`` or ``moe``: the reference's
-    block pytree."""
+    """``ln1``, ``attn``, ``ln2``, and ``mlp`` or ``moe``; with ``cross``
+    also ``ln_x`` and ``xattn`` (GQA): the reference's block pytree."""
 
-    def __init__(self, cfg, use_moe: bool = False, device=None, dtype=torch.float32):
+    def __init__(self, cfg, use_moe: bool = False, device=None, dtype=torch.float32,
+                 cross: bool = False):
         super().__init__()
         self.ln1 = Norm(cfg.norm, cfg.d_model, device)
         self.ln2 = Norm(cfg.norm, cfg.d_model, device)
@@ -33,6 +35,9 @@ class TransformerBlock(nn.Module):
             self.moe = MoE(cfg, device, dtype)
         else:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, device, dtype)
+        if cross:
+            self.ln_x = Norm(cfg.norm, cfg.d_model, device)
+            self.xattn = attn.GQA(cfg, device, dtype)
 
 
 def tf_block_init(block: TransformerBlock, generator: torch.Generator) -> None:
@@ -40,6 +45,9 @@ def tf_block_init(block: TransformerBlock, generator: torch.Generator) -> None:
     block.ln2.init()
     block.attn.init(generator)
     (block.moe if hasattr(block, "moe") else block.mlp).init(generator)
+    if hasattr(block, "xattn"):
+        block.ln_x.init()
+        block.xattn.init(generator)
 
 
 def tf_block_apply(
@@ -50,9 +58,11 @@ def tf_block_apply(
     causal: bool = True,
     window: Optional[int] = None,
     rope_theta: Optional[float] = None,
+    enc: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm residual block over a whole sequence; returns (x, the MoE
-    aux loss, or 0 for an MLP block)."""
+    aux loss, or 0 for an MLP block).  ``enc``: the encoder's states, which
+    a cross block attends to after its self attention."""
     h = norm_apply(cfg.norm, params.ln1, x)
     if cfg.attn_kind == "mla":
         a = attn.mla_attention(params.attn, h, positions, cfg, causal=causal)
@@ -60,6 +70,8 @@ def tf_block_apply(
         a = attn.gqa_attention(params.attn, h, positions, cfg, causal=causal, window=window,
                                theta=rope_theta)
     x = x + a
+    if enc is not None:
+        x = x + attn.cross_attention(params.xattn, norm_apply(cfg.norm, params.ln_x, x), enc, cfg)
     h2 = norm_apply(cfg.norm, params.ln2, x)
     if hasattr(params, "moe"):
         f, aux = moe_apply(params.moe, h2, cfg)

@@ -7,11 +7,15 @@ The port of the JAX package's ``repro/models/common.py``.  Conventions:
   ``mlp.down`` is ``(d_ff, d_model)``), so a flat checkpoint key of the
   reference names one parameter here (``checkpoint/convert.py``);
 * the reference keeps f32 parameters and casts each to the compute dtype at
-  its use.  The cast is deterministic, so the port holds the one
-  compute-dtype copy instead (bf16 for the published configs), made once
-  at load: the numbers are the same and a decode step reads half the
-  bytes.  Norm scales and biases stay f32, as the reference's norms
-  multiply by them in f32 without a cast;
+  its use, and so does every function here (``w.to(x.dtype)``).  A
+  serving model holds the one compute-dtype copy (bf16 for the published
+  configs), made once at load, where that cast returns the same tensor:
+  the numbers are the reference's and a decode step reads half the
+  bytes.  A training model holds f32 parameters (``build_model(...,
+  param_dtype=torch.float32)``), so autograd gives the reference's
+  gradients: the cast's backward widens the bf16 cotangent, and a weight
+  used more than once sums its gradients in f32.  Norm scales and biases
+  stay f32 in both, as the reference's norms multiply by them in f32;
 * initialisers draw from an explicit ``torch.Generator`` on the
   parameter's device: the reference's distributions, not its bits;
 * the serving paths run under ``torch.inference_mode()``; nothing here
@@ -35,18 +39,12 @@ def cast(x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 # ------------------------------------------------------- f32 accumulators
-def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with the f32 accumulator returned unrounded: the
-    reference's ``preferred_element_type=jnp.float32`` on compute-dtype
-    operands.  A bf16 ``torch.matmul`` rounds its output to bf16, so bf16
-    operands go through ``torch.mm``/``torch.bmm`` with
-    ``out_dtype=torch.float32`` on the card (cuBLAS writes its f32
-    accumulator; the operands stay bf16 and are read once), and are
-    widened to f32 on the CPU (exact: a bf16 value is an f32 value, and
-    their products are exact in f32).  ``b`` is 2-D, or has ``a``'s leading
-    dims."""
-    if a.dtype == torch.float32 and b.dtype == torch.float32:
-        return torch.matmul(a, b)
+def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The f32 accumulator of ``a @ b`` for compute-dtype operands: on the
+    card ``torch.mm``/``torch.bmm`` with ``out_dtype=torch.float32``
+    (cuBLAS writes its f32 accumulator; the operands stay bf16 and are read
+    once), on the CPU the product of the operands widened to f32 (exact: a
+    bf16 value is an f32 value, and their products are exact in f32)."""
     if not a.is_cuda:
         return torch.matmul(a.float(), b.float())
     if b.dim() == 2:
@@ -56,6 +54,55 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
                     out_dtype=torch.float32)
     return out.reshape(*lead, *out.shape[-2:])
+
+
+def _matmul_f32_grads(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
+                      need_a: bool = True, need_b: bool = True):
+    """The f32 products of ``matmul_f32``'s backward before their rounding:
+    (g @ b^T, a^T @ g) in f32 from the f32 cotangent ``g``, a 2-D ``b``'s
+    summed over every leading dim of ``a``; None where not needed."""
+    ga = gb = None
+    if need_a:
+        ga = torch.matmul(g, b.float().transpose(-1, -2))
+    if need_b:
+        if b.dim() == 2:
+            gb = torch.matmul(a.reshape(-1, a.shape[-1]).float().T,
+                              g.reshape(-1, g.shape[-1]))
+        else:
+            gb = torch.matmul(a.float().transpose(-1, -2), g)
+    return ga, gb
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``_product_f32`` with the reference's transposes as its backward:
+    JAX's transpose of a ``dot_general`` with ``preferred_element_type=
+    f32`` multiplies the f32 cotangent by the other operand in f32 and
+    rounds the result to the input's dtype.  The same code runs on both
+    devices (``aten::mm`` with ``out_dtype`` has no derivative of its
+    own)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _product_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga, gb = _matmul_f32_grads(a, b, g, *ctx.needs_input_grad[:2])
+        return (None if ga is None else ga.to(a.dtype),
+                None if gb is None else gb.to(b.dtype))
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with the f32 accumulator returned unrounded: the
+    reference's ``preferred_element_type=jnp.float32`` on compute-dtype
+    operands (a bf16 ``torch.matmul`` rounds its output to bf16).  f32
+    operands take ``torch.matmul``; others ``_MatmulF32``, differentiable
+    on both devices.  ``b`` is 2-D, or has ``a``'s leading dims."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.matmul(a, b)
+    return _MatmulF32.apply(a, b)
 
 
 # ------------------------------------------------------------------- init

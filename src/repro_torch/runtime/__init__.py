@@ -6,8 +6,7 @@
 # OpenMetrics export, the Router serving fabric (per-tenant SLO scheduling
 # over N engines), and the continual-learning tier (online Hebbian updates
 # under live traffic with per-tenant adapters, drift detection, and
-# snapshot/rollback).  The reference's training loop waits for a later
-# slice.
+# snapshot/rollback), and the LM zoo's fault-tolerant training loop.
 from repro_torch.runtime.activations import ActivationStore, store_for
 from repro_torch.runtime.engine import AsyncEngine, EngineStopped, QueueFull
 from repro_torch.runtime.epoch_engine import (
@@ -85,6 +84,7 @@ from repro_torch.runtime.continual import (
     DriftDetected,
     Feedback,
 )
+from repro_torch.runtime.train_loop import TrainLoopConfig, TrainLoopResult, train_loop
 from repro_torch.runtime.router import (
     DeadlineExceeded,
     NoEngineAvailable,
@@ -114,6 +114,7 @@ __all__ = [
     "SERVE_PLANS", "BatchedPlan", "InferenceService", "ServePlan", "ServiceConfig",
     "StreamingPlan", "DecodePlan", "DecodeSession", "Request", "Completion",
     "pad_cache_like", "serve_model", "serve_fleet",
+    "TrainLoopConfig", "TrainLoopResult", "train_loop",
     # The trace module's DriftDetected *event* is not re-exported: the
     # continual tier's exception keeps that name here.
     "TraceConfig", "Tracer", "build_tracer", "SpanRecord", "EventJournal",

@@ -628,8 +628,8 @@ class DecodePlan(ServePlan):
         self._family = model.cfg.family
         if self._family == "encdec":
             raise ValueError(
-                "DecodePlan serves decoder-only models; enc-dec serving needs a "
-                "cross-attention prefill path"
+                "DecodePlan serves decoder-only models; an enc-dec model is served "
+                "through its own functions (prefill, then decode_step)"
             )
         if config.buckets is not None and config.buckets[-1] > config.max_seq:
             raise ValueError(

@@ -960,13 +960,13 @@ def test_moe_decode_step_on_card_matches_cpu_in_a_cuda_graph(card, arch):
     prefill logits, then four decode steps of three slots at their own
     lengths replayed from one captured CUDA graph (capture fails on any
     host sync), every step's logits and cache within 1e-4."""
-    from repro_torch.checkpoint import causal_lm_params_from_flat, flat_from_causal_lm
+    from repro_torch.checkpoint import lm_params_from_flat, flat_from_lm
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import build_model
 
     cfg = get_smoke_config(arch)
     cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-    gpu = causal_lm_params_from_flat(cfg, flat_from_causal_lm(cpu), device=card)
+    gpu = lm_params_from_flat(cfg, flat_from_lm(cpu), device=card)
     rng = np.random.default_rng(3)
     lens, smax = (19, 7, 12), 32
     caches = {"cpu": cpu.init_cache(3, smax), "card": gpu.init_cache(3, smax)}
@@ -1013,13 +1013,13 @@ def test_ssm_hybrid_vlm_decode_on_card_matches_cpu_in_a_cuda_graph(card, arch):
     decode steps of three slots at their own lengths replayed from one
     captured CUDA graph (capture fails on any host sync), every step's
     logits and cache within 1e-4."""
-    from repro_torch.checkpoint import causal_lm_params_from_flat, flat_from_causal_lm
+    from repro_torch.checkpoint import lm_params_from_flat, flat_from_lm
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import build_model
 
     cfg = get_smoke_config(arch)
     cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-    gpu = causal_lm_params_from_flat(cfg, flat_from_causal_lm(cpu), device=card)
+    gpu = lm_params_from_flat(cfg, flat_from_lm(cpu), device=card)
     rng = np.random.default_rng(3)
     lens, smax = (19, 2, 12), 48
     n_front = cfg.n_patches if cfg.frontend else 0
@@ -1062,3 +1062,66 @@ def test_ssm_hybrid_vlm_decode_on_card_matches_cpu_in_a_cuda_graph(card, arch):
                 torch.testing.assert_close(caches["card"][k].cpu(), caches["cpu"][k],
                                            rtol=1e-4, atol=1e-4)
             tok, cur = want.argmax(-1, keepdim=True), cur + 1
+
+
+@pytest.mark.cuda
+def test_matmul_f32_backward_on_card(card):
+    """``matmul_f32`` on bf16 operands on the card: its forward is cuBLAS's
+    f32 accumulator, its backward the autograd function's f32 products,
+    both held to the CPU's f32 autograd of the widened operands (the same
+    products summed in another order): the f32 results within 1e-5
+    normwise, each bf16 gradient within one bf16 ulp plus 1e-5 x
+    (|g| @ |b|^T) where its sum cancels.  A cotangent rounded to bf16
+    first would move the f32 products by ~1e-3."""
+    from repro_torch.models.common import _matmul_f32_grads, matmul_f32
+
+    def ulps_off(got, want, scale):
+        ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(1e-38))) - 7)
+        return int(((got.float() - want).abs() > ulp + 1e-5 * scale).sum())
+
+    rng = np.random.default_rng(5)
+    for b_shape in ((96, 40), (3, 96, 40)):
+        a = torch.from_numpy(rng.standard_normal((3, 17, 96)).astype(np.float32)).bfloat16()
+        b = torch.from_numpy(rng.standard_normal(b_shape).astype(np.float32)).bfloat16()
+        g = torch.from_numpy(rng.standard_normal((3, 17, 40)).astype(np.float32))
+        wa, wb = a.float().requires_grad_(True), b.float().requires_grad_(True)
+        want_out = torch.matmul(wa, wb)
+        want = torch.autograd.grad(want_out, (wa, wb), g)
+        sa, sb = a.float().abs().requires_grad_(True), b.float().abs().requires_grad_(True)
+        scale = torch.autograd.grad(torch.matmul(sa, sb), (sa, sb), g.abs())
+        a_d = a.to(card).requires_grad_(True)
+        b_d = b.to(card).requires_grad_(True)
+        out = matmul_f32(a_d, b_d)
+        got = torch.autograd.grad(out, (a_d, b_d), g.to(card))
+        f32 = _matmul_f32_grads(a.to(card), b.to(card), g.to(card))
+        rel = [float((x.cpu() - w.detach()).norm() / w.detach().norm())
+               for x, w in zip((out.detach(), *f32), (want_out, *want))]
+        assert out.dtype == torch.float32 and max(rel) <= 1e-5, rel
+        for x, w, sc, inp in zip(got, want, scale, (a, b)):
+            assert x.dtype == inp.dtype == torch.bfloat16
+            assert ulps_off(x.cpu(), w, sc) == 0
+
+
+@pytest.mark.cuda
+def test_encdec_train_step_on_card(card):
+    """One f32 train step of the enc-dec smoke config on the card against
+    the CPU's: loss, and the params after the step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, tree_map
+
+    cfg = get_smoke_config("seamless-m4t-large-v2")
+    cpu = build_model(cfg, "cpu", param_dtype=torch.float32).init(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, card, param_dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    batch = {"enc_embeds": torch.from_numpy(rng.standard_normal((2, 40, cfg.d_model))
+                                            .astype(np.float32)),
+             "tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 10))),
+             "labels": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 10)))}
+    opt = AdamW(learning_rate=1e-3)
+    p_cpu = cpu.params()
+    p_gpu = tree_map(lambda t: t.to(card), p_cpu)
+    out_cpu = cpu.make_train_step(opt, 1)(p_cpu, opt.init(p_cpu), batch)
+    out_gpu = gpu.make_train_step(opt, 1)(p_gpu, opt.init(p_gpu),
+                                          {k: v.to(card) for k, v in batch.items()})
+    torch.testing.assert_close(out_gpu[2]["loss"].cpu(), out_cpu[2]["loss"], rtol=1e-5, atol=1e-6)

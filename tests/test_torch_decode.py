@@ -18,7 +18,7 @@ from repro import runtime as jrt
 from repro.checkpoint.store import save_checkpoint
 from repro.configs import get_smoke_config
 from repro.models import build_model as j_build_model
-from repro_torch.checkpoint import causal_lm_params_from_flat, load_flat
+from repro_torch.checkpoint import lm_params_from_flat, load_flat
 from repro_torch.runtime import (
     AsyncEngine,
     DecodePlan,
@@ -43,7 +43,7 @@ def _pair(arch, tmp_path_factory):
     jm = j_build_model(cfg)
     params = jm.init(jax.random.PRNGKey(0))
     path = save_checkpoint(str(tmp_path_factory.mktemp(arch)), 0, params)
-    return cfg, jm, params, causal_lm_params_from_flat(cfg, load_flat(path), device="cpu")
+    return cfg, jm, params, lm_params_from_flat(cfg, load_flat(path), device="cpu")
 
 
 @pytest.fixture(scope="module")

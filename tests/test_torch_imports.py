@@ -58,3 +58,13 @@ def test_every_module_imports_with_jax_blocked():
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=120,
     )
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_the_training_modules_are_checked():
+    """The LM zoo's training path (Slices F6-F7) is among the modules both
+    tests above hold to the rule."""
+    modules = set(_modules())
+    assert {"repro_torch.optim.schedules", "repro_torch.optim.accumulation",
+            "repro_torch.optim.compression", "repro_torch.runtime.train_loop",
+            "repro_torch.launch.train", "repro_torch.models.lm"} <= modules
+    assert {PORT / "launch" / "train.py", PORT / "runtime" / "train_loop.py"} <= set(FILES)

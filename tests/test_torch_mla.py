@@ -23,7 +23,7 @@ from repro.checkpoint.store import save_checkpoint
 from repro.models import attention as jattn
 from repro.models import build_model as j_build_model
 from repro.sharding.rules import ShardCtx
-from repro_torch.checkpoint import causal_lm_params_from_flat, flat_from_causal_lm, load_flat
+from repro_torch.checkpoint import lm_params_from_flat, flat_from_lm, load_flat
 from repro_torch.models import attention as tattn
 from repro_torch.models import build_model as t_build_model
 from repro_torch.runtime import Request, ServiceConfig, serve_model
@@ -158,7 +158,7 @@ def dense_mla(tmp_path_factory):
         jm = j_build_model(cfg)
         params = jm.init(jax.random.PRNGKey(1))
         flat = load_flat(save_checkpoint(str(tmp_path_factory.mktemp(f"mla{q_lora}")), 0, params))
-        out[q_lora] = (cfg, jm, params, causal_lm_params_from_flat(cfg, flat, device="cpu"), flat)
+        out[q_lora] = (cfg, jm, params, lm_params_from_flat(cfg, flat, device="cpu"), flat)
     return out
 
 
@@ -194,7 +194,7 @@ def test_dense_mla_builds_and_matches_the_reference(dense_mla, q_lora):
         got, cache = tm.decode_step(cache, torch.tensor([[tok]]), 17 + i)
         _close(got, want)
         tok = int(got.argmax())
-    back = flat_from_causal_lm(tm)
+    back = flat_from_lm(tm)
     assert back.keys() == flat.keys()
     assert all(np.array_equal(back[k], flat[k].numpy()) for k in back)
 

@@ -4,7 +4,7 @@ forward / prefill / decode, and the weights carried across both ways.
 
 Both sides start from the JAX package's initial weights, written with its
 ``save_checkpoint`` and read into the port with ``load_flat`` and
-``causal_lm_params_from_flat``; inputs are numpy arrays from one seed.
+``lm_params_from_flat``; inputs are numpy arrays from one seed.
 The smoke configs in f32 within rtol 1e-5 / atol 1e-5, and in bf16 (the
 published configs' compute dtype) within the tolerances derived at
 ``BF16_LOGIT_TOL``.
@@ -25,11 +25,12 @@ from repro.models import common as jcommon
 from repro.sharding.rules import ShardCtx
 from repro_torch import configs as tcfg
 from repro_torch.checkpoint import (
-    causal_lm_params_from_flat,
-    flat_from_causal_lm,
+    lm_params_from_flat,
+    flat_from_lm,
     load_flat,
 )
 from repro_torch.models import attention as tattn
+from repro_torch.models import CausalLM
 from repro_torch.models import build_model as t_build_model
 from repro_torch.models import common as tcommon
 
@@ -45,7 +46,7 @@ def _close(got, want, **tol):
 def _carry(cfg, params, tmp_path):
     """The JAX package's params -> a checkpoint -> a port model."""
     path = save_checkpoint(str(tmp_path), 0, params)
-    return causal_lm_params_from_flat(cfg, load_flat(path), device="cpu")
+    return lm_params_from_flat(cfg, load_flat(path), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -422,13 +423,13 @@ def test_generate_bf16_tokens_before_near_ties(models_bf16, arch):
 @pytest.mark.parametrize("arch", DENSE)
 def test_weights_round_trip_bit_identical(models, tmp_path, arch):
     cfg, _, params, tm = models[arch]
-    flat = flat_from_causal_lm(tm)
+    flat = flat_from_lm(tm)
     path = save_checkpoint(str(tmp_path), 0, params)
     ref_flat = {k: v.numpy() for k, v in load_flat(path).items()}
     assert flat.keys() == ref_flat.keys()
     for k in flat:
         assert flat[k].dtype == ref_flat[k].dtype and np.array_equal(flat[k], ref_flat[k]), k
-    again = causal_lm_params_from_flat(cfg, flat, device="cpu")
+    again = lm_params_from_flat(cfg, flat, device="cpu")
     for (name, a), (_, b) in zip(tm.named_parameters(), again.named_parameters()):
         assert torch.equal(a, b), name
 
@@ -450,7 +451,7 @@ def test_port_initialised_weights_decode_the_same_in_the_reference(arch):
     same tokens there (prefill, then 5 decode steps)."""
     cfg = tcfg.get_smoke_config(arch)
     tm = t_build_model(cfg, device="cpu").init(torch.Generator().manual_seed(3))
-    params = _unflatten(flat_from_causal_lm(tm))
+    params = _unflatten(flat_from_lm(tm))
     jm = j_build_model(jcfg.get_smoke_config(arch))
     prompt = RNG.integers(0, cfg.vocab_size, 18).astype(np.int32)
     want_logits, jc = jax.jit(jm.prefill)(params, {"tokens": jnp.asarray(prompt[None])})
@@ -476,18 +477,19 @@ def test_port_initialised_weights_decode_the_same_in_the_reference(arch):
     ("seamless-m4t-large-v2", "Slice F6"),
 ])
 def test_build_model_names_the_slice(arch, slice_):
-    """Slices F3-F5 are ported: their families build.  The family of a
-    slice still to come (F6) is refused, naming that slice."""
+    """Slices F3-F6 are ported: every family builds, the enc-dec family
+    (F6) as an ``EncDecLM``, and ``CausalLM`` refuses it by name."""
     cfg = tcfg.get_smoke_config(arch)
-    if slice_ != "Slice F6":
-        assert t_build_model(cfg, device="cpu").cfg.family == cfg.family
-        return
-    with pytest.raises(NotImplementedError, match=f"{cfg.family}.*{slice_}"):
-        t_build_model(cfg)
+    model = t_build_model(cfg, device="cpu")
+    assert model.cfg.family == cfg.family
+    if slice_ == "Slice F6":
+        assert type(model).__name__ == "EncDecLM"
+        with pytest.raises(ValueError, match=f"{cfg.family}.*not a decoder-only family"):
+            CausalLM(cfg, device="cpu")
 
 
 def test_default_device_is_the_card():
-    """``build_model`` and ``causal_lm_params_from_flat`` put the model on
+    """``build_model`` and ``lm_params_from_flat`` put the model on
     the card unless the caller asks for the CPU: with no card they raise,
     as ``ExecutionConfig`` does, and never carry on quietly on the CPU."""
     cfg = tcfg.get_smoke_config("yi-9b")
@@ -496,6 +498,6 @@ def test_default_device_is_the_card():
         return
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         t_build_model(cfg)
-    flat = flat_from_causal_lm(t_build_model(cfg, device="cpu").init(torch.Generator()))
+    flat = flat_from_lm(t_build_model(cfg, device="cpu").init(torch.Generator()))
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
-        causal_lm_params_from_flat(cfg, flat)
+        lm_params_from_flat(cfg, flat)

@@ -29,7 +29,7 @@ from repro.checkpoint.store import save_checkpoint
 from repro.models import build_model as j_build_model
 from repro.models import moe as jmoe
 from repro.sharding.rules import ShardCtx
-from repro_torch.checkpoint import causal_lm_params_from_flat, flat_from_causal_lm, load_flat
+from repro_torch.checkpoint import lm_params_from_flat, flat_from_lm, load_flat
 from repro_torch.models import moe as tmoe
 from repro_torch.runtime import Request, ServiceConfig, serve_model
 
@@ -217,14 +217,14 @@ def models(tmp_path_factory):
         jm = j_build_model(cfg)
         params = jm.init(jax.random.PRNGKey(0))
         flat = load_flat(save_checkpoint(str(tmp_path_factory.mktemp(arch)), 0, params))
-        out[arch] = (cfg, jm, params, causal_lm_params_from_flat(cfg, flat, device="cpu"), flat)
+        out[arch] = (cfg, jm, params, lm_params_from_flat(cfg, flat, device="cpu"), flat)
     return out
 
 
 def _with_cfg(tm, flat, **kw):
     """The same weights under a config with other MoE settings."""
     cfg = dataclasses.replace(tm.cfg, **kw)
-    return cfg, causal_lm_params_from_flat(cfg, flat, device="cpu")
+    return cfg, lm_params_from_flat(cfg, flat, device="cpu")
 
 
 def _pad(c, smax):
@@ -389,13 +389,13 @@ def test_bucketed_moe_prefill_differs_from_exact_once_tokens_drop(models):
 @pytest.mark.parametrize("arch", MOE)
 def test_weights_round_trip_bit_identical(models, arch):
     cfg, _, _, tm, flat = models[arch]
-    got = flat_from_causal_lm(tm)
+    got = flat_from_lm(tm)
     want = {k: v.numpy() for k, v in flat.items()}
     assert got.keys() == want.keys()
     assert any(k.startswith("dense_layers/") for k in got)
     assert any(k.startswith("layers/moe/shared/") for k in got)
     for k in got:
         assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
-    again = causal_lm_params_from_flat(cfg, got, device="cpu")
+    again = lm_params_from_flat(cfg, got, device="cpu")
     for (name, a), (_, b) in zip(tm.named_parameters(), again.named_parameters()):
         assert torch.equal(a, b), name

@@ -33,7 +33,7 @@ from repro.checkpoint.store import save_checkpoint
 from repro.models import build_model as j_build_model
 from repro.models import ssm as jssm
 from repro.sharding.rules import ShardCtx
-from repro_torch.checkpoint import causal_lm_params_from_flat, flat_from_causal_lm, load_flat
+from repro_torch.checkpoint import lm_params_from_flat, flat_from_lm, load_flat
 from repro_torch.models import build_model
 from repro_torch.models import ssm as tssm
 from repro_torch.runtime import DecodePlan, Request, ServiceConfig, serve_model
@@ -214,7 +214,7 @@ def models(tmp_path_factory):
         jm = j_build_model(cfg)
         params = jm.init(jax.random.PRNGKey(0))
         flat = load_flat(save_checkpoint(str(tmp_path_factory.mktemp(arch)), 0, params))
-        out[arch] = (cfg, jm, params, causal_lm_params_from_flat(cfg, flat, device="cpu"), flat)
+        out[arch] = (cfg, jm, params, lm_params_from_flat(cfg, flat, device="cpu"), flat)
     return out
 
 
@@ -442,24 +442,19 @@ def test_strict_registry_lists_the_live_cells(models):
 
 
 def test_decode_plan_refuses_an_enc_dec_model():
-    """The reference's refusal at ``DecodePlan.__init__``: enc-dec serving
-    needs a cross-attention prefill."""
-    class EncDec:
-        cfg = jcfg.get_smoke_config("seamless-m4t-large-v2")
-        device = torch.device("cpu")
-
-    with pytest.raises(ValueError, match="cross-attention prefill"):
-        DecodePlan(EncDec(), ServiceConfig())
-    with pytest.raises(NotImplementedError, match="Slice F6"):
-        build_model(EncDec.cfg, device="cpu")
+    """The reference's refusal at ``DecodePlan.__init__``: the plan serves
+    decoder-only models, an enc-dec model serves through its functions."""
+    model = build_model(jcfg.get_smoke_config("seamless-m4t-large-v2"), device="cpu")
+    with pytest.raises(ValueError, match="through its own functions"):
+        DecodePlan(model, ServiceConfig())
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_weights_round_trip_bit_identical(models, arch):
-    """The flat keys both ways: the port's ``flat_from_causal_lm`` gives
+    """The flat keys both ways: the port's ``flat_from_lm`` gives
     the reference checkpoint's arrays bit for bit, and loads back."""
     cfg, _, _, tm, flat = models[arch]
-    got = flat_from_causal_lm(tm)
+    got = flat_from_lm(tm)
     want = {k: v.numpy() for k, v in flat.items()}
     assert got.keys() == want.keys()
     if arch in STATEFUL:
@@ -468,6 +463,6 @@ def test_weights_round_trip_bit_identical(models, arch):
         assert "shared_attn/attn/wq" in got and got["shared_attn/attn/wq"].ndim == 3
     for k in got:
         assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
-    again = causal_lm_params_from_flat(cfg, got, device="cpu")
+    again = lm_params_from_flat(cfg, got, device="cpu")
     for (name, a), (_, b) in zip(tm.named_parameters(), again.named_parameters()):
         assert torch.equal(a, b), name
