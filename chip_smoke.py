@@ -179,8 +179,9 @@ the run with a non-zero exit:
    time, time in all-reduce and per-batch ms printed, not gated;
 10. the MoE family with MLA attention at full width, with phase 7's slots,
    buckets, prompts and gates: (a) moonshot-v1-16b-a3b as the repository
-   configures it (48 layers, 64 experts top-6 + 2 shared, GQA, bf16,
-   random weights from seed 0); (b) deepseek-v2-236b at its published
+   configures it (64 experts top-6 + 2 shared, GQA, bf16, random weights
+   from seed 0), cut to 24 of its 48 layers (MOE_SERVE_LAYERS; the
+   launcher serves it whole); (b) deepseek-v2-236b at its published
    width cut to 4 layers (MLA with 128 heads, 160 experts).  The forward
    and bucketed-versus-exact checks run on the same weights under a
    capacity factor of E / k, which drops nothing (a bucketed MoE prefill
@@ -201,11 +202,11 @@ the run with a non-zero exit:
    CPU's probabilities (1e-5 relative), kept slots equal, logits within
    1e-4 relative + 1e-4 x std where no flip reached, tokens equal up to
    the first near-tie.  The path launches none of the five kernels;
-11. the state-space and front-end families at full width and depth, with
-   phase 7's slots, prompts and gates, bf16, random weights from seed 0:
-   (a) mamba2-1.3b (48 Mamba-2 layers, d 2048, state 128) and (b)
-   zamba2-2.7b (54 Mamba-2 layers and one shared attention block after
-   every 6), each prefilled at exact length (the plan's prefill cells one
+11. the state-space and front-end families at full width, with phase 7's
+   slots, prompts and gates, bf16, random weights from seed 0: (a)
+   mamba2-1.3b (d 2048, state 128) and (b) zamba2-2.7b (Mamba-2 layers and
+   one shared attention block after every 6), each cut to 24 of its 48 and
+   54 layers (SSM_SERVE_LAYERS; the launcher serves them whole), each prefilled at exact length (the plan's prefill cells one
    per prompt length, none evicted) with a 1- and a 2-token prompt beside
    phase 7's eight, prefill + decode against ``forward`` on prompts 2, 60
    and 700 (within the larger of DEC_FORWARD_TOL x std and
@@ -254,7 +255,27 @@ the run with a non-zero exit:
    repro_torch.launch.train --arch gemma3-1b --full --steps 20`` and
    ``--arch seamless-m4t-large-v2 --smoke``, each exiting 0 with a
    falling loss.  The paths launch none of the five kernels;
-13. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
+13. the tooling slice: (a) the dry run (``repro_torch.launch.dryrun``, on
+   the ``meta`` device) of 13b's cells, TOOL_DECODE whole and TOOL_CUT cut
+   in batch (those two counted in a niced background process, started
+   before phase 10, that sees no card), each under 72 GB, and
+   ``dryrun_bcpnn`` on the pod and multipod meshes, each record and its
+   roofline at the H100's peaks printed; (b) each cell's step on the card:
+   its ``FlopCounterMode`` count equal to the dry run's (at the dry run's
+   depths where it extrapolated), its peak memory at least its arguments'
+   bytes and at most TOOL_MEM_SLACK x the dry run's peak, its device time
+   at least the roofline's bound / TOOL_SHARE_MAX; (c) one rank of
+   bcpnn_xl (55,296 x 8,192, hypercolumns 256 wide) at the pod rank's 1,024
+   rows and the multipod rank's 512, one shard_map hidden step through a
+   one-rank NCCL group against the same step with ``use_kernels=False``,
+   timed against the dry run's per-device terms, and each of its three
+   kernels against its plain version at its shape, timed beside its
+   bound and the library call; (d) the deprecated ``ServeSession`` on
+   13b's gemma3-1b: its tokens equal ``DecodePlan``'s up to the first
+   near-tie; (e) the deprecated ``Network.fit(engine="scan")`` on phase 4's
+   configuration, 1 + 1 epochs: states, scores and accuracy equal the
+   compiled fit's bit for bit;
+14. print one ``{"kernels": [...]}`` line, then, last, the ``{"ok": true,
    ...}`` line.
 
 Without a CUDA device, or away from the rest of the repository, it exits
@@ -3765,6 +3786,9 @@ def distribution(torch, ops, core, trained, runs, launches4, card, dev, backend=
 # dense first layer + 3 MoE layers: MLA with 128 heads, 160 experts; 26.6
 # GB), random weights from torch.Generator seed 0.
 MOE_ARCH, MLA_ARCH, MLA_LAYERS = "moonshot-v1-16b-a3b", "deepseek-v2-236b", 4
+# 10a serves moonshot cut to 24 of its 48 layers, to keep the script
+# within its time with phase 13: the same blocks, half the depth.
+MOE_SERVE_LAYERS = 24
 MOE_STRICT_LAYERS = 4  # strict serving of moonshot, cut to depth 4
 MOE_HOST_REPS = 10  # eager calls timed a decode step (a step's host time is ~0.1 s)
 # 10c: moonshot's width at depth 3 (one dense and two MoE layers), f32, the
@@ -3951,9 +3975,10 @@ def moe_decoders(torch, ops, card, dev):
     gc.collect()
     torch.cuda.empty_cache()
     report = dict(memory_at_start=torch.cuda.memory_allocated(dev))
-    for label, arch, layers in (("10a", MOE_ARCH, None), ("10b", MLA_ARCH, MLA_LAYERS)):
+    for label, arch, layers in (("10a", MOE_ARCH, MOE_SERVE_LAYERS), ("10b", MLA_ARCH, MLA_LAYERS)):
         cfg = get_config(arch)
         if layers is not None:
+            print(f"{label}: {arch} cut in depth to {layers} of {cfg.n_layers} layers")
             cfg = dataclasses.replace(cfg, n_layers=layers)
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -4013,6 +4038,10 @@ def moe_decoders(torch, ops, card, dev):
 # eight, under the conv's K - 1 = 3; internvl2-1b (24 layers, d 896; 0.63 B)
 # whole, its text prompts and one batch of patch embeddings.
 SSM_ARCH, HYBRID_ARCH, VLM_ARCH = "mamba2-1.3b", "zamba2-2.7b", "internvl2-1b"
+# 11a and 11b serve mamba2 and zamba2 cut to 24 layers (zamba2: 4 of its 9
+# groups), to keep the script within its time with phase 13;
+# the launcher (11e) still serves them whole.
+SSM_SERVE_LAYERS = {SSM_ARCH: 24, HYBRID_ARCH: 24}
 SSM_LENGTHS = (1, 2) + DEC_LENGTHS
 SSM_FORWARD_CHECK = (2, 60, 700)
 SSM_LONG, SSM_LONG_SEQ = 8000, 8192  # 31 chunks of 256 and a ragged tail of 64
@@ -4202,6 +4231,7 @@ def ssm_decoders(torch, ops, card, dev):
     depth (11a mamba2-1.3b, 11b zamba2-2.7b, 11c internvl2-1b), 11e strict
     serving of zamba2 at depth 12 and the launcher, then 11d, the f32
     twins; the paths launch none of the five kernels."""
+    import dataclasses
     import gc
 
     from repro_torch.configs import get_config
@@ -4213,6 +4243,9 @@ def ssm_decoders(torch, ops, card, dev):
     report = dict(memory_at_start=torch.cuda.memory_allocated(dev))
     for label, arch in (("11a", SSM_ARCH), ("11b", HYBRID_ARCH), ("11c", VLM_ARCH)):
         cfg = get_config(arch)
+        if arch in SSM_SERVE_LAYERS:
+            print(f"{label}: {arch} cut in depth to {SSM_SERVE_LAYERS[arch]} of {cfg.n_layers} layers")
+            cfg = dataclasses.replace(cfg, n_layers=SSM_SERVE_LAYERS[arch])
         stateful = cfg.family in ("ssm", "hybrid")
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -4935,6 +4968,526 @@ def encdec_and_training(torch, ops, card, dev):
     return {"encdec_train": counts}, report
 
 
+# ------------------------------------------------------------ phase 13
+# The tooling slice: the dry run and roofline against real steps,
+# one pod-scale BCPNN rank through the kernels, the deprecated surfaces.
+# 13b's cells: decode at long_500k for mamba2-1.3b and gemma3-1b, whole
+# (batch 1, a 524,288-position cache); train and prefill on internvl2-1b.
+# The CPU sweep (``python -m repro_torch.launch.dryrun --all``, PERF.md
+# §6) finds no train cell that fits one card at its global batch, and
+# internvl2-1b's prefill_32k the only prefill cell that does; internvl2-1b
+# is the smallest arch.  Each is cut in batch to one step the phase can
+# afford: its counted traffic at 3.35 TB/s is ~0.49 s a training sequence
+# and ~7.8 s a prefill sequence (PERF.md §6), so train_4k runs 8
+# sequences (one a microbatch) and prefill_32k one.  13a counts exactly
+# these cells on ``meta``: the two cut cells' counts (a minute each on one
+# host core) run in a background process started before phase 10
+# (``tooling_background``), niced, with no card visible to it.
+TOOL_DECODE = (("mamba2-1.3b", "long_500k"), ("gemma3-1b", "long_500k"))
+TOOL_CUT = (("internvl2-1b", "train_4k", 8), ("internvl2-1b", "prefill_32k", 1))
+TOOL_MEM_SLACK = 1.25  # the card's peak at most this x the dry run's (allocator blocks, workspaces)
+TOOL_SHARE_MAX = 1.05  # no step may read faster than its bound / this
+TOOL_DECODE_REPS = 5
+TOOL_DIR = ROOT / "build" / "phase13"
+# 13c: one rank of bcpnn_xl (launch/dryrun_bcpnn.py): 55,296 inputs, 32 of
+# the 512 hypercolumns of 256 MCUs (8,192 units), the pod rank's 1,024 rows
+# and the multipod rank's 512, one shard_map hidden step through a one-rank
+# NCCL group; the kernels' times at these shapes from XL_REPS graph replays.
+XL_N_F, XL_RANK_HCU, XL_MCU = 55296, 32, 256
+XL_RANKS = (("pod", 1024), ("multipod", 512))
+XL_REPS = 3
+# 13d: ServeSession on gemma3-1b at full width, two requests, 8 new tokens.
+SESSION_PROMPTS, SESSION_NEW, SESSION_MAX_SEQ = (5, 17), 8, 64
+
+
+def tooling_background():
+    """Start 13a's two slow dry-run counts (the cut train and prefill cells)
+    in one niced process that sees no card; phase 13 waits for it."""
+    import os
+
+    shutil.rmtree(TOOL_DIR, ignore_errors=True)  # the dry run's CLI skips a record it finds
+    TOOL_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    code = ";".join(
+        ["from repro_torch.launch import dryrun"]
+        + [f"dryrun.main(['--arch', {a!r}, '--shape', {s!r}, '--batch', '{b}', '--tag', 'b{b}', "
+           f"'--out', {str(TOOL_DIR)!r}])" for a, s, b in TOOL_CUT])
+    return subprocess.Popen([sys.executable, "-c", code], env=env, cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            preexec_fn=lambda: os.nice(19))
+
+
+def tooling_dryrun(proc):
+    """13a: the dry run of 13b's cells (the decode cells here, the cut
+    cells from the background process) and of bcpnn_xl on both production
+    meshes; returns {(arch, shape): (record, roofline record)} and the
+    bcpnn_xl records by mesh."""
+    from repro_torch.launch import dryrun, dryrun_bcpnn, roofline
+
+    for arch, shape in TOOL_DECODE:
+        for m, rec in dryrun.run_cell(arch, shape).items():
+            with open(roofline.record_path(str(TOOL_DIR), arch, shape, m), "w") as f:
+                json.dump(rec, f)
+    t0 = time.perf_counter()
+    out, _ = proc.communicate(timeout=900)
+    waited = time.perf_counter() - t0
+    print(out.strip())
+    check(proc.returncode == 0, f"13a: the background dry run exited {proc.returncode}")
+    cells = {}
+    for arch, shape, *cut in (*TOOL_DECODE, *TOOL_CUT):
+        tag = f"b{cut[0]}" if cut else ""
+        with open(roofline.record_path(str(TOOL_DIR), arch, shape, "card", tag)) as f:
+            rec = json.load(f)
+        roof = roofline.analyze_cell(str(TOOL_DIR), arch, shape, tag=tag, mesh="card")
+        check(rec["fits_one_card"],
+              f"13a: {arch} {shape} at batch {rec['global_batch']} does not fit one card "
+              f"({rec['peak_bytes']} bytes)")
+        print(f"13a {arch} {shape} batch {rec['global_batch']}"
+              + (f" (cut from {dryrun.SHAPES[shape].global_batch})" if cut else "")
+              + f": counted on meta {rec['count_s']} s (depths {rec['counted_depths']}): "
+              f"flops {rec['flops']} argument bytes {rec['argument_size_in_bytes']} peak bytes "
+              f"{rec['peak_bytes']} fits_one_card {rec['fits_one_card']}; roofline at H100 SXM "
+              f"700 W peaks: compute {roof['compute_term_s']:.6f} s memory "
+              f"{roof['memory_term_s']:.6f} s collective {roof['collective_term_s']} s, bound "
+              f"{roof['bound_step_s']:.6f} s ({roof['dominant']})")
+        cells[(arch, shape)] = (rec, roof)
+    xl = {}
+    for mp in (False, True):
+        rec = dryrun_bcpnn.run(mp, write=False)
+        xl[rec["mesh"]] = rec
+        print("13a bcpnn_xl " + json.dumps({k: rec[k] for k in (
+            "mesh", "chips", "rank_rows", "rank_hidden_units", "flops_per_device",
+            "bytes_per_device", "allreduce_bytes_per_rank", "model_flops", "compute_term_s",
+            "memory_term_s", "collective_term_s", "useful_flop_ratio")}))
+    print(f"13a waited {waited:.2f} s for the background counts")
+    return cells, xl, waited
+
+
+def _card_batch(torch, cfg, shape, dev, gen):
+    """A random batch of ``shape``'s step on the card (batch_specs' shapes)."""
+    from repro_torch.configs import batch_specs
+
+    out = {}
+    for k, spec in batch_specs(cfg, shape).items():
+        if spec.dtype == torch.int32:
+            out[k] = torch.randint(0, cfg.vocab_size, tuple(spec.shape), generator=gen,
+                                   device=dev, dtype=torch.int32)
+        else:
+            out[k] = torch.randn(tuple(spec.shape), generator=gen, device=dev).to(spec.dtype)
+    return out
+
+
+def _card_step(torch, cfg, shape, dev):
+    """(step, args, model) of one cell's step on the card, the arguments
+    ``dryrun.build_cell`` counts: a train step over f32 masters (the
+    module's own weights freed, as the dry run holds none), a prefill, or a
+    decode step over ``decode_specs``' cache."""
+    from repro_torch.configs import decode_specs
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if shape.kind == "train":
+        model = build_model(cfg, dev, param_dtype=torch.float32).init(gen)
+        params = model.params()
+        model.to("meta")
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.1)
+        batch = _card_batch(torch, cfg, shape, dev, gen)
+        return model.make_train_step(opt), (params, opt.init(params), batch), model
+    model = build_model(cfg, dev).init(gen)
+    if shape.kind == "prefill":
+        batch = _card_batch(torch, cfg, shape, dev, gen)
+
+        def prefill(b):
+            with torch.inference_mode():
+                return model.prefill(b)
+
+        return prefill, (batch,), model
+    spec = decode_specs(cfg, shape, model)
+    cache = {k: torch.zeros(tuple(v.shape), dtype=v.dtype, device=dev) for k, v in spec["cache"].items()}
+    token = torch.randint(0, cfg.vocab_size, tuple(spec["token"].shape), generator=gen, device=dev,
+                          dtype=torch.int32)
+    cur = torch.tensor(shape.seq_len - 1, dtype=torch.int32, device=dev)  # the last position
+
+    def decode(c, t, n):
+        with torch.inference_mode():
+            return model.decode_step(c, t, n)
+
+    return decode, (cache, token, cur), model
+
+
+def card_count(torch, cfg, shape, dev, depths):
+    """The card's FlopCounterMode count of the cell's step, at full depth
+    or at the dry run's depths extrapolated as the dry run extrapolates."""
+    import dataclasses
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+
+    def one(c):
+        step, args, _ = _card_step(torch, c, shape, dev)
+        with FlopCounterMode(display=False) as fc:
+            step(*args)
+        torch.cuda.synchronize()
+        return {"flops": int(fc.get_total_flops())}
+
+    dryrun.register_out_dtype_products()
+    if depths is None:
+        return one(cfg)["flops"]
+    counts = [one(dataclasses.replace(cfg, **d)) for d in depths]
+    return dryrun._extrapolate_depth(cfg, depths, counts, "flops")
+
+
+def roofline_on_card(torch, card, dev, cells):
+    """13b: each cell's step on the card against its dry run: (i) the
+    card's FlopCounterMode count equals the dry run's, (ii) the card's peak
+    (above what was allocated before) is at least the arguments' bytes and
+    at most TOOL_MEM_SLACK x the dry run's peak, (iii) the step's device
+    time (CUDA events, after a warm-up) is at least bound_step_s /
+    TOOL_SHARE_MAX (a decode step the median of TOOL_DECODE_REPS after a
+    warm-up; a train or prefill step, seconds long, one call after (i)'s
+    counts ran its kernels).  Events measure the device's timeline,
+    idle gaps included: an eager step that the host holds back reads as
+    long as its enqueue.  Returns the report and gemma3-1b's model (13d)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import SHAPES, get_config
+
+    report, gemma = {}, None
+    for arch, shape_name, *cut in (*TOOL_DECODE, *TOOL_CUT):
+        rec, roof = cells[(arch, shape_name)]
+        cfg = get_config(arch)
+        shape = dataclasses.replace(SHAPES[shape_name], global_batch=rec["global_batch"])
+        # (i) first: it runs the step's kernels (a decode step whole, a
+        # train or prefill step at the dry run's depths), the warm-up of
+        # a train or prefill step, whose one timed call takes seconds.
+        flops = card_count(torch, cfg, shape, dev, rec["counted_depths"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        step, args, model = _card_step(torch, cfg, shape, dev)
+        reps = TOOL_DECODE_REPS if shape.kind == "decode" else 1
+        if shape.kind == "decode":
+            step(*args)  # warm-up
+        times = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(*args)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        ms = statistics.median(times)
+        if arch == "gemma3-1b" and shape.kind == "decode":
+            gemma = model  # 13d serves it
+        del step, args, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        bound = roof["bound_step_s"]
+        share = bound / (ms / 1e3)
+        r = dict(batch=shape.global_batch, cut=bool(cut), card_flops=flops, dryrun_flops=rec["flops"],
+                 card_peak_bytes=peak, dryrun_peak_bytes=rec["peak_bytes"],
+                 argument_bytes=rec["argument_size_in_bytes"], step_ms=ms,
+                 bound_step_s=bound, bound_by=roof["dominant"], share=share,
+                 compute_term_s=roof["compute_term_s"], memory_term_s=roof["memory_term_s"],
+                 model_flops=roof["model_flops"], useful_flop_ratio=roof.get("useful_flop_ratio"))
+        print(f"13b [{card}] {arch} {shape_name} batch {shape.global_batch}: step {ms:.4f} ms "
+              f"(device, CUDA events, median of {reps}), bound {bound * 1e3:.4f} ms "
+              f"({roof['dominant']}), share {share:.4f}; FlopCounterMode card {flops} vs meta "
+              f"{rec['flops']}; peak {peak} bytes vs dry run {rec['peak_bytes']} "
+              f"(arguments {rec['argument_size_in_bytes']})")
+        check(flops == rec["flops"], f"13b (i): {arch} {shape_name}: card counts {flops} FLOPs, "
+              f"the dry run {rec['flops']}")
+        check(rec["argument_size_in_bytes"] <= peak <= TOOL_MEM_SLACK * rec["peak_bytes"],
+              f"13b (ii): {arch} {shape_name}: card peak {peak} outside [{rec['argument_size_in_bytes']}, "
+              f"{TOOL_MEM_SLACK} x {rec['peak_bytes']}]")
+        check(share <= TOOL_SHARE_MAX, f"13b (iii): {arch} {shape_name}: share {share:.4f} of the bound")
+        report[f"{arch}/{shape_name}"] = r
+    return report, gemma
+
+
+def xl_state_rule(torch, ops, ref, layer, st, x, mask, got, want):
+    """13c's rule for the state of a kernel step against a plain one from
+    the same state and rows.  The two forwards differ by phase 3's GEMM
+    tolerance in s; over 55,296 inputs s spans hundreds and the gain is 4,
+    so where a hypercolumn's top units lie close, a_j moves by more than
+    the update's tolerance (a near-tie).  The step's means carry that
+    into the traces through the EWMA (lam x the means' difference) and
+    into w and b through the logs (the traces' relative difference).  So
+    each trace is held within that carry plus the update's tolerance of
+    phase 3 (1e-4, 1e-5), and w and b within the carried log differences
+    (x 1.5, the first-order terms) plus the same tolerance.  Returns (max
+    abs, max rel, the (row, HCU) groups of a_j moved by more than 1e-3)."""
+    from repro_torch.core.learning import full_f32_matmul
+
+    s = layer.spec
+    rows = x.shape[0]
+    fwd = [
+        fn_sm(fn_mm(x, st.w, st.b, mask=mask) * s.gain, s.post.n_hcu, s.post.n_mcu)
+        for fn_mm, fn_sm in ((ops.masked_matmul, ops.hcu_softmax),
+                             (ref.masked_matmul, ref.hcu_softmax))]
+    moved = int(((fwd[0] - fwd[1]).abs().view(rows, s.post.n_hcu, s.post.n_mcu).amax(-1)
+                 > 1e-3).sum())
+    mj = [a.mean(0) for a in fwd]
+    mij = [full_f32_matmul(x.T, a) / rows for a in fwd]
+    carry_cj = s.lam * (mj[0] - mj[1]).abs()
+    carry_cij = s.lam * (mij[0] - mij[1]).abs()
+    tol = (1e-4, 1e-5)
+    worst_abs = worst_rel = 0.0
+    rel_cj = carry_cj / want.marginals.cj.clamp_min(STREAM_EPS)
+    rel_cij = carry_cij / want.marginals.cij.clamp_min(STREAM_EPS)
+    for g, w, carry in ((got.marginals.cj, want.marginals.cj, carry_cj),
+                        (got.marginals.cij, want.marginals.cij, carry_cij),
+                        (got.w, want.w, 1.5 * (rel_cij + rel_cj[None, :]) * mask),
+                        (got.b, want.b, 1.5 * s.k_b * rel_cj)):
+        diff = (g - w).abs()
+        limit = carry + tol[0] * w.abs() + tol[1] * float(w.abs().max())
+        check(bool(torch.isfinite(g).all()), "13c: the kernel step's state is not finite")
+        check(bool((diff <= limit).all()), f"13c: state error {float(diff.max())} beyond its rule")
+        worst_abs = max(worst_abs, float(diff.max()))
+        big = w.abs() >= 1e-3 * float(w.abs().max())
+        worst_rel = max(worst_rel, float((diff[big] / w.abs()[big]).max()))
+    return worst_abs, worst_rel, moved
+
+
+def xl_rank(torch, ops, ref, card, dev, xl, records, backend="nccl"):
+    """13c: one rank of bcpnn_xl on the card, through the kernels, at the
+    pod and the multipod rank's rows: one shard_map hidden step through a
+    one-rank NCCL group against the same step with use_kernels=False (the
+    update's tolerance of phase 3 and what the two forwards' near-ties carry,
+    ``xl_state_rule``), timed against the dry run's per-device
+    terms, then each kernel of the step at its shape against its plain
+    version (phase 3's rules), timed beside its bound and the library call;
+    the cases join the kernels' records.  Returns its launch counts by path
+    and the report."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import DataParallelTrainer
+    from repro_torch.kernels import bcpnn_update as bk
+    from repro_torch.kernels import masked_matmul as mk
+    from repro_torch.launch.dryrun_bcpnn import xl_layer
+    from repro_torch.launch.mesh import make_host_mesh
+
+    by_name = {r["name"]: r for r in records}
+    launches, report = {}, {}
+    flush = torch.ones(16 << 20, dtype=torch.float32, device=dev)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        tr = DataParallelTrainer(make_host_mesh(device_type=dev.type), "shard_map")
+        layer = xl_layer(XL_N_F, XL_RANK_HCU, XL_MCU)
+        plain_layer = xl_layer(XL_N_F, XL_RANK_HCU, XL_MCU, use_kernels=False)
+        f, h = XL_N_F, XL_RANK_HCU * XL_MCU
+        gen = torch.Generator(device=dev).manual_seed(0)
+        st = layer.init(gen)
+        mask = st.plast.unit_mask(layer.spec.pre, layer.spec.post).contiguous()
+        for mesh_name, rows in XL_RANKS:
+            u = torch.rand(rows, f // 2, generator=gen, device=dev)
+            x = torch.stack([u, 1 - u], -1).reshape(rows, f)  # complementary-coded
+            step, plain_step = tr.hidden_step(layer), tr.hidden_step(plain_layer)
+            ops.reset_launches()
+            got = step(st, x)
+            torch.cuda.synchronize()
+            launches[f"xl_rank_{mesh_name}"] = ops.launch_counts()
+            want = plain_step(st, x)
+            max_abs, max_rel, moved = xl_state_rule(torch, ops, ref, layer, st, x, mask, got, want)
+            ms = event_ms(torch, lambda: step(st, x), reps=XL_REPS)
+            plain_ms = event_ms(torch, lambda: plain_step(st, x), reps=XL_REPS)
+            d = xl[mesh_name]
+            local_bound = max(d["compute_term_s"], d["memory_term_s"])
+            share = local_bound / (ms / 1e3)
+            print(f"13c [{card}] bcpnn_xl {mesh_name} rank ({rows} rows, {f} x {h}): step "
+                  f"{ms:.3f} ms (events) plain {plain_ms:.3f} ms; state vs use_kernels=False "
+                  f"max_abs {max_abs:.3e} max_rel {max_rel:.3e} ({moved} (row, HCU) groups of "
+                  f"a_j moved by more than 1e-3 between the forwards); launches "
+                  f"{json.dumps(launches[f'xl_rank_{mesh_name}'])}; dry run a device: compute "
+                  f"{d['compute_term_s'] * 1e3:.3f} ms memory {d['memory_term_s'] * 1e3:.3f} ms "
+                  f"collective {d['collective_term_s'] * 1e3:.3f} ms; share of max(compute, memory) "
+                  f"{share:.4f}")
+            check(share <= TOOL_SHARE_MAX, f"13c: {mesh_name} rank step at {share:.4f} of its bound")
+            # Each kernel of the step, at its shape.
+            s = layer.spec
+            aj = ops.hcu_softmax(ops.masked_matmul(x, st.w, st.b, mask=mask) * s.gain,
+                                 s.post.n_hcu, s.post.n_mcu)
+            mi, mj, mij = x.mean(0), aj.mean(0), (x.T @ aj) / rows
+            sc = 4 * torch.randn(rows, h, generator=gen, device=dev)
+            m = st.marginals
+            p = mk.plan(rows, f, h, mk.n_sm(dev))
+            mp = bk.means_plan(f, h, mk.n_sm(dev))
+            cases = (
+                ("masked_matmul", f"xl {mesh_name} rank x({rows},{f}) @ w({f},{h})*mask + b "
+                 f"[plan {p.config} CL={p.cl} {p.ctas} CTAs]",
+                 lambda: ops.masked_matmul(x, st.w, st.b, mask=mask),
+                 lambda: ref.masked_matmul(x, st.w, st.b, mask=mask),
+                 lambda: torch.matmul(x, st.w * mask) + st.b, GEMM_TOL,
+                 4 * (rows * f + 2 * f * h + h + rows * h), 2 * rows * f * h + f * h),
+                ("hcu_softmax", f"xl {mesh_name} rank s({rows},{XL_RANK_HCU}x{XL_MCU})",
+                 lambda: ops.hcu_softmax(sc, XL_RANK_HCU, XL_MCU),
+                 lambda: ref.hcu_softmax(sc, XL_RANK_HCU, XL_MCU),
+                 lambda: torch.softmax(sc.view(rows, XL_RANK_HCU, XL_MCU), -1), SOFTMAX_TOL,
+                 2 * 4 * rows * h, 5 * rows * h),
+                ("bcpnn_update", f"xl {mesh_name} rank means mi({f}) mj({h}) mij({f},{h}) masked "
+                 f"[plan TH={mp.th} TR={mp.tr} {mp.ctas} CTAs]",
+                 lambda: bk.bcpnn_update_means(mi, mj, mij, m.ci, m.cj, m.cij, s.lam, k_b=s.k_b,
+                                               mask=mask),
+                 lambda: ref.bcpnn_update_means(mi, mj, mij, m.ci, m.cj, m.cij, s.lam, k_b=s.k_b,
+                                                mask=mask),
+                 None, (1e-4, 1e-5), 4 * (5 * f * h + 3 * f + 4 * h), 7 * f * h),
+            )
+            for name, label, kernel, plain, library, tol, n_bytes, n_flops in cases:
+                g_, w_ = kernel(), plain()
+                g_ = g_ if isinstance(g_, tuple) else (g_,)
+                w_ = w_ if isinstance(w_, tuple) else (w_,)
+                torch.cuda.synchronize()
+                k_abs, k_rel = compare(torch, g_, w_, tol)
+                del g_, w_
+                k_ms = device_ms(torch, kernel, flush, reps=XL_REPS)
+                k_plain = device_ms(torch, plain, flush, reps=XL_REPS)
+                k_lib = device_ms(torch, library, flush, reps=XL_REPS) if library else None
+                bms, bound_by = bound_ms(n_bytes, n_flops)
+                print(f"check {name} {label}: max_abs_err={k_abs:.3e} max_rel_err={k_rel:.3e} "
+                      f"(tol {tol}) kernel_ms={k_ms:.5f} versus_ms={k_plain:.5f} library_ms="
+                      f"{'null' if k_lib is None else f'{k_lib:.5f}'} bound_ms={bms:.5f} ({bound_by})")
+                check(bms / k_ms <= TOOL_SHARE_MAX, f"13c: {name} at {bms / k_ms:.4f} of its bound")
+                by_name[name]["cases"].append(dict(
+                    ms=k_ms, plain_ms=k_plain, bound_ms=bms, bound_by=bound_by, library_ms=k_lib,
+                    at=label, max_abs_err=k_abs, max_rel_err=k_rel))
+                by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], k_abs)
+                torch.cuda.synchronize()
+                gc.collect()
+            report[mesh_name] = dict(rows=rows, step_ms=ms, plain_step_ms=plain_ms,
+                                     max_abs_err=max_abs, max_rel_err=max_rel, share=share,
+                                     moved_groups=moved,
+                                     dryrun_terms_ms={k: d[k] * 1e3 for k in (
+                                         "compute_term_s", "memory_term_s", "collective_term_s")})
+            del got, want, x, u, aj, mij, sc
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    for path, counts in launches.items():
+        check(counts["masked_matmul"] == counts["hcu_softmax"] == 1
+              and counts["bcpnn_update"] == counts["bcpnn_update.means"] == 1,
+              f"13c: {path} launched {counts}")
+    return launches, report
+
+
+def session_check(torch, card, dev, model):
+    """13d: the deprecated ServeSession on gemma3-1b at full width (the
+    model of 13b's decode cell, bf16), two requests of SESSION_NEW tokens:
+    its tokens equal DecodePlan's up to the first near-tie of the session's
+    own logits (phase 7's rule), and it warns."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.runtime import Request, ServeSession, ServiceConfig, serve_model
+
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=i, prompt=rng.integers(0, model.cfg.vocab_size, n).astype(np.int32),
+                    max_new_tokens=SESSION_NEW) for i, n in enumerate(SESSION_PROMPTS)]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        session = ServeSession(model, max_batch=2, max_seq=SESSION_MAX_SEQ)
+    check(any(issubclass(w.category, DeprecationWarning) for w in caught),
+          "13d: ServeSession did not warn")
+    t0 = time.perf_counter()
+    done = {c.rid: c for c in session.generate(reqs)}
+    session_s = time.perf_counter() - t0
+    plan = {c.rid: c for c in serve_model(model, ServiceConfig(
+        max_batch=2, max_seq=SESSION_MAX_SEQ)).generate(reqs)}
+    report = {}
+    for r in reqs:
+        toks = done[r.rid].tokens
+        seq = torch.as_tensor(np.concatenate([r.prompt, toks[:-1]])[None], device=dev)
+        with torch.inference_mode():
+            logits = model.forward({"tokens": seq})[0][0, len(r.prompt) - 1:]
+        tie = first_tie(logits)
+        equal = bool(np.array_equal(toks[:tie], plan[r.rid].tokens[:tie]))
+        differ = np.nonzero(toks != plan[r.rid].tokens)[0]
+        same = int(differ[0]) if len(differ) else len(toks)
+        report[r.rid] = dict(tokens=toks.tolist(), plan=plan[r.rid].tokens.tolist(),
+                             first_tie=tie, equal_to_tie=equal, equal_steps=same)
+        print(f"13d [{card}] ServeSession request {r.rid} (prompt {len(r.prompt)}): "
+              f"{toks.tolist()} vs DecodePlan {plan[r.rid].tokens.tolist()}, first near-tie "
+              f"(NEAR_TIE {NEAR_TIE}) at step {tie}; the first {same} of {len(toks)} tokens equal")
+        check(equal, f"13d: request {r.rid}: ServeSession and DecodePlan differ before step {tie}")
+    report["session_s"] = session_s
+    return report
+
+
+def legacy_fit_check(torch, ops, core, data, policy, card):
+    """13e: the deprecated Network.fit(engine="scan") on phase 4's
+    configuration cut to 1 + 1 epochs, on the card: its states, predict and
+    evaluate equal compile(ExecutionConfig(engine="scan")).fit's on the
+    same seed bit for bit.  Returns its launch counts and the report."""
+    import warnings
+
+    legacy, split, fit_kw, _ = listing1(core, data, policy)
+    x, y, xt, yt = split
+    kw = dict(fit_kw, epochs_hidden=1, epochs_readout=1)
+    ops.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        legacy.fit((x, y), engine="scan", **kw)
+    check(any(issubclass(w.category, DeprecationWarning) for w in caught),
+          "13e: Network.fit did not warn")
+    acc = legacy.evaluate((xt, yt))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    net, *_ = listing1(core, data, policy)
+    compiled = net.compile(core.ExecutionConfig(engine="scan"))
+    compiled.fit((x, y), **kw)
+    want = compiled.state.layers
+    same = all(states_equal(torch, a, b) for a, b in zip(legacy.states, want))
+    same_scores = bool(torch.equal(legacy.predict(xt), compiled.predict(xt)))
+    c_acc = compiled.evaluate((xt, yt))
+    print(f"13e [{card}] Network.fit(engine='scan') 1 + 1 epochs: accuracy {acc:.4f} "
+          f"(compiled {c_acc:.4f}), states equal {same}, scores equal {same_scores}; launches "
+          f"{json.dumps(counts)}")
+    check(same and same_scores and acc == c_acc, "13e: the legacy fit differs from the compiled fit")
+    return {"legacy_fit": counts}, dict(accuracy=acc, compiled_accuracy=c_acc)
+
+
+def tooling(torch, ops, ref, core, data, policy, card, dev, records, proc):
+    """Phase 13: 13a the dry runs, 13b the roofline against real steps, 13c
+    one bcpnn_xl rank through the kernels, 13d ServeSession, 13e the legacy
+    fit."""
+    import gc
+
+    report = {}
+    t0 = time.perf_counter()
+    cells, xl, waited = tooling_dryrun(proc)
+    report["13a"] = dict(wall_s=time.perf_counter() - t0, waited_s=waited, xl=xl,
+                         cells={f"{a}/{s}": rec for (a, s), (rec, _) in cells.items()})
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    report["13b"], gemma = roofline_on_card(torch, card, dev, cells)
+    report["13d"] = session_check(torch, card, dev, gemma)
+    torch.cuda.synchronize()
+    lm_counts = ops.launch_counts()
+    check(not any(lm_counts.values()), f"13b/13d: the LM paths launched {lm_counts}")
+    del gemma
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["13b_13d_wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches, report["13c"] = xl_rank(torch, ops, ref, card, dev, xl, records)
+    report["13c_wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    legacy_launches, report["13e"] = legacy_fit_check(torch, ops, core, data, policy, card)
+    launches.update(legacy_launches)
+    report["13e_wall_s"] = time.perf_counter() - t0
+    return launches, report
+
+
 def main() -> int:
     import torch
 
@@ -5020,7 +5573,24 @@ def main() -> int:
     dp_report["wall_s"] = time.perf_counter() - t0
     print(f"phase 9 (distribution) wall: {dp_report['wall_s']:.2f} s")
 
-    # Phase 10: the MoE family with MLA attention at full width.
+    # Phase 13a's two slow dry-run counts run in a niced background
+    # process from here on (CPU only, no card visible to it).
+    dry_proc = tooling_background()
+    try:
+        return _later_phases(torch, ops, ref, core, data, policy, card, dev, records, launches,
+                             runs, stage_s, cliffs, per_batch, stages, served, fabric_report,
+                             dec_report, guard_report, dp_report, dry_proc)
+    finally:
+        if dry_proc.poll() is None:
+            dry_proc.kill()
+            dry_proc.wait()
+
+
+def _later_phases(torch, ops, ref, core, data, policy, card, dev, records, launches, runs,
+                  stage_s, cliffs, per_batch, stages, served, fabric_report, dec_report,
+                  guard_report, dp_report, dry_proc) -> int:
+    """Phases 10-14 of ``main``."""
+    # Phase 10: the MoE family with MLA attention.
     t0 = time.perf_counter()
     moe_launches, moe_report = moe_decoders(torch, ops, card, dev)
     launches.update(moe_launches)
@@ -5041,7 +5611,17 @@ def main() -> int:
     train_report["wall_s"] = time.perf_counter() - t0
     print(f"phase 12 (the enc-dec family and training) wall: {train_report['wall_s']:.2f} s")
 
-    # Phase 13: the records.
+    # Phase 13: the tooling slice: the dry run and the roofline against
+    # real steps, a bcpnn_xl rank through the kernels, the deprecated
+    # surfaces.
+    t0 = time.perf_counter()
+    tool_launches, tool_report = tooling(torch, ops, ref, core, data, policy, card, dev, records,
+                                         dry_proc)
+    launches.update(tool_launches)
+    tool_report["wall_s"] = time.perf_counter() - t0
+    print(f"phase 13 (the tooling slice) wall: {tool_report['wall_s']:.2f} s")
+
+    # Phase 14: the records.
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in launches.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -5071,7 +5651,8 @@ def main() -> int:
         "moe_decoders": moe_report,
         "ssm_decoders": ssm_report,
         "encdec_train": train_report,
-    }))
+        "tooling": tool_report,
+    }, default=str))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -256,7 +256,8 @@ def resolve_device(device) -> torch.device:
 class CompiledNetwork:
     """A Network bound to one device and one ExecutionPlan, owning its state."""
 
-    def __init__(self, network, config: Optional[ExecutionConfig] = None):
+    def __init__(self, network, config: Optional[ExecutionConfig] = None,
+                 rng: Optional[np.random.Generator] = None):
         self.network = network
         self.config = config if config is not None else ExecutionConfig()
         self.device = resolve_device(self.config.device)
@@ -280,7 +281,9 @@ class CompiledNetwork:
         if self.config.trainer is not None:
             self.plan = self.config.trainer.decorate(self.plan)
         self.activations = store_for(self.layers, self.config, self.device)
-        self._rng = np.random.default_rng(network.seed)
+        # The epoch shuffles' stream; the deprecated Network.fit shares the
+        # Network's own, so consecutive legacy fits draw as one stream.
+        self._rng = rng if rng is not None else np.random.default_rng(network.seed)
         # The hybrid readout's optimizer and epoch runner per (n_hidden,
         # n_classes, lr), and the moments a partial_fit resumes.
         self._sgd_cache: dict = {}

@@ -19,11 +19,18 @@ A *hybrid* readout (``fit(readout="sgd")``) replaces the BCPNN readout
 phase with AdamW cross-entropy training of a linear softmax head on the
 frozen hidden codes (:func:`sgd_readout_setup`), the configuration the
 paper reports at 97.5%+.
+
+The legacy imperative surface (``Network.fit(engine=..., trainer=...)``,
+``Network.predict/evaluate``) survives as a deprecated shim: ``fit``
+compiles on the fly (on the card unless ``device="cpu"``), shares this
+Network's shuffle stream, and copies the learned states and the SGD head
+back, bit for bit the explicit compile path's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional
+import warnings
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,11 +101,18 @@ def sgd_readout_setup(
 class Network:
     """A sequential BCPNN network (hidden plasticity layers + one readout)."""
 
-    def __init__(self, seed: int = 0):
+    def __init__(self, seed: int = 0, precision=None):
         self.layers: List[Any] = []
         self.states: List[LayerState] = []
         self.seed = seed
+        self.precision = precision  # Optional PrecisionPolicy, carried as the reference carries it
+        self._rng = np.random.default_rng(seed)
         self._built = False
+        # The deprecated shim's state: the SGD head, the cached forward and
+        # the device of the last legacy fit.
+        self._sgd_readout: Optional[dict] = None
+        self._fwd: Optional[Callable] = None
+        self._device = None
 
     def add(self, layer) -> "Network":
         if self._built:
@@ -136,3 +150,72 @@ class Network:
     @property
     def readout_layer(self) -> Optional[DenseLayer]:
         return self.layers[-1] if isinstance(self.layers[-1], DenseLayer) else None
+
+    # ---------------------------------------------------- legacy (deprecated)
+    def predict(self, x, batch_size: int = 1024) -> torch.Tensor:
+        """Class scores for a batch of inputs through the whole stack, on
+        the last legacy fit's device (the card before any).  The forward
+        is built once and takes the states and the SGD head as arguments."""
+        from repro_torch.core.compiled import build_forward, resolve_device
+
+        self.build()
+        dev = resolve_device(self._device or "cuda")
+        if self._fwd is None:
+            self._fwd = build_forward(self.layers)
+        states = tuple(s.to(dev) for s in self.states)
+        head = self._sgd_readout
+        if head is not None:
+            head = {k: v.to(dev) for k, v in head.items()}
+        outs = []
+        for i in range(0, x.shape[0], batch_size):
+            xb = torch.as_tensor(np.asarray(x[i:i + batch_size]), dtype=torch.float32, device=dev)
+            outs.append(self._fwd(states, head, xb))
+        return torch.cat(outs)
+
+    def fit(
+        self,
+        dataset: Tuple[np.ndarray, np.ndarray],
+        epochs_hidden: int = 10,
+        epochs_readout: int = 10,
+        batch_size: int = 128,
+        readout: str = "bcpnn",
+        readout_lr: float = 1e-3,
+        shuffle: bool = True,
+        verbose: bool = False,
+        trainer=None,
+        engine: str = "scan",
+        device="cuda",
+    ) -> FitResult:
+        """DEPRECATED shim over the compile step.
+
+        ``self.compile(ExecutionConfig(engine=engine, trainer=trainer,
+        device=device)).fit(...)`` sharing this Network's shuffle stream,
+        with the learned states and the SGD head copied back so ``states``
+        / ``predict`` / ``evaluate`` keep working."""
+        warnings.warn(
+            "Network.fit(engine=..., trainer=...) is deprecated; use "
+            "network.compile(ExecutionConfig(engine=..., trainer=...)).fit(...)",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        from repro_torch.core.compiled import CompiledNetwork, ExecutionConfig
+
+        config = ExecutionConfig(engine=engine, trainer=trainer, device=device)
+        self.build()
+        compiled = CompiledNetwork(self, config, rng=self._rng)
+        result = compiled.fit(
+            dataset, epochs_hidden=epochs_hidden, epochs_readout=epochs_readout,
+            batch_size=batch_size, readout=readout, readout_lr=readout_lr,
+            shuffle=shuffle, verbose=verbose,
+        )
+        self.states = list(compiled.state.layers)
+        self._sgd_readout = compiled.state.readout
+        self._device = compiled.device
+        return result
+
+    def evaluate(self, dataset: Tuple[np.ndarray, np.ndarray], batch_size: int = 1024) -> float:
+        """Classification accuracy (argmax over output units)."""
+        x, y = dataset
+        scores = self.predict(x, batch_size=batch_size)
+        pred = scores.argmax(dim=-1).cpu().numpy()
+        return float(np.mean(pred == np.asarray(y)))

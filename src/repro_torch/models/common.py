@@ -44,8 +44,10 @@ def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     card ``torch.mm``/``torch.bmm`` with ``out_dtype=torch.float32``
     (cuBLAS writes its f32 accumulator; the operands stay bf16 and are read
     once), on the CPU the product of the operands widened to f32 (exact: a
-    bf16 value is an f32 value, and their products are exact in f32)."""
-    if not a.is_cuda:
+    bf16 value is an f32 value, and their products are exact in f32).  The
+    dry run's ``meta`` tensors take the card's path, so it counts the
+    card's bytes."""
+    if a.device.type == "cpu":
         return torch.matmul(a.float(), b.float())
     if b.dim() == 2:
         out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)

@@ -117,6 +117,15 @@ def flat_key(name: str) -> Tuple[str, Optional[int]]:
     return "/".join(parts), None
 
 
+def model_device(device) -> torch.device:
+    """The device a model is built on: ``"meta"`` for the dry run
+    (``launch/dryrun.py``: shapes, dtypes and counts, nothing allocated,
+    nothing initialised), else ``resolve_device``'s card or CPU."""
+    if torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross entropy in f32; labels == -1 are masked.
     ``cfg.sharded_xent`` is accepted and changes nothing: the reference's
@@ -297,7 +306,7 @@ class CausalLM(_LM):
         if cfg.family not in FAMILIES:
             raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a decoder-only family")
         self.cfg = cfg
-        self.device = resolve_device(device)  # the card unless the caller asks for the CPU
+        self.device = model_device(device)  # the card unless the caller asks for the CPU or meta
         dt = param_dtype or cdtype(cfg)
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, self.device, dt)
         self.final_norm = Norm(cfg.norm, cfg.d_model, self.device)
@@ -585,7 +594,7 @@ class EncDecLM(_LM):
         if cfg.family != "encdec":
             raise ValueError(f"{cfg.name}: family {cfg.family!r} is not the enc-dec family")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = model_device(device)
         dt = param_dtype or cdtype(cfg)
         d = cfg.d_model
         self.embed = Embedding(cfg.vocab_size, d, self.device, dt)
@@ -715,7 +724,8 @@ class EncDecLM(_LM):
 def build_model(cfg, device="cuda", param_dtype: Optional[torch.dtype] = None):
     """The model for ``cfg`` (``EncDecLM`` for the enc-dec family, else
     ``CausalLM``) on ``device`` (the card by default; raises when there is
-    none, as ``ExecutionConfig`` does), its parameters allocated but not
+    none, as ``ExecutionConfig`` does; ``"meta"`` for the dry run, whose
+    weights have shapes and no values), its parameters allocated but not
     initialised: call ``init(generator)`` or load weights.  The weights are
     held in the compute dtype (serving), or in ``param_dtype`` (training:
     ``torch.float32``, the reference's masters), and then require

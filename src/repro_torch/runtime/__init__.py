@@ -85,6 +85,7 @@ from repro_torch.runtime.continual import (
     Feedback,
 )
 from repro_torch.runtime.train_loop import TrainLoopConfig, TrainLoopResult, train_loop
+from repro_torch.runtime.serve_loop import ServeSession
 from repro_torch.runtime.router import (
     DeadlineExceeded,
     NoEngineAvailable,
@@ -113,7 +114,7 @@ __all__ = [
     "TenantQueueFull", "DeadlineExceeded", "NoEngineAvailable",
     "SERVE_PLANS", "BatchedPlan", "InferenceService", "ServePlan", "ServiceConfig",
     "StreamingPlan", "DecodePlan", "DecodeSession", "Request", "Completion",
-    "pad_cache_like", "serve_model", "serve_fleet",
+    "pad_cache_like", "serve_model", "serve_fleet", "ServeSession",
     "TrainLoopConfig", "TrainLoopResult", "train_loop",
     # The trace module's DriftDetected *event* is not re-exported: the
     # continual tier's exception keeps that name here.

@@ -953,6 +953,43 @@ def test_trainer_steps_at_world_size_1_on_card(card):
 
 
 @pytest.mark.cuda
+def test_xl_rank_step_with_256_lane_hypercolumns_on_card(card):
+    """One rank of ``bcpnn_xl`` cut in width (``launch/dryrun_bcpnn.py``):
+    hypercolumns 256 MCUs wide, dense receptive fields, gain 4, one
+    shard_map hidden step through a one-rank NCCL group with the kernels
+    against the same step with ``use_kernels=False`` on the card."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import DataParallelTrainer
+    from repro_torch.launch.dryrun_bcpnn import xl_layer
+    from repro_torch.launch.mesh import make_host_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        tr = DataParallelTrainer(make_host_mesh(), "shard_map")
+        n_f, n_hcu, rows = 2048, 4, 256
+        kern, plain = xl_layer(n_f, n_hcu, 256), xl_layer(n_f, n_hcu, 256, use_kernels=False)
+        st = kern.init(torch.Generator(device=card).manual_seed(0))
+        x = torch.rand(rows, n_f, generator=torch.Generator(device=card).manual_seed(1),
+                       device=card)
+        ops.reset_launches()
+        got = tr.hidden_step(kern)(st, x)
+        counts = ops.launch_counts()
+        assert (counts["masked_matmul"], counts["hcu_softmax"], counts["bcpnn_update"],
+                counts["bcpnn_update.means"]) == (1, 1, 1, 1)
+        want = tr.hidden_step(plain)(st, x)
+        torch.testing.assert_close(got.w, want.w, rtol=2e-4, atol=2e-5)
+        torch.testing.assert_close(got.marginals.cij, want.marginals.cij, rtol=2e-4, atol=1e-7)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v2-236b"])
 def test_moe_decode_step_on_card_matches_cpu_in_a_cuda_graph(card, arch):
     """The MoE family's smoke config (GQA or MLA attention, routed and

@@ -452,3 +452,88 @@ class TestAccuracy:
         acc_sharp = self._fit(e2e, gain=4.0, epochs=3, seed=seed)
         acc_flat = self._fit(e2e, gain=1.0, epochs=3, seed=seed)
         assert acc_sharp > acc_flat, (acc_sharp, acc_flat)
+
+
+# ------------------------------------------------ the deprecated surface
+def _legacy_fit(net, data, **kw):
+    ds, x, _, _ = data
+    with pytest.warns(DeprecationWarning, match="Network.fit"):
+        return net.fit((x, ds.y_train), device="cpu", **FIT_KW, **kw)
+
+
+def _net_flat(net):
+    from repro_torch.core.compiled import NetworkState
+
+    return flat_from_network_state(NetworkState(layers=tuple(net.states)))
+
+
+@pytest.mark.parametrize("readout", ["bcpnn", "sgd"])
+def test_legacy_fit_equals_the_compiled_fit(data, readout):
+    """``Network.fit(engine="scan")`` against ``compile(ExecutionConfig(
+    engine="scan")).fit`` on the same seed: states and head bit for bit."""
+    ds, x, xt, _ = data
+    legacy = _torch_net()
+    result = _legacy_fit(legacy, data, readout=readout)
+    compiled = _torch_net().compile(ExecutionConfig(engine="scan", device="cpu"))
+    compiled.fit((x, ds.y_train), readout=readout, **FIT_KW)
+    want = flat_from_network_state(compiled.state)
+    got = _net_flat(legacy)
+    assert sorted(got) == sorted(k for k in want if k.startswith("layers"))
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    if readout == "sgd":
+        for k in ("w", "b"):
+            assert torch.equal(legacy._sgd_readout[k], compiled.state.readout[k])
+    assert torch.equal(legacy.predict(xt), compiled.predict(xt))
+    assert legacy.evaluate((xt, ds.y_test)) == compiled.evaluate((xt, ds.y_test))
+    assert [h["phase"] for h in result.history][0] == "hidden0"
+
+
+def test_consecutive_legacy_fits_draw_one_shuffle_stream(data):
+    """Two legacy fits consume the Network's own shuffle stream in turn, as
+    the reference's shim does: the second differs from a fresh compile's."""
+    a, b = _torch_net(), _torch_net()
+    _legacy_fit(a, data)
+    _legacy_fit(a, data)
+    _legacy_fit(b, data)
+    compiled = _torch_net().compile(ExecutionConfig(engine="scan", device="cpu"))
+    compiled.state = compiled.state._replace(layers=tuple(b.states))
+    ds, x, _, _ = data
+    compiled.fit((x, ds.y_train), **FIT_KW)  # a fresh stream from the seed
+    fa, fc = _net_flat(a), flat_from_network_state(compiled.state)
+    assert any(not np.array_equal(fa[k], fc[k]) for k in fa)
+
+
+def test_legacy_fit_matches_the_reference_legacy_fit(data, jax_run):
+    """From the reference's initial states, the port's shim and the
+    reference's ``Network.fit`` end within the fit tolerance."""
+    ds, x, xt, _ = data
+    jnet = JNetwork(seed=0)
+    jnet.add(JPlastic(JUnitLayout(12, 2), JUnitLayout(*HIDDEN), **LAYER_KW))
+    jnet.add(JDense(JUnitLayout(*HIDDEN), jonehot(10), lam=0.05))
+    with pytest.warns(DeprecationWarning):
+        jnet.fit((x, ds.y_train), engine="scan", **FIT_KW)
+    net = _torch_net().build()
+    net.states = list(network_state_from_flat(jax_run["init"], net.layers).layers)
+    _legacy_fit(net, data)
+    want = _jflat(jnet.states)
+    got = _net_flat(net)
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], np.asarray(w, np.float32), rtol=FIT_RTOL,
+                                   atol=FIT_ATOL, err_msg=k)
+    np.testing.assert_allclose(net.predict(xt).numpy(), np.asarray(jnet.predict(xt)),
+                               rtol=FIT_RTOL, atol=FIT_ATOL)
+    assert net.evaluate((xt, ds.y_test)) == jnet.evaluate((xt, ds.y_test))
+
+
+def test_legacy_predict_runs_on_the_last_fits_device(data):
+    ds, _, xt, _ = data
+    net = Network(seed=0, precision=PrecisionPolicy.named("fp32"))
+    assert net.precision.fmt.is_identity  # carried, as the reference carries it
+    net.add(StructuralPlasticityLayer(UnitLayout(12, 2), UnitLayout(*HIDDEN), **LAYER_KW))
+    net.add(DenseLayer(UnitLayout(*HIDDEN), onehot_layout(10), lam=0.05))
+    _legacy_fit(net, data)
+    scores = net.predict(xt, batch_size=7)
+    assert scores.device.type == "cpu" and scores.shape == (len(xt), 10)
+    assert 0.0 <= net.evaluate((xt, ds.y_test), batch_size=7) <= 1.0
