@@ -3399,44 +3399,34 @@ def strict_decoder(torch, dev, card, cfg=None, layers=GUARD_DEC_LAYERS, label="8
 
 def profile_kernels(path_to_trace):
     """The CUDA kernels of a Chrome trace: the repository's by name (count
-    and summed device ms), every kernel's count and busy ms, and the
-    GUARD_GAPS longest gaps between consecutive kernels (the device idle,
-    waiting on the host), each with the host operator that filled most of
-    it."""
+    and summed device ms), every kernel's count, their busy ms (the union of
+    their intervals, so kernels that overlap count once) over the span from
+    the first kernel's start to the last one's end, the idle share of that
+    span, and its GUARD_GAPS longest idle gaps (the device waiting on the
+    host), each named by the host operator that fills it the longest.  The
+    arithmetic is the benchmark's (``bench/harness/trace.py``)."""
     import re
+
+    from bench.harness import trace as bench_trace
 
     with open(path_to_trace) as f:
         events = json.load(f)["traceEvents"]
-    kernels = sorted((e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"),
-                     key=lambda e: e["ts"])
+    kernels = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
     ours = {}
     for name in GUARD_KERNELS:
         pattern = re.compile(GUARD_KERNEL_RE.format(name=name))
         mine = [e for e in kernels if pattern.search(e["name"])]
         ours[name] = dict(count=len(mine), device_ms=sum(e["dur"] for e in mine) / 1e3)
-    host_ops = [e for e in events if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
-
-    def host_op_in(t0, t1):
-        """The host operator that overlaps [t0, t1] the longest, and by how
-        much (a numpy gather between operators shows as no operator)."""
-        best, name = 0.0, None
-        for e in host_ops:
-            overlap = min(t1, e["ts"] + e["dur"]) - max(t0, e["ts"])
-            if overlap > best:
-                best, name = overlap, e["name"]
-        return name, best
-
-    gaps = []
-    for a, b in zip(kernels, kernels[1:]):
-        t0 = a["ts"] + a["dur"]
-        gaps.append((b["ts"] - t0, t0, a["name"][:60], b["name"][:60]))
-    gaps.sort(reverse=True)
-    top = []
-    for gap, t0, after, before in gaps[:GUARD_GAPS]:
-        op, overlap = host_op_in(t0, t0 + gap)
-        top.append(dict(gap_us=gap, host_op=op, host_op_us=overlap, after=after, before=before))
-    span = (kernels[-1]["ts"] + kernels[-1]["dur"] - kernels[0]["ts"]) if kernels else 0.0
-    busy = sum(e["dur"] for e in kernels)
+    intervals = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in kernels]
+    lo = min((s for s, _ in intervals), default=0.0)
+    hi = max((e for _, e in intervals), default=0.0)
+    host = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
+            if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    idle = sorted(bench_trace.gaps(intervals, lo, hi), key=lambda g: g[0] - g[1])
+    top = [dict(gap_us=g1 - g0, host_op=next(iter(bench_trace.name_gaps([(g0, g1)], host))))
+           for g0, g1 in idle[:GUARD_GAPS]]
+    busy = bench_trace.busy(intervals, lo, hi)
+    span = hi - lo
     return dict(ours=ours, kernels=len(kernels), busy_ms=busy / 1e3, span_ms=span / 1e3,
                 idle_share=(1 - busy / span) if span else None, top_gaps_us=top)
 

@@ -16,7 +16,9 @@ launch; ``precision=PrecisionPolicy.named("fp32", state_format="bf16")``
 keeps the traces in bf16; ``precision="bf20"`` (any of bf14 ... bf28)
 rounds every algebraic stage of the datapath, the paper's FPGA study.
 ``fit(readout="sgd")`` trains the hybrid AdamW readout head on the frozen
-hidden codes; ``trace=TraceConfig()`` records ``train.<phase>`` spans on
+hidden codes; ``trace=TraceConfig()`` gives the network a tracer,
+``compiled.tracing()`` attaches one for a window, and either records the
+Listing 1 path's spans and counters (:mod:`repro_torch.runtime.trace`) on
 ``compiled.tracer``.  ``use_kernels=False`` runs the kernels' plain
 versions on the card (an explicit choice; None, the default, lets the
 device decide, and on the CPU every setting runs the plain versions: no
@@ -53,6 +55,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace_context
 from repro_torch.analysis.strict import counted, dispatch_guard
 from repro_torch.core.layers import DenseLayer, LayerState, StructuralPlasticityLayer
 from repro_torch.core.learning import full_f32_matmul
@@ -146,9 +149,19 @@ class ExecutionConfig:
                  guards observe only: results are bit for bit those of the
                  same run without them.
     trace:       a ``repro_torch.runtime.trace.TraceConfig``: the compiled
-                 network owns a Tracer and the phase programs record
-                 ``train.<phase>`` spans (host vs device-wait split) on the
-                 training trace id.  None (default) builds no tracer.
+                 network owns a Tracer (``compiled.tracer``), active
+                 (``repro_torch.runtime.trace.active()``) for the length of
+                 each ``fit``, ``partial_fit``, ``predict`` and
+                 ``evaluate``.  It records the spans ``fit``,
+                 ``train.<phase>`` (host vs device-wait split),
+                 ``layer.step``, ``layer.rewire``, ``layer.unit_mask``,
+                 ``store.project``, ``predict``, ``predict.chunk``,
+                 ``evaluate`` and ``evaluate.readback``, nested by parent,
+                 and the counters ``layer.rewires`` and
+                 ``layer.unit_mask_bytes``; under ``torch.profiler`` each
+                 span is also a ``record_function`` of its name.  None
+                 (default) builds no tracer; ``compiled.tracing()``
+                 attaches one for a window.
     profile_dir: when set, ``fit()`` runs its whole phase program under
                  ``torch.profiler.profile`` (CPU activity, and CUDA
                  activity on a CUDA device) and writes a Chrome trace into
@@ -319,6 +332,28 @@ class CompiledNetwork:
     def readout_layer(self) -> Optional[DenseLayer]:
         return self.plan.readout_layer
 
+    # -------------------------------------------------------------- tracing
+    @contextlib.contextmanager
+    def tracing(self, config=None):
+        """A fresh :class:`~repro_torch.runtime.trace.Tracer` (of ``config``,
+        by default ``TraceConfig()``) on ``compiled.tracer`` for the block,
+        which yields it; the tracer the network had before (None unless
+        ``ExecutionConfig(trace=)``) is back on exit."""
+        from repro_torch.runtime.trace import TraceConfig, Tracer
+
+        previous = self.tracer
+        self.tracer = Tracer(config if config is not None else TraceConfig())
+        try:
+            yield self.tracer
+        finally:
+            self.tracer = previous
+
+    def _span(self, name: str, trace_id: Optional[int] = None, **attrs):
+        """A span of ``name`` on the network's tracer, or no span."""
+        if self.tracer is None:
+            return contextlib.nullcontext({})
+        return self.tracer.span(name, trace_id, **attrs)
+
     # -------------------------------------------------------------- forward
     def _strict_check(self, where: str) -> None:
         """Strict-mode recompile audit: (re)watch every callable this
@@ -353,28 +388,51 @@ class CompiledNetwork:
         """Class scores on the compiled device.  With the activation store
         the hidden stack runs through the same level-H projection training
         used, so only the readout head runs per call.  Each chunk is staged
-        on the device before its guarded dispatch."""
-        states, readout = self.state.layers, self.state.readout
-        strict, dev = self.config.strict, self.device
-        outs = []
-        if self.activations is not None and self.hidden_layers:
-            src = self.activations.level(len(self.hidden_layers), list(states), x, chunk=batch_size)
-            fn = self._head_fn()
-        else:
-            src, fn = x, self._forward_fn()
-        for i in range(0, src.shape[0], batch_size):
-            xb = rows_to(src, i, i + batch_size, dev)
-            with dispatch_guard(strict, dev, {"states": states, "readout": readout, "xb": xb}):
-                outs.append(fn(states, readout, xb))
-        self._strict_check("predict")
-        return torch.cat(outs)
+        on the device before its guarded dispatch.  Traced, the call is a
+        ``predict`` span of a new trace id, each chunk a ``predict.chunk``."""
+        tracer = self.tracer
+        store = self.activations is not None and bool(self.hidden_layers)
+        rows = x.shape[0]
+        with trace_context.activate(tracer), self._span(
+                "predict", tracer.new_trace() if tracer is not None else None, rows=rows,
+                chunks=-(-rows // batch_size), store=store):
+            states, readout = self.state.layers, self.state.readout
+            strict, dev = self.config.strict, self.device
+            outs = []
+            if store:
+                src = self.activations.level(len(self.hidden_layers), list(states), x,
+                                             chunk=batch_size)
+                fn = self._head_fn()
+            else:
+                src, fn = x, self._forward_fn()
+            for i in range(0, src.shape[0], batch_size):
+                if tracer is None:
+                    outs.append(self._predict_chunk(fn, src, i, batch_size, states, readout))
+                    continue
+                with tracer.span("predict.chunk", rows=min(batch_size, src.shape[0] - i)):
+                    outs.append(self._predict_chunk(fn, src, i, batch_size, states, readout))
+            self._strict_check("predict")
+            return torch.cat(outs)
+
+    def _predict_chunk(self, fn, src, i: int, batch_size: int, states, readout) -> torch.Tensor:
+        """Rows ``i:i+batch_size`` of ``src`` staged on the device, then
+        ``fn`` under strict mode's dispatch guard."""
+        xb = rows_to(src, i, i + batch_size, self.device)
+        with dispatch_guard(self.config.strict, self.device,
+                            {"states": states, "readout": readout, "xb": xb}):
+            return fn(states, readout, xb)
 
     def evaluate(self, dataset, batch_size: int = 1024) -> float:
         """Classification accuracy (argmax over output units)."""
         x, y = dataset
-        scores = self.predict(x, batch_size=batch_size)
-        # torchlint: allow[TL001] reason=accuracy is a host-side API result; one read back per evaluate
-        pred = scores.argmax(dim=-1).cpu().numpy()
+        tracer = self.tracer
+        with trace_context.activate(tracer), self._span(
+                "evaluate", tracer.new_trace() if tracer is not None else None,
+                rows=x.shape[0], batch_size=batch_size):
+            scores = self.predict(x, batch_size=batch_size)
+            with self._span("evaluate.readback"):
+                # torchlint: allow[TL001] reason=accuracy is a host-side API result; one read back per evaluate
+                pred = scores.argmax(dim=-1).cpu().numpy()
         return float(np.mean(pred == np.asarray(y)))
 
     # ------------------------------------------------------------- training
@@ -396,7 +454,8 @@ class CompiledNetwork:
 
         t0 = time.perf_counter()
         history: List[dict] = []
-        with self._profiled():
+        with self._profiled(), trace_context.activate(self.tracer), self._span(
+                "fit", rows=dataset[0].shape[0], batch_size=batch_size):
             self._run(
                 dataset, epochs_hidden, epochs_readout, batch_size, readout, readout_lr,
                 shuffle, verbose, history, reset_readout=True,
@@ -427,10 +486,11 @@ class CompiledNetwork:
 
         t0 = time.perf_counter()
         history: List[dict] = []
-        self._run(
-            dataset, 1, 1 if readout is not None else 0, batch_size,
-            readout or "bcpnn", readout_lr, shuffle, verbose, history, reset_readout=False,
-        )
+        with trace_context.activate(self.tracer):
+            self._run(
+                dataset, 1, 1 if readout is not None else 0, batch_size,
+                readout or "bcpnn", readout_lr, shuffle, verbose, history, reset_readout=False,
+            )
         self._strict_check("partial_fit")
         return FitResult(
             epochs_hidden=1,

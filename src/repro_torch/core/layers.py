@@ -20,6 +20,9 @@ with ``fused_phase`` trains each hidden batch in the one-launch
 keeps the traces in the quantized state tier; a policy with a reduced
 datapath format (``PrecisionPolicy.named("bf20")``) rounds every stage of
 the forward and of each learning cycle (``repro_torch.precision.policy``).
+Each unit-mask expansion is a ``layer.unit_mask`` span and each rewiring a
+``layer.rewire`` span on the active tracer (``repro_torch.runtime.trace``),
+if there is one.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.core.learning import MarginalState
 from repro_torch.core.plasticity import PlasticityState
 from repro_torch.core.units import UnitLayout
 from repro_torch.kernels import ops
+from repro_torch import trace_context as trace
 
 
 class LayerState(NamedTuple):
@@ -136,9 +140,17 @@ def _state_format(spec: BCPNNLayerSpec):
 
 
 def _unit_mask(spec: BCPNNLayerSpec, state: LayerState) -> Optional[torch.Tensor]:
+    """The HCU mask expanded to an (F, H) unit mask, or None for a layer
+    without one; counted in bytes on the active tracer."""
     if state.plast is None:
         return None
-    return state.plast.unit_mask(spec.pre, spec.post)
+    tracer = trace.active()
+    if tracer is None:
+        return state.plast.unit_mask(spec.pre, spec.post)
+    nbytes = spec.n_pre * spec.n_post * state.plast.hcu_mask.element_size()
+    with tracer.span("layer.unit_mask", bytes=nbytes):
+        tracer.count("layer.unit_mask_bytes", nbytes)
+        return state.plast.unit_mask(spec.pre, spec.post)
 
 
 def _forward(
@@ -287,6 +299,14 @@ class StructuralPlasticityLayer:
             return state  # dense: nothing to rewire
         if state.host_step % self.mask_update_every != 0:
             return state
+        tracer = trace.active()
+        if tracer is None:
+            return self._rewire(state)
+        with tracer.span("layer.rewire", host_step=state.host_step):
+            tracer.count("layer.rewires")
+            return self._rewire(state)
+
+    def _rewire(self, state: LayerState) -> LayerState:
         new_plast = plasticity.update_mask(
             state.plast, state.marginals, self.spec.pre, self.spec.post
         )

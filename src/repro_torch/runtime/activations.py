@@ -34,6 +34,10 @@ the frozen stack per batch.
   where every batch rank holds the level, and otherwise every rank
   projects (a rank that returned early would leave the others waiting
   in the projection's all-reduce).
+* Tracing: each projection of a level (and the spill its insert may make)
+  is a ``store.project`` span on the active tracer
+  (:mod:`repro_torch.runtime.trace`), if there is one; ``stats`` counts
+  projections, hits, spills and evictions either way.
 * Threads: :meth:`ActivationStore.level` and
   :meth:`ActivationStore.invalidate_above` hold one lock, so several
   serving engines may share a compiled network (without it, one thread's
@@ -48,6 +52,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.analysis.strict import counted, dispatch_guard
+from repro_torch.runtime import trace
 from repro_torch.runtime.epoch_engine import forward_stack, rows_to
 
 
@@ -139,9 +144,17 @@ class ActivationStore:
         for (aid, lvl), e in self._entries.items():
             if aid == id(x) and j < lvl < k:
                 base, j = e.value, lvl
-        value = self._project(base, j, k, states, chunk, strict, trainer)
-        self._insert(key, value, states, x)
-        return self._entries[key].value
+        tracer = trace.active()
+        if tracer is None:
+            self._insert(key, self._project(base, j, k, states, chunk, strict, trainer), states, x)
+            return self._entries[key].value
+        n = base.shape[0]
+        with tracer.span("store.project", j=j, k=k, rows=n,
+                         chunks=-(-n // min(chunk, n))) as attrs:
+            self._insert(key, self._project(base, j, k, states, chunk, strict, trainer), states, x)
+            entry = self._entries[key]
+            attrs.update(bytes=entry.nbytes, spilled=entry.on_host)
+        return entry.value
 
     def invalidate_above(self, level: int) -> int:
         """Drop every cached level strictly above ``level``, for every

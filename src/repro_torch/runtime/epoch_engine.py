@@ -16,7 +16,9 @@ stream, so the host only enqueues and never waits inside an epoch.
   forward at all;
 * under a data-parallel trainer (``repro_torch.core.distributed``) each
   builder takes the trainer's step (``step_fn``) and each rank stacks only
-  its rows of every global batch (:func:`epoch_sharding`).
+  its rows of every global batch (:func:`epoch_sharding`);
+* each hidden and BCPNN readout batch is a ``layer.step`` span on the
+  active tracer (:mod:`repro_torch.runtime.trace`), if there is one.
 
 The epoch driver (shuffle, stack, thread states through phases) lives in
 :class:`repro_torch.runtime.plans.ScanPlan`.
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.optim import apply_updates, tree_flatten
+from repro_torch.runtime import trace
 
 
 def _as_index(idx: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -107,21 +110,41 @@ def forward_stack(layers: Sequence[Any]) -> Callable:
     return fwd
 
 
-def _hidden_step(layer, step_fn: Optional[Callable]) -> Callable:
-    return step_fn if step_fn is not None else (lambda s, xb: layer.train_batch(s, xb)[0])
+def _traced_step(step: Callable, index: Optional[int]) -> Callable:
+    """``step`` as a ``layer.step`` span of layer ``index`` on the active
+    tracer; its second argument is the batch."""
+    def traced(state, xb, *rest):
+        tracer = trace.active()
+        if tracer is None:
+            return step(state, xb, *rest)
+        with tracer.span("layer.step", layer=index, rows=xb.shape[0]):
+            return step(state, xb, *rest)
+
+    return traced
 
 
-def _readout_step(layer, step_fn: Optional[Callable]) -> Callable:
-    return step_fn if step_fn is not None else (lambda s, hb, yb: layer.train_batch(s, hb, yb)[0])
+def _hidden_step(layer, step_fn: Optional[Callable], index: Optional[int]) -> Callable:
+    """The per-batch ``(state, xb) -> state`` of a hidden layer: ``layer``'s
+    ``train_batch`` (looked up per batch) unless a trainer's ``step_fn``."""
+    return _traced_step(
+        step_fn if step_fn is not None else (lambda s, xb: layer.train_batch(s, xb)[0]), index)
 
 
-def hidden_epoch_fn(layer, below_layers: Sequence[Any], step_fn: Optional[Callable] = None
-                    ) -> Callable:
+def _readout_step(layer, step_fn: Optional[Callable], index: Optional[int]) -> Callable:
+    """The readout's ``(state, hb, yb) -> state``, as :func:`_hidden_step`."""
+    return _traced_step(
+        step_fn if step_fn is not None else (lambda s, hb, yb: layer.train_batch(s, hb, yb)[0]),
+        index)
+
+
+def hidden_epoch_fn(layer, below_layers: Sequence[Any], step_fn: Optional[Callable] = None,
+                    index: Optional[int] = None) -> Callable:
     """``(state, below_states, xs) -> state`` for one Hebbian epoch over the
     stacked raw input ``xs`` (n_batches, B, F); ``step_fn`` (a trainer's)
-    replaces the layer's ``train_batch``."""
+    replaces the layer's ``train_batch``; ``index`` (the layer's place in
+    the network) tags its ``layer.step`` spans."""
     below = forward_stack(below_layers)
-    step = _hidden_step(layer, step_fn)
+    step = _hidden_step(layer, step_fn, index)
 
     def epoch(state, below_states, xs):
         for xb in xs:
@@ -131,12 +154,12 @@ def hidden_epoch_fn(layer, below_layers: Sequence[Any], step_fn: Optional[Callab
     return epoch
 
 
-def readout_epoch_fn(layer, hidden_layers: Sequence[Any], step_fn: Optional[Callable] = None
-                     ) -> Callable:
+def readout_epoch_fn(layer, hidden_layers: Sequence[Any], step_fn: Optional[Callable] = None,
+                     index: Optional[int] = None) -> Callable:
     """``(state, hidden_states, xs, ys) -> state`` for one supervised BCPNN
     readout epoch (post-activations clamped to one-hot labels)."""
     below = forward_stack(hidden_layers)
-    step = _readout_step(layer, step_fn)
+    step = _readout_step(layer, step_fn, index)
 
     def epoch(state, hidden_states, xs, ys):
         for xb, yb in zip(xs, ys):
@@ -146,9 +169,10 @@ def readout_epoch_fn(layer, hidden_layers: Sequence[Any], step_fn: Optional[Call
     return epoch
 
 
-def hidden_epoch_cached_fn(layer, step_fn: Optional[Callable] = None) -> Callable:
+def hidden_epoch_cached_fn(layer, step_fn: Optional[Callable] = None,
+                           index: Optional[int] = None) -> Callable:
     """``(state, xs) -> state``: one Hebbian epoch on pre-projected inputs."""
-    step = _hidden_step(layer, step_fn)
+    step = _hidden_step(layer, step_fn, index)
 
     def epoch(state, xs):
         for xb in xs:
@@ -158,9 +182,10 @@ def hidden_epoch_cached_fn(layer, step_fn: Optional[Callable] = None) -> Callabl
     return epoch
 
 
-def readout_epoch_cached_fn(layer, step_fn: Optional[Callable] = None) -> Callable:
+def readout_epoch_cached_fn(layer, step_fn: Optional[Callable] = None,
+                            index: Optional[int] = None) -> Callable:
     """``(state, hs, ys) -> state``: one readout epoch on pre-projected codes."""
-    step = _readout_step(layer, step_fn)
+    step = _readout_step(layer, step_fn, index)
 
     def epoch(state, hs, ys):
         for hb, yb in zip(hs, ys):

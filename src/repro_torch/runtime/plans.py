@@ -47,6 +47,8 @@ import torch
 
 from repro_torch.analysis.strict import counted, dispatch_guard
 from repro_torch.runtime.epoch_engine import (
+    _hidden_step,
+    _readout_step,
     epoch_sharding,
     forward_stack,
     gather_batch,
@@ -144,8 +146,7 @@ class ExecutionPlan:
         name = f"hidden_step[{li}]"
         if name not in self.callables:
             layer = self.hidden_layers[li]
-            step = self._step_fn(layer) or (lambda s, xb: layer.train_batch(s, xb)[0])
-            self._register(name, step)
+            self._register(name, _hidden_step(layer, self._step_fn(layer), li))
         return self.callables[name]
 
     def readout_step(self) -> Callable:
@@ -154,8 +155,8 @@ class ExecutionPlan:
         name = "readout_step"
         if name not in self.callables:
             layer = self.readout_layer
-            step = self._step_fn(layer) or (lambda s, hb, yb: layer.train_batch(s, hb, yb)[0])
-            self._register(name, step)
+            self._register(name, _readout_step(layer, self._step_fn(layer),
+                                                len(self.layers) - 1))
         return self.callables[name]
 
     def _register(self, name: str, fn: Callable) -> Callable:
@@ -219,7 +220,7 @@ class ScanPlan(ExecutionPlan):
             layer = self.hidden_layers[li]
             epoch_fn = self._register(
                 f"hidden_epoch[{li}]",
-                hidden_epoch_fn(layer, self.layers[:li], self._step_fn(layer)),
+                hidden_epoch_fn(layer, self.layers[:li], self._step_fn(layer), li),
             )
 
             def run(state, below_states, x, idx, batch_size):
@@ -235,7 +236,8 @@ class ScanPlan(ExecutionPlan):
         def build():
             layer = self.readout_layer
             epoch_fn = self._register(
-                "readout_epoch", readout_epoch_fn(layer, self.layers[:-1], self._step_fn(layer))
+                "readout_epoch", readout_epoch_fn(layer, self.layers[:-1], self._step_fn(layer),
+                                                  len(self.layers) - 1)
             )
 
             def run(state, hidden_states, x, y, idx, batch_size):
@@ -252,7 +254,8 @@ class ScanPlan(ExecutionPlan):
         def build():
             layer = self.hidden_layers[li]
             epoch_fn = self._register(
-                f"hidden_epoch_cached[{li}]", hidden_epoch_cached_fn(layer, self._step_fn(layer))
+                f"hidden_epoch_cached[{li}]",
+                hidden_epoch_cached_fn(layer, self._step_fn(layer), li)
             )
 
             def run(state, xk, idx, batch_size):
@@ -268,7 +271,8 @@ class ScanPlan(ExecutionPlan):
         def build():
             layer = self.readout_layer
             epoch_fn = self._register(
-                "readout_epoch_cached", readout_epoch_cached_fn(layer, self._step_fn(layer))
+                "readout_epoch_cached",
+                readout_epoch_cached_fn(layer, self._step_fn(layer), len(self.layers) - 1)
             )
 
             def run(state, hk, y, idx, batch_size):

@@ -8,23 +8,28 @@ freezes, so the driver projects the dataset once through the newly frozen
 prefix (the activation store) and every epoch of the phase gathers from
 that level.  Every epoch's history entry splits its wall time into the
 host's enqueue span (``host_s``) and the wait for the device at the one
-synchronisation that ends the epoch (``device_wait_s``); with
-``ExecutionConfig(trace=...)`` each entry is also a ``train.<phase>`` span
-on ``compiled.tracer``.  With ``ExecutionConfig(strict=True)`` the state
-is checked finite (:func:`check_finite`) after every epoch, after that
-synchronisation and outside every dispatch guard.  Under a data-parallel
+synchronisation that ends the epoch (``device_wait_s``); with an active
+tracer (``ExecutionConfig(trace=...)`` or ``compiled.tracing()``) each
+entry is also a ``train.<phase>`` span on it, the parent of the epoch's
+``layer.step`` spans or of the projection's ``store.project``.  With
+``ExecutionConfig(strict=True)`` the state is checked finite
+(:func:`check_finite`) after every epoch, after that synchronisation and
+outside every dispatch guard.  Under a data-parallel
 trainer the trained layer's state is placed (this rank's part) before its
 phase's epochs and gathered after them, and the training set's levels are
 projected by the batch ranks together.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from repro_torch.runtime import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,25 +154,29 @@ def run_program(
     return ProgramResult(sgd_params, sgd_ran, bcpnn_trained)
 
 
-def _timed(history: List[dict], entry: dict, t0: float, net) -> None:
-    """Record one history entry with its wall time split into the host-side
-    enqueue span (``host_s``) and the device wait at the one synchronisation
-    of the boundary (``device_wait_s``); ``seconds`` is the total.  When the
-    network carries a tracer, the entry is also a ``train.<phase>`` span on
-    the training trace."""
-    t1 = time.perf_counter()
-    if net.device.type == "cuda":
-        # torchlint: allow[TL001] reason=the one sync per phase boundary; it splits host_s from device_wait_s, outside every guard
-        torch.cuda.synchronize(net.device)
-    t2 = time.perf_counter()
-    entry["host_s"] = t1 - t0
-    entry["device_wait_s"] = t2 - t1
-    entry["seconds"] = t2 - t0
-    history.append(entry)
-    tracer = net.tracer
-    if tracer is not None:
-        attrs = {k: v for k, v in entry.items() if k not in ("phase", "seconds")}
-        tracer.record(tracer.TRAIN_TRACE_ID, f"train.{entry['phase']}", t0, t2, **attrs)
+@contextlib.contextmanager
+def _timed(history: List[dict], entry: dict, net):
+    """Time the block as one history entry, its wall time split into the
+    host-side enqueue span (``host_s``) and the device wait at the one
+    synchronisation that ends it (``device_wait_s``); ``seconds`` is the
+    total.  With an active tracer the block is also a ``train.<phase>``
+    span carrying the entry's fields but ``phase`` and ``seconds``."""
+    tracer = trace.active()
+    span = (contextlib.nullcontext({}) if tracer is None
+            else tracer.span(f"train.{entry['phase']}"))
+    with span as attrs:
+        t0 = time.perf_counter()
+        yield
+        t1 = time.perf_counter()
+        if net.device.type == "cuda":
+            # torchlint: allow[TL001] reason=the one sync per phase boundary; it splits host_s from device_wait_s, outside every guard
+            torch.cuda.synchronize(net.device)
+        t2 = time.perf_counter()
+        entry["host_s"] = t1 - t0
+        entry["device_wait_s"] = t2 - t1
+        entry["seconds"] = t2 - t0
+        history.append(entry)
+        attrs.update((k, v) for k, v in entry.items() if k not in ("phase", "seconds"))
 
 
 def check_finite(net, tree, where: str) -> None:
@@ -184,11 +193,10 @@ def _phase_input(net, level: int, states, x, batch_size, history):
     store = net.activations
     if store is None:
         return None
-    t0 = time.perf_counter()
-    xk = store.level(level, states, x, chunk=batch_size, collective=True)
-    if level > 0:
-        _timed(history, {"phase": "project", "level": level}, t0, net)
-    return xk
+    if level == 0:
+        return x
+    with _timed(history, {"phase": "project", "level": level}, net):
+        return store.level(level, states, x, chunk=batch_size, collective=True)
 
 
 def _run_hidden_phase(net, phase, x, n, n_total, batch_size, shuffle, verbose, history) -> None:
@@ -205,9 +213,8 @@ def _run_hidden_phase(net, phase, x, n, n_total, batch_size, shuffle, verbose, h
         below = states[:li]
         step = lambda st, idx: run_epoch(st, below, x, idx, batch_size)  # noqa: E731
     for epoch in range(phase.epochs):
-        t0 = time.perf_counter()
-        state = step(state, net._epoch_indices(n, n_total, shuffle))
-        _timed(history, {"phase": f"hidden{li}", "epoch": epoch}, t0, net)
+        with _timed(history, {"phase": f"hidden{li}", "epoch": epoch}, net):
+            state = step(state, net._epoch_indices(n, n_total, shuffle))
         check_finite(net, state, f"hidden layer {li}, epoch {epoch}")
         if verbose:
             print(f"[fit/{net.plan.name}] hidden layer {li} epoch {epoch + 1}/{phase.epochs}")
@@ -230,9 +237,8 @@ def _run_bcpnn_phase(net, phase, x, y, n, n_total, batch_size, shuffle, verbose,
         hidden_states = states[:li]
         step = lambda st, idx: run_epoch(st, hidden_states, x, y, idx, batch_size)  # noqa: E731
     for epoch in range(phase.epochs):
-        t0 = time.perf_counter()
-        state = step(state, net._epoch_indices(n, n_total, shuffle))
-        _timed(history, {"phase": "readout", "epoch": epoch}, t0, net)
+        with _timed(history, {"phase": "readout", "epoch": epoch}, net):
+            state = step(state, net._epoch_indices(n, n_total, shuffle))
         check_finite(net, state, f"bcpnn readout epoch {epoch}")
         if verbose:
             print(f"[fit/{net.plan.name}] readout epoch {epoch + 1}/{phase.epochs}")
@@ -252,9 +258,9 @@ def _run_sgd_phase(net, phase, x, y, n, n_total, batch_size, shuffle, verbose, h
         hidden_states = states[:n_hidden]
         step = lambda p, s, idx: run_epoch(p, s, hidden_states, x, y, idx, batch_size)  # noqa: E731
     for epoch in range(phase.epochs):
-        t0 = time.perf_counter()
-        params, opt_state, loss = step(params, opt_state, net._epoch_indices(n, n_total, shuffle))
-        _timed(history, {"phase": "sgd_readout", "epoch": epoch}, t0, net)
+        with _timed(history, {"phase": "sgd_readout", "epoch": epoch}, net):
+            params, opt_state, loss = step(params, opt_state,
+                                           net._epoch_indices(n, n_total, shuffle))
         check_finite(net, params, f"sgd readout epoch {epoch}")
         if verbose:
             print(f"[fit/{net.plan.name}] sgd readout epoch {epoch + 1}/{phase.epochs} "

@@ -1,10 +1,53 @@
 """Request tracing + structured event journal (the observability spine).
 
-A copy of the JAX package's ``repro/runtime/trace.py`` (stdlib only); the
-port records the router's, the engine's, the decode plan's
-(``plan.prefill``, ``plan.decode_step``) and the continual plan's spans,
-the training program's ``train.<phase>`` spans, and strict mode's
-:class:`RecompileRebaseline` event.
+The JAX package's ``repro/runtime/trace.py``, extended; the port records
+the router's, the engine's, the decode plan's (``plan.prefill``,
+``plan.decode_step``) and the continual plan's spans, strict mode's
+:class:`RecompileRebaseline` event, and the Listing 1 path's spans and
+counters below.
+
+The Listing 1 path (fit, evaluate, predict) traces on the **active**
+tracer: one context variable, read by :func:`active` and set for a block
+by :func:`activate` (both live in :mod:`repro_torch.trace_context`).
+``CompiledNetwork`` makes its own tracer active for the length of
+``fit``, ``partial_fit``, ``predict`` and ``evaluate``
+(``ExecutionConfig(trace=)`` builds one for the network's life,
+``compiled.tracing()`` attaches one for a window).  Each site reads the
+variable once and tests it for None; with no tracer that is all it does.
+Spans opened with :meth:`Tracer.span` nest: each records the ``seq`` of
+the enclosing open span as its ``parent`` and inherits its trace id.
+
+===================== ======= ==============================================
+name                  kind    where, attrs
+===================== ======= ==============================================
+``fit``               span    ``CompiledNetwork.fit``; rows, batch_size
+``train.<phase>``     span    each epoch and phase-boundary projection
+                              (``runtime/program.py``); the history entry's
+                              ``host_s``, ``device_wait_s``, epoch / level
+``layer.step``        span    each training batch of a hidden or BCPNN
+                              readout epoch; layer (index), rows
+``layer.rewire``      span    a rewiring batch's ``maybe_update_mask``;
+                              host_step
+``layer.rewires``     counter one per rewiring
+``layer.unit_mask``   span    each expansion of a hidden layer's HCU mask to
+                              units (every forward and training batch);
+                              bytes (F x H x 4)
+``layer.unit_mask_    counter the bytes those expansions wrote
+bytes``
+``store.project``     span    one activation-store projection of a level;
+                              j, k, rows, chunks, bytes, spilled
+``predict``           span    ``CompiledNetwork.predict``, a new trace id a
+                              call, ended before any read back; rows,
+                              chunks, store
+``predict.chunk``     span    one chunk's staging and dispatch; rows
+``evaluate``          span    ``CompiledNetwork.evaluate``; rows, batch_size
+``evaluate.readback`` span    its ``argmax().cpu()``
+===================== ======= ==============================================
+
+While ``torch.profiler`` records, each :meth:`Tracer.span` also opens a
+``torch.profiler.record_function`` of its name, so the span lands in the
+profiler's trace as a ``user_annotation`` on the profiler's clock, beside
+the kernels it launched.  The ring keeps ``time.perf_counter`` stamps.
 
 Aggregate p95s (``repro_torch.runtime.metrics``) tell you the fabric is slow;
 they cannot tell you WHERE one request spent its time.  This module adds
@@ -33,8 +76,9 @@ Hot-path discipline:
   indices with ``itertools.count()`` (its ``next`` is a single
   C-implemented atomic op) and each slot holds one immutable tuple, so
   concurrent writers never block each other and readers never see a torn
-  record — at worst they miss the very newest slots.  No allocation
-  beyond the one tuple that the span IS.
+  record — at worst they miss the very newest slots.  A span claims its
+  slot's ``seq`` when it opens (so a child can name its parent) and
+  stores its tuple there when it closes.
 * Everything is **off by default and zero-cost when off**: no tracer
   object exists unless a :class:`TraceConfig` is supplied, and every
   instrumentation site guards on ``tracer is not None`` — disabled runs
@@ -48,13 +92,17 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import sys
 import threading
 import time
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
+from repro_torch.runtime.metrics import Counter
+from repro_torch.trace_context import OPEN, activate, active
+
 __all__ = [
-    "TraceConfig", "Tracer", "SpanRecord", "EventJournal", "build_tracer",
+    "TraceConfig", "Tracer", "SpanRecord", "EventJournal", "build_tracer", "active", "activate",
     "EngineRestart", "DriftDetected", "MergeApplied", "RollbackApplied",
     "RecompileRebaseline", "DeadlineShed", "TenantShed",
 ]
@@ -104,6 +152,7 @@ class SpanRecord:
     t_start: float           # time.perf_counter() seconds
     t_end: float
     attrs: Dict[str, Any]    # tenant / engine / batch rows / epoch / ...
+    parent: Optional[int] = None  # seq of the enclosing Tracer.span, if any
 
     @property
     def duration_s(self) -> float:
@@ -126,11 +175,19 @@ class _SpanRing:
         self._size = size
         self._seq = itertools.count()
 
+    def claim(self) -> int:
+        """The next ``seq`` (an open span claims its slot this way)."""
+        return next(self._seq)
+
+    def store(self, seq: int, trace_id: int, name: str, t_start: float,
+              t_end: float, attrs: Dict[str, Any],
+              parent: Optional[int] = None) -> None:
+        self._slots[seq % self._size] = (seq, trace_id, name, t_start,
+                                         t_end, attrs, parent)
+
     def record(self, trace_id: int, name: str, t_start: float, t_end: float,
                attrs: Dict[str, Any]) -> None:
-        seq = next(self._seq)
-        self._slots[seq % self._size] = (seq, trace_id, name, t_start,
-                                         t_end, attrs)
+        self.store(next(self._seq), trace_id, name, t_start, t_end, attrs)
 
     def snapshot(self) -> List[SpanRecord]:
         """Retained spans in record order (approximate under concurrent
@@ -139,6 +196,53 @@ class _SpanRing:
         rows = [s for s in list(self._slots) if s is not None]
         rows.sort(key=lambda r: r[0])
         return [SpanRecord(*r) for r in rows]
+
+
+def _profiler_annotation(name: str) -> Optional[Any]:
+    """An entered ``torch.profiler.record_function(name)`` while the
+    profiler records, else None.  torch is looked up, not imported, so this
+    module stays stdlib only: no profiler can record before torch loads."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return None
+    annotation = torch.profiler.record_function(name)
+    annotation.__enter__()
+    return annotation
+
+
+class _Span:
+    """One open :meth:`Tracer.span`; ``with`` yields its attrs dict, which
+    the block may extend (the record is stored when the block ends)."""
+
+    __slots__ = ("tracer", "name", "trace_id", "attrs", "seq", "parent", "t_start",
+                 "_token", "_annotation")
+
+    def __init__(self, tracer: "Tracer", name: str, trace_id: Optional[int],
+                 attrs: Dict[str, Any]):
+        self.tracer, self.name, self.trace_id, self.attrs = tracer, name, trace_id, attrs
+
+    def __enter__(self) -> Dict[str, Any]:
+        outer = OPEN.get()
+        self.parent = None
+        if outer is not None and outer.tracer is self.tracer:
+            self.parent = outer.seq
+            if self.trace_id is None:
+                self.trace_id = outer.trace_id
+        elif self.trace_id is None:
+            self.trace_id = Tracer.TRAIN_TRACE_ID
+        self.seq = self.tracer._ring.claim()
+        self._token = OPEN.set(self)
+        self._annotation = _profiler_annotation(self.name)
+        self.t_start = time.perf_counter()
+        return self.attrs
+
+    def __exit__(self, *exc) -> None:
+        t_end = time.perf_counter()
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
+        OPEN.reset(self._token)
+        self.tracer._ring.store(self.seq, self.trace_id, self.name, self.t_start, t_end,
+                                self.attrs, self.parent)
 
 
 # --------------------------------------------------------------------------
@@ -299,6 +403,7 @@ class Tracer:
         self.config = config if config is not None else TraceConfig()
         self._ring = _SpanRing(self.config.ring_size)
         self._ids = itertools.count(1)
+        self._counters: Dict[str, Counter] = {}
         self.journal = EventJournal(self.config.journal_size,
                                     self.config.journal_path)
 
@@ -312,6 +417,21 @@ class Tracer:
         """Record one span.  ``t_start``/``t_end`` are
         ``time.perf_counter()`` stamps taken by the caller."""
         self._ring.record(trace_id, name, t_start, t_end, attrs)
+
+    def span(self, name: str, trace_id: Optional[int] = None, **attrs: Any) -> _Span:
+        """A span around a ``with`` block: its start, end and ``parent``
+        (the enclosing open span of this tracer), on the enclosing span's
+        trace id unless ``trace_id`` is given (the training trace id at the
+        top).  While ``torch.profiler`` records, the block is also a
+        ``record_function`` of ``name``."""
+        return _Span(self, name, trace_id, attrs)
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the counter ``name``."""
+        counter = self._counters.get(name)
+        if counter is None:
+            counter = self._counters.setdefault(name, Counter())
+        counter.inc(n)
 
     def emit(self, event: Any) -> int:
         """Journal a typed operational event."""
@@ -334,12 +454,18 @@ class Tracer:
     def events(self, kind: Optional[str] = None) -> List[Tuple[int, float, Any]]:
         return self.journal.events(kind)
 
+    def counters(self) -> Dict[str, int]:
+        """Every counter's value, by name."""
+        return {name: c.value for name, c in sorted(self._counters.items())}
+
     # ------------------------------------------------------------- export
     def chrome_trace(self) -> Dict[str, Any]:
         """Spans + journal as a Chrome ``trace_event`` JSON object (open
         in Perfetto or ``chrome://tracing``).  Tracks (tids) are derived
         from span attrs: the ``engine`` attr names the lane, else the
-        span-name prefix ("router", "train", "plan", ...)."""
+        span-name prefix ("router", "train", "plan", ...).  A span's args
+        hold its ``seq`` and, under an enclosing span, that span's
+        ``parent`` seq; each counter is one ``"C"`` event at export time."""
         spans = self._ring.snapshot()
         tracks: Dict[str, int] = {}
         events: List[Dict[str, Any]] = []
@@ -356,7 +482,9 @@ class Tracer:
 
         for s in spans:
             track = s.attrs.get("engine") or s.name.split(".", 1)[0]
-            args = {"trace_id": s.trace_id}
+            args = {"trace_id": s.trace_id, "seq": s.seq}
+            if s.parent is not None:
+                args["parent"] = s.parent
             args.update(s.attrs)
             events.append({
                 "name": s.name, "ph": "X", "pid": 1, "tid": tid_for(track),
@@ -375,6 +503,10 @@ class Tracer:
                 "ts": t_perf * 1e6,   # perf clock: same timeline as spans
                 "args": args,
             })
+        now = time.perf_counter() * 1e6
+        for name, value in self.counters().items():
+            events.append({"name": name, "ph": "C", "pid": 1, "ts": now,
+                           "args": {"value": value}})
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
     def write_chrome_trace(self, path: str) -> None:

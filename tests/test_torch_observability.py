@@ -58,6 +58,7 @@ from repro_torch.runtime import (
     parse_openmetrics,
     render_openmetrics,
 )
+from repro_torch.runtime import trace
 from repro_torch.runtime.service import ServePlan
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -203,6 +204,40 @@ class TestTracerCore:
         tr.write_chrome_trace(path)
         with open(path) as f:
             assert json.load(f)["traceEvents"]
+
+    def test_spans_nest_inherit_and_export_parents_and_counters(self):
+        tr = Tracer()
+        t = tr.new_trace()
+        with tr.span("outer", trace_id=t, rows=4) as attrs:
+            with tr.span("inner"):
+                tr.count("things", 3)
+            attrs["late"] = 1
+        with tr.span("top"):
+            tr.count("things")
+        outer, inner, top = tr.spans("outer")[0], tr.spans("inner")[0], tr.spans("top")[0]
+        assert outer.parent is None and top.parent is None and inner.parent == outer.seq
+        assert inner.trace_id == outer.trace_id == t
+        assert top.trace_id == tr.TRAIN_TRACE_ID
+        assert outer.attrs == {"rows": 4, "late": 1}
+        assert outer.t_start <= inner.t_start <= inner.t_end <= outer.t_end
+        assert [s.name for s in tr.spans()] == ["outer", "inner", "top"]  # opening order
+        assert tr.counters() == {"things": 4}
+        evs = tr.chrome_trace()["traceEvents"]
+        x = {e["name"]: e for e in evs if e["ph"] == "X"}
+        assert x["inner"]["args"]["parent"] == x["outer"]["args"]["seq"]
+        assert "parent" not in x["outer"]["args"]
+        assert [(e["name"], e["args"]) for e in evs if e["ph"] == "C"] == [
+            ("things", {"value": 4})]
+
+    def test_active_tracer_is_set_for_a_block(self):
+        tr = Tracer()
+        assert trace.active() is None
+        with trace.activate(tr):
+            assert trace.active() is tr
+            with trace.activate(None):
+                assert trace.active() is None
+            assert trace.active() is tr
+        assert trace.active() is None
 
 
 # ---------------------------------------------------------------- journal
@@ -637,7 +672,7 @@ class TestTrainTracing:
     def test_phase_spans_recorded_on_train_trace(self, data):
         compiled, res = self._fit(data, trace=TraceConfig())
         tr = compiled.tracer
-        spans = tr.trace(tr.TRAIN_TRACE_ID)
+        spans = [s for s in tr.trace(tr.TRAIN_TRACE_ID) if s.name.startswith("train.")]
         names = {s.name for s in spans}
         assert "train.hidden0" in names and "train.readout" in names
         hidden = [s for s in spans if s.name == "train.hidden0"]
@@ -647,15 +682,181 @@ class TestTrainTracing:
         assert len(spans) == len([h for h in res.history if "seconds" in h])
 
     def test_train_tracing_off_builds_no_tracer_and_changes_nothing(self, data):
-        plain, _ = self._fit(data)
+        ds, x, layout = data
+        plain = _net(layout).compile(ExecutionConfig(device="cpu"))
+        seen = []  # the active tracer at every training batch of the plain fit
+        layer = plain.hidden_layers[0]
+        inner = type(layer).train_batch.__get__(layer)
+
+        def train_batch(state, xb):
+            seen.append(trace.active())
+            return inner(state, xb)
+
+        layer.train_batch = train_batch
+        plain.fit((x, ds.y_train), **self.KW)
+        del layer.train_batch
         traced, _ = self._fit(data, trace=TraceConfig())
-        assert plain.tracer is None
+        assert plain.tracer is None and trace.active() is None
+        assert seen and all(t is None for t in seen)
         for a, b in zip(plain.state.layers, traced.state.layers):
             assert torch.equal(a.w, b.w) and torch.equal(a.b, b.b)
+            assert torch.equal(a.plast.hcu_mask, b.plast.hcu_mask) if a.plast else True
+        assert torch.equal(plain.predict(x, batch_size=48), traced.predict(x, batch_size=48))
+        assert plain.evaluate((x, ds.y_train)) == traced.evaluate((x, ds.y_train))
+        assert trace.active() is None
+        assert traced.tracer.spans("layer.step")
 
     def test_trace_option_validation(self):
         with pytest.raises(TypeError, match="TraceConfig"):
             ExecutionConfig(device="cpu", trace="on")
+
+
+# ------------------------------------------- Listing 1 spans and counters
+class TestListing1Spans:
+    """The spans and counters inside fit, evaluate and predict, on a
+    network with fan-in below the input HCUs, the store on and rewiring
+    every EVERY batches."""
+
+    EVERY = 3
+    KW = dict(epochs_hidden=3, epochs_readout=2, batch_size=64)
+
+    def _compiled(self, layout, trace=None):
+        hidden = UnitLayout(4, 8)
+        net = Network(seed=0).add(StructuralPlasticityLayer(
+            layout, hidden, fan_in=16, lam=0.05, mask_update_every=self.EVERY,
+        )).add(DenseLayer(hidden, onehot_layout(10), lam=0.05))
+        return net.compile(ExecutionConfig(device="cpu", trace=trace))
+
+    @pytest.fixture(scope="class")
+    def run(self, data):
+        ds, x, layout = data
+        compiled = self._compiled(layout, TraceConfig())
+        assert layout.n_hcu > 16 and compiled.activations is not None
+        res = compiled.fit((x, ds.y_train), **self.KW)
+        fit_projections = compiled.activations.stats["projections"]
+        compiled.evaluate((x[:40], ds.y_train[:40]), batch_size=16)
+        by_seq = {s.seq: s for s in compiled.tracer.spans()}
+        return dict(compiled=compiled, res=res, tr=compiled.tracer, by_seq=by_seq,
+                    fit_projections=fit_projections, batches=x.shape[0] // 64)
+
+    def parent(self, run, span):
+        return run["by_seq"][span.parent].name if span.parent is not None else None
+
+    def test_rewires_counted_at_every_multiple_of_the_period(self, run):
+        tr = run["tr"]
+        hidden_batches = self.KW["epochs_hidden"] * run["batches"]
+        want = [k for k in range(hidden_batches) if k % self.EVERY == 0]
+        rewires = tr.spans("layer.rewire")
+        assert [s.attrs["host_step"] for s in rewires] == want
+        assert tr.counters()["layer.rewires"] == len(want)
+        assert {self.parent(run, s) for s in rewires} == {"layer.step"}
+
+    def test_one_step_span_per_training_batch_with_its_mask_child(self, run):
+        tr, n = run["tr"], run["batches"]
+        steps = tr.spans("layer.step")
+        hidden = [s for s in steps if s.attrs["layer"] == 0]
+        readout = [s for s in steps if s.attrs["layer"] == 1]
+        assert len(hidden) == self.KW["epochs_hidden"] * n
+        assert len(readout) == self.KW["epochs_readout"] * n
+        assert all(s.attrs["rows"] == 64 for s in steps)
+        masks = tr.spans("layer.unit_mask")
+        children = {}
+        for m in masks:
+            children.setdefault(m.parent, []).append(m)
+        assert all(len(children.get(s.seq, [])) == 1 for s in hidden)
+        assert not any(s.seq in children for s in readout)  # a DenseLayer has no mask
+        layer = run["compiled"].hidden_layers[0]
+        nbytes = layer.spec.n_pre * layer.spec.n_post * 4
+        assert all(m.attrs["bytes"] == nbytes for m in masks)
+        assert tr.counters()["layer.unit_mask_bytes"] == nbytes * len(masks)
+        assert {self.parent(run, s) for s in hidden} == {"train.hidden0"}
+        assert {self.parent(run, s) for s in readout} == {"train.readout"}
+
+    def test_one_store_project_span_per_projection(self, run):
+        tr, store = run["tr"], run["compiled"].activations
+        projects = tr.spans("store.project")
+        assert len(projects) == store.stats["projections"] == run["fit_projections"] + 1
+        fit_proj, eval_proj = projects
+        assert self.parent(run, fit_proj) == "train.project"
+        assert self.parent(run, eval_proj) == "predict"
+        assert (fit_proj.attrs["j"], fit_proj.attrs["k"]) == (0, 1)
+        assert fit_proj.attrs["rows"] == 128 and fit_proj.attrs["chunks"] == 2
+        assert eval_proj.attrs["rows"] == 40 and eval_proj.attrs["chunks"] == 3
+        assert fit_proj.attrs["bytes"] == 128 * 32 * 4 and fit_proj.attrs["spilled"] is False
+        # each projection chunk expands the mask once, under the projection
+        for p in projects:
+            kids = [m for m in tr.spans("layer.unit_mask") if m.parent == p.seq]
+            assert len(kids) == p.attrs["chunks"]
+
+    def test_parents_nest_as_documented(self, run):
+        tr = run["tr"]
+        (fit,) = tr.spans("fit")
+        assert fit.parent is None and fit.attrs == {"rows": 128, "batch_size": 64}
+        phases = [s for s in tr.spans() if s.name.startswith("train.")]
+        assert phases and {self.parent(run, s) for s in phases} == {"fit"}
+        (ev,) = tr.spans("evaluate")
+        assert ev.parent is None and ev.attrs == {"rows": 40, "batch_size": 16}
+        (pred,) = tr.spans("predict")
+        assert pred.parent == ev.seq and pred.trace_id != ev.trace_id
+        assert pred.attrs == {"rows": 40, "chunks": 3, "store": True}
+        (rb,) = tr.spans("evaluate.readback")
+        assert rb.parent == ev.seq and rb.trace_id == ev.trace_id
+        assert pred.t_end <= rb.t_start  # the predict span ends before the read back
+        train = tr.trace(tr.TRAIN_TRACE_ID)
+        assert {s.name for s in train} == {"fit", "train.hidden0", "train.project",
+                                           "train.readout", "layer.step", "layer.rewire",
+                                           "layer.unit_mask", "store.project"}
+
+    def test_predict_one_trace_id_per_call_and_a_chunk_span_per_chunk(self, data):
+        _, x, layout = data
+        compiled = self._compiled(layout)
+        with compiled.tracing() as tr:
+            for _ in range(2):
+                compiled.predict(x[:50], batch_size=16)
+        preds = tr.spans("predict")
+        assert len({p.trace_id for p in preds}) == 2
+        for p in preds:
+            chunks = [s for s in tr.trace(p.trace_id) if s.name == "predict.chunk"]
+            assert [s.attrs["rows"] for s in chunks] == [16, 16, 16, 2]
+            assert all(s.parent == p.seq for s in chunks)
+
+    def test_tracing_detaches_on_exit(self, data):
+        _, x, layout = data
+        compiled = self._compiled(layout)
+        assert compiled.tracer is None
+        with compiled.tracing(TraceConfig(ring_size=64)) as tr:
+            assert compiled.tracer is tr and tr.config.ring_size == 64
+            compiled.predict(x[:8])
+            assert trace.active() is None  # active only inside the program's calls
+        assert compiled.tracer is None and trace.active() is None
+        before = len(tr.spans())
+        compiled.predict(x[:8])
+        assert len(tr.spans()) == before
+        with pytest.raises(RuntimeError):
+            with compiled.tracing():
+                raise RuntimeError("boom")
+        assert compiled.tracer is None
+
+    def test_profiler_trace_holds_the_spans_as_user_annotations(self, data, tmp_path):
+        from torch.profiler import ProfilerActivity, profile
+
+        ds, x, layout = data
+        compiled = self._compiled(layout)
+        with compiled.tracing() as tr, profile(activities=[ProfilerActivity.CPU]) as prof:
+            compiled.fit((x, ds.y_train), **self.KW)
+            compiled.evaluate((x[:40], ds.y_train[:40]), batch_size=16)
+        path = str(tmp_path / "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        annotated = {}
+        for e in events:
+            if e.get("cat") == "user_annotation":
+                annotated[e["name"]] = annotated.get(e["name"], 0) + 1
+        for name in ("fit", "train.hidden0", "train.project", "train.readout", "layer.step",
+                     "layer.rewire", "layer.unit_mask", "store.project", "evaluate",
+                     "predict", "predict.chunk", "evaluate.readback"):
+            assert annotated.get(name) == len(tr.spans(name)) > 0, name
 
 
 # -------------------------------------------------- snapshot consistency
