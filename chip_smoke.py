@@ -35,11 +35,15 @@ the run with a non-zero exit:
    f32 tolerance, at most 1% of the elements apart) at every shape phases
    4-5 launch it (``datapath_rows``) and timed beside the same kernel's
    f32 mode on the same inputs; the forward pair also at phase 9's model
-   shard (H / 2 units), and ``bcpnn_update``'s reduced-means mode
-   (phase 9's learning cycle: the EWMA and the weights from all-reduced
-   batch means) against its plain version at the hidden layer, a model
-   rank's half of it and the readout, timed beside the f32 update from the
-   batch on the same traces; then print where ``bcpnn_phase``'s time
+   shard (H / 2 units); ``masked_matmul``'s gathered variant (``hcu_mask=``,
+   the receptive fields per hypercolumn pair) at the STL-10 width, 27,648
+   two-unit input HCUs -> 20x150 with 1,024 kept a hidden HCU, at B and P
+   rows, against the plain product over the expanded mask, and its kept
+   lists (``masked_matmul.kept_lists``) against ``ref.kept_lists``; and
+   ``bcpnn_update``'s reduced-means mode (phase 9's learning cycle: the
+   EWMA and the weights from all-reduced batch means) against its plain
+   version at the hidden layer, a model rank's half of it and the readout,
+   timed beside the f32 update from the batch on the same traces; then print where ``bcpnn_phase``'s time
    goes, phase by phase (``tools/bcpnn_phase_profile.py``);
 4. drive the main paths, the paper's Listing 1 at MNIST width (784
    complementary-coded features -> 30x100 hidden -> 10 classes), through
@@ -305,6 +309,10 @@ FAN_IN = 392  # half the input HCUs: rewiring runs every 30 batches
 DATAPATH_MANTISSA = 11  # bf20, the gated datapath of phase 4
 STATE_MANTISSA = 7  # bf16, the state tier of the fused path
 REPS = 20
+# Phase 3's gathered masked_matmul: the hidden product at the STL-10 width
+# (27,648 two-unit input HCUs, 20 x 150 hidden, 1,024 input HCUs kept a
+# hidden HCU) at a training batch's and predict's rows.
+STL_PRE_HCU, STL_HIDDEN, STL_FAN_IN, STL_ROWS = 27648, (20, 150), 1024, (B, P)
 # The serving phase (phase 5): request sizes of the batched plan, through
 # padding buckets of 4/16/64 rows; the async clients; the streaming plan's
 # micro-batch and feed.  Phase 3 checks each kernel at every row count these
@@ -629,6 +637,53 @@ def kernel_checks(torch, ops, ref, dev):
                 f32 * (rows * k + (2 if m is not None else 1) * k * n + n + rows * n),
                 2 * rows * k * n + (k * n if m is not None else 0))
 
+    def gm_case(a, w, b, hm, um):
+        # the gathered variant against the plain product over the expanded
+        # mask; its bound counts what bench/harness/counts.py:Forward counts
+        # (x once, the kept rows of w, the HCU mask, the bias, the output)
+        (rows, k), n = a.shape, w.shape[1]
+        (n_pre, n_post), mcu, kept = hm.shape, n // hm.shape[1], 2 * STL_FAN_IN
+        p = mk.plan(rows, k, n, mk.n_sm(dev), kept, mcu)
+        kw = dict(hcu_mask=hm, pre_mcu=2, post_mcu=mcu, fan_in=STL_FAN_IN)
+        return (f"x({rows},{k}) @ w({k},{n}) kept {kept} of {k} a hidden HCU "
+                f"[plan {p.config} CL={p.cl} {p.ctas} CTAs]",
+                lambda: ops.masked_matmul(a, w, b, **kw),
+                lambda: ref.masked_matmul(a, w, b, um),
+                lambda: torch.matmul(a, w * um) + b,
+                f32 * (rows * k + kept * n + n + n_pre * n_post + rows * n),
+                2 * rows * kept * n + rows * n)
+
+    def stl_inputs():
+        n_hcu_s, n_mcu_s = STL_HIDDEN
+        hm = torch.stack([torch.randperm(STL_PRE_HCU, generator=g, device=dev) < STL_FAN_IN
+                          for _ in range(n_hcu_s)]).T.float().contiguous()
+        um = ref.unit_mask(hm, 2, n_mcu_s).contiguous()
+        w = normal(2 * STL_PRE_HCU, n_hcu_s * n_mcu_s) * um
+        b = 0.1 * normal(n_hcu_s * n_mcu_s)
+        return [(uniform(m, 2 * STL_PRE_HCU), w, b, hm, um) for m in STL_ROWS]
+
+    def lists_case(hm):
+        # the gathered variant's kept lists, built on the device from the
+        # STL-10 mask as a rewiring's new mask builds them (the cache
+        # forgotten first): each list's head against the plain version (the
+        # kernel leaves the tail unwritten), then the build timed, its
+        # counts checked; the bound counts the mask read, the heads and
+        # the counts written
+        def build():
+            mk._kept.clear()
+            return mk.kept_lists(hm)
+
+        kept, counts = build()
+        want_kept, want_counts = ref.kept_lists(hm)
+        head = torch.arange(kept.shape[1], device=dev)[None, :] < counts[:, None]
+        check(torch.equal(counts, want_counts)
+              and torch.equal(torch.where(head, kept, 0), want_kept),
+              "masked_matmul: the kept lists differ from ref.kept_lists")
+        (n_pre, n_post), kept_n = hm.shape, int(counts.sum())
+        return (f"kept lists of hcu_mask({n_pre},{n_post}), {kept_n // n_post} a hidden HCU",
+                lambda: build()[1], lambda: ref.kept_lists(hm)[1], None,
+                f32 * (n_pre * n_post + kept_n + n_post), 0, (0.0, 0.0))
+
     def sm_case(s, hcu, mcu):
         rows = s.shape[0]
         return (f"s({rows},{hcu}x{mcu})",
@@ -783,6 +838,7 @@ def kernel_checks(torch, ops, ref, dev):
     from repro_torch.kernels import bf_round as bfk
     from repro_torch.kernels import masked_matmul as mk
     pp = pk.plan(B, F, n_hcu, n_mcu)
+    stl = stl_inputs()
     specs = [
         dict(
             name="masked_matmul",
@@ -798,7 +854,9 @@ def kernel_checks(torch, ops, ref, dev):
                 *((h_o[:m], w_or, b_or, None) for m in on["head"]),
                 # phase 9's model-rank shard, H / 2 units (a batch rank's
                 # B / 2 = 64 rows are a served chunk above)
-                (x, *half(w_hm, b_h, mask)))],
+                (x, *half(w_hm, b_h, mask)))]
+            # the gathered variant at the STL-10 width, and its kept lists
+            + [gm_case(*c) for c in stl] + [lists_case(stl[0][3])],
             # the datapath's support through both layers (gain 4 on the
             # hidden layer, 1 on the head) at every row count it takes
             modes=[mm_mode(*c) for m in dp_rows["forward"] for c in (

@@ -20,6 +20,10 @@ with ``fused_phase`` trains each hidden batch in the one-launch
 keeps the traces in the quantized state tier; a policy with a reduced
 datapath format (``PrecisionPolicy.named("bf20")``) rounds every stage of
 the forward and of each learning cycle (``repro_torch.precision.policy``).
+A plastic layer's f32 forward hands ``masked_matmul`` its mask per
+hypercolumn pair; where the kernel gathers over it (``masked_matmul``'s
+plan, from the shapes), no unit mask is expanded for the product, and each
+such product counts ``masked_matmul.gathered`` on the active tracer.
 Each unit-mask expansion is a ``layer.unit_mask`` span and each rewiring a
 ``layer.rewire`` span on the active tracer (``repro_torch.runtime.trace``),
 if there is one.
@@ -155,25 +159,55 @@ def _unit_mask(spec: BCPNNLayerSpec, state: LayerState) -> Optional[torch.Tensor
 
 def _forward(
     spec: BCPNNLayerSpec, state: LayerState, x: torch.Tensor,
-    mask: Optional[torch.Tensor],
+    mask: Optional[torch.Tensor], fan_in: Optional[int] = None,
 ) -> torch.Tensor:
     """s = x @ (w o mask) + b, times the gain, then softmax per HCU.  The
     gain multiply between the two kernels stays a plain elementwise op.  A
     reduced datapath rounds every stage (``quantized_forward``: the same two
-    kernels in their rounding modes, the gain inside ``masked_matmul``)."""
+    kernels in their rounding modes, the gain inside ``masked_matmul``).
+
+    ``fan_in`` is given by a plastic layer's own forward (its kept input
+    HCUs a hidden HCU): the f32 product may then gather over the layer's HCU
+    mask (:func:`_support`), and ``mask`` is the unit mask the caller has
+    already expanded, or None.  Without it ``mask`` is the product's mask."""
     if _datapath_policy(spec) is not None:
         from repro_torch.precision.policy import quantized_forward
 
+        if mask is None and fan_in is not None:  # the rounding mode takes the unit mask
+            mask = _unit_mask(spec, state)
         return quantized_forward(
             x, state.w, state.b, spec.post, spec.precision, mask, gain=spec.gain,
             use_kernels=spec.use_kernels,
         )
-    s = ops.masked_matmul(x, state.w, state.b, mask=mask, use_kernels=spec.use_kernels)
+    if fan_in is not None and state.plast is not None:
+        s = _support(spec, state, x, mask, fan_in)
+    else:
+        s = ops.masked_matmul(x, state.w, state.b, mask=mask, use_kernels=spec.use_kernels)
     if spec.gain != 1.0:
         s = s * spec.gain
     return ops.hcu_softmax(
         s, n_hcu=spec.post.n_hcu, n_mcu=spec.post.n_mcu, use_kernels=spec.use_kernels
     )
+
+
+def _support(
+    spec: BCPNNLayerSpec, state: LayerState, x: torch.Tensor,
+    mask: Optional[torch.Tensor], fan_in: int,
+) -> torch.Tensor:
+    """A plastic layer's f32 support: the gathered ``masked_matmul`` over
+    its HCU mask where the kernel gathers for these inputs (counted as
+    ``masked_matmul.gathered`` on the active tracer), else the dense product
+    over the unit mask, ``mask`` or expanded here."""
+    hcu = dict(hcu_mask=state.plast.hcu_mask, pre_mcu=spec.pre.n_mcu,
+               post_mcu=spec.post.n_mcu, fan_in=fan_in)
+    if ops.masked_matmul_gathers(x, state.w, state.b, use_kernels=spec.use_kernels, **hcu):
+        tracer = trace.active()
+        if tracer is not None:
+            tracer.count("masked_matmul.gathered")
+        return ops.masked_matmul(x, state.w, state.b, use_kernels=spec.use_kernels, **hcu)
+    if mask is None:
+        mask = _unit_mask(spec, state)
+    return ops.masked_matmul(x, state.w, state.b, mask=mask, use_kernels=spec.use_kernels)
 
 
 def _learn(
@@ -276,20 +310,28 @@ class StructuralPlasticityLayer:
             step=torch.zeros((), dtype=torch.int32, device=device),
         )
 
+    @property
+    def kept(self) -> int:
+        """Input HCUs each hidden HCU keeps (the fan-in, at most all)."""
+        return min(self.fan_in, self.spec.pre.n_hcu)
+
     def forward(self, state: LayerState, x: torch.Tensor) -> torch.Tensor:
-        return _forward(self.spec, state, x, _unit_mask(self.spec, state))
+        """The forward pass; the unit mask is expanded only if the product
+        does not gather over the HCU mask."""
+        return _forward(self.spec, state, x, None, self.kept)
 
     def train_batch(
         self, state: LayerState, x: torch.Tensor
     ) -> Tuple[LayerState, torch.Tensor]:
         """One Alg.1 batch iteration: (maybe) rewire, forward, learn.  The
-        unit mask is expanded once and shared by the forward and the update
-        (or by the one fused kernel with ``spec.fused_phase``)."""
+        unit mask is expanded once, for the update (or the one fused kernel
+        with ``spec.fused_phase``), and the forward shares it unless its
+        product gathers over the HCU mask."""
         state = self.maybe_update_mask(state)
         mask = _unit_mask(self.spec, state)
         if self.spec.fused_phase:
             return _fused_train_batch(self.spec, state, x, mask)
-        aj = _forward(self.spec, state, x, mask)
+        aj = _forward(self.spec, state, x, mask, self.kept)
         return _learn(self.spec, state, x, aj, mask), aj
 
     def maybe_update_mask(self, state: LayerState) -> LayerState:

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.learning import EPS, MarginalState
 from repro_torch.core.units import UnitLayout
+from repro_torch.kernels import ref
 
 
 class PlasticityState(NamedTuple):
@@ -23,8 +24,7 @@ class PlasticityState(NamedTuple):
 
     def unit_mask(self, pre: UnitLayout, post: UnitLayout) -> torch.Tensor:
         """Expand the HCU-granular mask to unit granularity for w."""
-        m = self.hcu_mask.repeat_interleave(pre.n_mcu, dim=0)
-        return m.repeat_interleave(post.n_mcu, dim=1)
+        return ref.unit_mask(self.hcu_mask, pre.n_mcu, post.n_mcu)
 
 
 def init_random_mask(

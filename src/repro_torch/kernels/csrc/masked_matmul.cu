@@ -54,7 +54,39 @@
 // copy of an operand reaches device memory, so the mode moves the bytes of
 // the f32 product.  The f32 instantiations (ROUND false) are the code of
 // the f32 kernel.
+//
+// The gathered variant (the GatherArgs overload of masked_matmul_kernel)
+// is the product through a receptive-field mask given per hypercolumn: x
+// (M, K = P * pre_mcu) @ w (K, N = Hh * post_mcu), where hidden HCU h reads
+// only the input HCUs of its kept list (hcu_mask[:, h] != 0, ascending;
+// built on the device by build_kept_lists, once per mask).  At the STL-10
+// width (K = 55,296, N = 3,000, 1,024 of 27,648 input HCUs kept) the mask
+// keeps 3.7% of K, so the dense kernel multiplies 96% zeros and streams the
+// whole F x H w and mask; the kept pairs are 1.57 GFLOP against ~57 MB at
+// M = 128 (bound by operations, 0.023 ms) and 12.6 GFLOP at M = 1,024
+// (0.188 ms).  The design:
+//   - an output tile is BM rows x BN columns of one hidden HCU (BN = 160
+//     covers STL-10's 150 minicolumns, so x is gathered once a row block);
+//     its columns start at the HCU's first column rounded down to a
+//     multiple of 4, so every w row and output row is read and written in
+//     16-byte pieces even where h * post_mcu is only 8-byte aligned, and
+//     columns outside the HCU are computed but not stored;
+//   - a stage is BK kept input units: x's columns gathered from the kept
+//     list (8-byte copies of the two-unit complementary code, 4-byte
+//     otherwise), w's BK kept rows x BN columns contiguous, through the
+//     same cp.async ring and register micro-tile as the dense tiles; no
+//     mask is read, since a kept row's mask is 1;
+//   - each thread reads its next stage's list entries one stage ahead, so
+//     the list's latency hides behind a stage of multiply-adds;
+//   - the kept list is split over a thread-block cluster, each CTA taking
+//     an even share of the HCU's stages in rank order, and the partial
+//     tiles are summed in rank order through distributed shared memory, as
+//     the dense tiles' split K is: deterministic, no atomics.  Unequal
+//     counts and a count of 0 (the bias alone) need nothing more.
+// The launch plan (gathered or dense, and the cluster size) comes from
+// kernels/masked_matmul.py:plan.
 
+#include <climits>
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 
@@ -86,6 +118,13 @@ struct Tile {
 // its fragments out of local memory).  Narrow, for N <= 16: 128 threads.
 using Wide = Tile<128, 64, 16, 8, 8, 3, 3>;
 using Narrow = Tile<64, 16, 32, 2, 4, 4, 4>;
+// The gathered variant's tile: 64 rows x 160 columns of one hidden HCU,
+// 160 threads, 4 stages (60 KB of shared memory), 3 CTAs an SM.
+struct Gathered {
+  static constexpr int BM = 64, BN = 160, BK = 16, TM = 8, TN = 8, NSTAGE = 4, MINB = 3;
+  static constexpr int TY = BM / TM, TX = BN / TN, THREADS = TX * TY;
+  static constexpr int AP = BK + 4, PS = BN + 4;
+};
 
 template <class T, bool MASK>
 __host__ __device__ constexpr int stage_floats() { return T::BM * T::AP + (MASK ? 2 : 1) * T::BK * T::BN; }
@@ -391,22 +430,299 @@ __global__ void __launch_bounds__(T::THREADS, T::MINB) masked_matmul_kernel(Args
   cluster.sync();  // no CTA leaves while another reads its shared memory
 }
 
-template <class T, bool VA, bool VN, bool MASK, bool BIAS, bool ROUND>
-int launch(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = smem_floats<T, MASK>() * sizeof(float);
-  auto kernel = masked_matmul_kernel<T, VA, VN, MASK, BIAS, ROUND>;
+// The gathered variant's multiply and epilogue.  They are the dense
+// kernel's loop and split-K sum; the dense kernel keeps its own copy,
+// since compiled through these helpers its wide tile ran 5-8% slower on an
+// H100 (the same code, other register allocation).
+//
+// acc += the staged x tile (BM x BK, rows AP apart) times the staged w tile
+// (BK x BN, k-major) on this thread's TM x TN register micro-tile: rows
+// ty + TY * i, columns tile_col(tx, j).
+template <class T>
+__device__ __forceinline__ void multiply_stage(const float* As, const float* Bs,
+                                               float (&acc)[T::TM][T::TN], int tx, int ty) {
+  constexpr int BK = T::BK, BN = T::BN, TM = T::TM, TN = T::TN, TX = T::TX, TY = T::TY;
+  constexpr int AP = T::AP;
+#pragma unroll
+  for (int k4 = 0; k4 < BK; k4 += 4) {
+    float4 av[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      av[i] = *reinterpret_cast<const float4*>(As + (ty + TY * i) * AP + k4);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float bv[TN];
+#pragma unroll
+      for (int h = 0; h < TN / 4; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(Bs + (k4 + q) * BN + h * 4 * TX + tx * 4);
+        bv[4 * h] = v.x; bv[4 * h + 1] = v.y; bv[4 * h + 2] = v.z; bv[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float ai = q == 0 ? av[i].x : q == 1 ? av[i].y : q == 2 ? av[i].z : av[i].w;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(ai, bv[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// The tile's sum to the output through store4(r, c, v), r a row and c the
+// first of 4 columns of the tile: straight from the registers when one CTA
+// covers the contraction (CL == 1); else each CTA's partial tile into its
+// own shared memory (the ring is drained and free), then row share `rank`
+// of the tile summed over the cluster in rank order through distributed
+// shared memory: deterministic, no atomics, no workspace.
+template <class T, class Store>
+__device__ __forceinline__ void finish(float (&acc)[T::TM][T::TN], float* smem, int CL, int rank,
+                                       int tid, int tx, int ty, Store store4) {
+  constexpr int BM = T::BM, BN = T::BN, TM = T::TM, TN = T::TN, TY = T::TY, PS = T::PS;
+  if (CL == 1) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int h = 0; h < TN / 4; ++h)
+        store4(ty + TY * i, tile_col<T>(tx, 4 * h),
+               make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]));
+    return;
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  float* P = smem;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int h = 0; h < TN / 4; ++h)
+      *reinterpret_cast<float4*>(P + (ty + TY * i) * PS + tile_col<T>(tx, 4 * h)) =
+          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every partial of the tile is in place
+  const int per = (BM + CL - 1) / CL;
+  const int r_lo = min(BM, rank * per);
+  const int r_hi = min(BM, r_lo + per);
+  for (int e = tid; e < (r_hi - r_lo) * (BN / 4); e += T::THREADS) {
+    const int r = r_lo + e / (BN / 4);
+    const int c = (e % (BN / 4)) * 4;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < CL; ++q) {  // rank order: the same sum on every run
+      const float4 v = *reinterpret_cast<const float4*>(cluster.map_shared_rank(P, q) + r * PS + c);
+      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    store4(r, c, s);
+  }
+  cluster.sync();  // no CTA leaves while another reads its shared memory
+}
+
+struct GatherArgs {
+  const float* x;
+  const float* w;
+  const int* kept;    // (n_post_hcu, n_pre_hcu): each hidden HCU's kept input HCUs, ascending
+  const int* counts;  // (n_post_hcu,): how many of its entries are kept
+  const float* bias;
+  float* out;
+  int M, K, N, CL;
+  int n_pre_hcu, pre_mcu, n_post_hcu, post_mcu;
+  int tiles_c;  // column tiles of a hidden HCU
+};
+
+// The gathered variant: hidden HCU h's output columns from its kept input
+// units alone (the note at the head of this file).  VN: 16-byte w and
+// output (N % 4 == 0, aligned bases); PAIR: two-unit input HCUs copied as
+// one 8-byte piece of x.
+template <class T, bool VN, bool BIAS, bool PAIR>
+__global__ void __launch_bounds__(T::THREADS, T::MINB) masked_matmul_kernel(GatherArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int BM = T::BM, BN = T::BN, BK = T::BK, TM = T::TM, TN = T::TN, TY = T::TY;
+  constexpr int THREADS = T::THREADS, AP = T::AP, NSTAGE = T::NSTAGE;
+  constexpr int STAGE = stage_floats<T, false>();
+  constexpr int XSLOT = PAIR ? BK / 2 : BK;  // x copies in one row of a stage
+  constexpr int XROWS = THREADS / XSLOT;     // rows one pass of the CTA's x copies covers
+  constexpr int WQ = BN / 4;                 // 4-column pieces of a staged w row
+  constexpr int WROWS = THREADS / WQ;        // w rows one pass covers
+  constexpr int WPASS = BK / WROWS;
+  static_assert(THREADS % XSLOT == 0 && THREADS % WQ == 0 && BK % WROWS == 0 && BK % 2 == 0,
+                "gathered staging");
+  const float* __restrict__ x = a.x;
+  const float* __restrict__ w = a.w;
+  const int M = a.M, K = a.K, N = a.N, CL = a.CL;
+
+  // Tiles in the order column tile, hidden HCU, row block: the HCUs of one
+  // row block run side by side and share its x in L2.
+  const int rank = static_cast<int>(blockIdx.x) % CL;
+  int tile = static_cast<int>(blockIdx.x) / CL;
+  const int jc = tile % a.tiles_c;
+  tile /= a.tiles_c;
+  const int hh = tile % a.n_post_hcu;
+  const int m0 = (tile / a.n_post_hcu) * BM;
+  const int lo = hh * a.post_mcu, hi = lo + a.post_mcu;  // the HCU's columns
+  const int n0 = (VN ? lo & ~3 : lo) + jc * BN;
+  if (n0 >= hi) return;  // nothing of the HCU here: the cluster shares the tile and leaves whole
+
+  const int* __restrict__ kept = a.kept + static_cast<size_t>(hh) * a.n_pre_hcu;
+  const int units = __ldg(a.counts + hh) * a.pre_mcu;  // kept input units of the HCU
+  const int stages = (units + BK - 1) / BK;
+  const int t_lo = stages * rank / CL;  // this rank's share of the stages
+  const int nk = stages * (rank + 1) / CL - t_lo;
+  const int u_lo = t_lo * BK;
+  const int u_hi = min(units, u_lo + nk * BK);
+
+  // Threads down the tile fastest: a warp reads 4 column groups of the
+  // staged w tile and 8 rows of x, one shared-memory wavefront each.
+  const int tid = threadIdx.x;
+  const int ty = tid % TY;
+  const int tx = tid / TY;
+
+  // The column of x and row of w of kept unit u of this HCU; -1 past the slice.
+  auto row_of = [&](int u) -> int {
+    if (u >= u_hi) return -1;
+    if constexpr (PAIR) {
+      return 2 * __ldg(kept + (u >> 1)) + (u & 1);
+    } else {
+      const int q = u / a.pre_mcu;
+      return __ldg(kept + q) * a.pre_mcu + (u - q * a.pre_mcu);
+    }
+  };
+  const int xu = (tid % XSLOT) * (PAIR ? 2 : 1);  // this thread's unit in every x copy
+  const int wu = tid / WQ;                        // its first w row of a stage
+  const int wn = (tid % WQ) * 4;                  // and the 4 columns it copies
+  int xr, wr[WPASS];  // the rows of those units in the next stage to fetch
+  auto rows_of_stage = [&](int t) {
+    const int u0 = u_lo + t * BK;
+    xr = row_of(u0 + xu);
+#pragma unroll
+    for (int j = 0; j < WPASS; ++j) wr[j] = row_of(u0 + wu + j * WROWS);
+  };
+
+  // The stage whose rows xr, wr hold into ring buffer buf; zeros past the
+  // slice, the rows and the columns.
+  auto fetch = [&](int buf) {
+    float* As = smem + buf * STAGE;
+    float* Bs = As + BM * AP;
+    for (int m = tid / XSLOT; m < BM; m += XROWS) {
+      const bool ok = xr >= 0 && m0 + m < M;
+      const float* src = x + (ok ? static_cast<size_t>(m0 + m) * K + xr : 0);
+      if constexpr (PAIR) {
+        copy_async<8>(As + m * AP + xu, src, ok);
+      } else {
+        copy_async<4>(As + m * AP + xu, src, ok);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < WPASS; ++j) {
+      const int r = wr[j];
+      float* dst = Bs + (wu + j * WROWS) * BN + wn;
+      if constexpr (VN) {
+        const bool ok = r >= 0 && n0 + wn < N;  // N % 4 == 0: all 4 or none
+        copy_async<16>(dst, w + (ok ? static_cast<size_t>(r) * N + n0 + wn : 0), ok);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bool ok = r >= 0 && n0 + wn + q < N;
+          copy_async<4>(dst + q, w + (ok ? static_cast<size_t>(r) * N + n0 + wn + q : 0), ok);
+        }
+      }
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  // The ring as in the dense kernel; each fetch then reads the list entries
+  // of the stage after it.
+  rows_of_stage(0);
+#pragma unroll
+  for (int s = 0; s < NSTAGE - 1; ++s) {
+    if (s < nk) {
+      fetch(s);
+      rows_of_stage(s + 1);
+    }
+    __pipeline_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt % NSTAGE;
+    __pipeline_wait_prior(NSTAGE - 2);
+    __syncthreads();  // stage kt is visible; buffer (kt - 1) % NSTAGE is free
+    if (kt + NSTAGE - 1 < nk) {
+      fetch((kt + NSTAGE - 1) % NSTAGE);
+      rows_of_stage(kt + NSTAGE);
+    }
+    __pipeline_commit();
+    multiply_stage<T>(smem + buf * STAGE, smem + buf * STAGE + BM * AP, acc, tx, ty);
+  }
+
+  // Store 4 consecutive columns of tile row r from tile column c, bias
+  // added, keeping only the columns of this HCU.
+  auto store4 = [&](int r, int c, float4 v) {
+    const int gm = m0 + r, gn = n0 + c;
+    if (gm >= M || gn >= hi) return;
+    float* dst = a.out + static_cast<size_t>(gm) * N;
+    float vals[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if constexpr (BIAS) vals[q] += (gn + q >= lo && gn + q < hi) ? __ldg(a.bias + gn + q) : 0.f;
+    if (VN && gn >= lo && gn + 4 <= hi) {
+      *reinterpret_cast<float4*>(dst + gn) = make_float4(vals[0], vals[1], vals[2], vals[3]);
+      return;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (gn + q >= lo && gn + q < hi) dst[gn + q] = vals[q];
+  };
+
+  finish<T>(acc, smem, CL, rank, tid, tx, ty, store4);
+}
+
+// The gathered variant's kept lists, one CTA a hidden HCU h: the input HCUs
+// i with mask[i, h] != 0 (mask: n_pre_hcu x n_post_hcu, row-major) in
+// ascending order, compacted a block of i at a time (warp ballots, then the
+// warps' counts in order), and their count.
+__global__ void __launch_bounds__(256) build_kept_lists(const float* __restrict__ mask, int n_pre,
+                                                        int n_post, int* __restrict__ kept,
+                                                        int* __restrict__ counts) {
+  __shared__ int warp_kept[8];
+  const int h = blockIdx.x;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int* out = kept + static_cast<size_t>(h) * n_pre;
+  int base = 0;
+  for (int i0 = 0; i0 < n_pre; i0 += 256) {
+    const int i = i0 + static_cast<int>(threadIdx.x);
+    const bool on = i < n_pre && mask[static_cast<size_t>(i) * n_post + h] != 0.f;
+    const unsigned ballot = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) warp_kept[warp] = __popc(ballot);
+    __syncthreads();
+    int before = __popc(ballot & ((1u << lane) - 1u)), total = 0;
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      before += v < warp ? warp_kept[v] : 0;
+      total += warp_kept[v];
+    }
+    if (on) out[base + before] = i;
+    base += total;
+    __syncthreads();  // warp_kept is written again in the next block
+  }
+  if (threadIdx.x == 0) counts[h] = base;
+}
+
+// Launch `kernel` over `ctas` CTAs of `threads` threads in clusters of `cl`
+// CTAs, with `smem` bytes of dynamic shared memory (set on every call: above
+// 48 KB it needs the attribute).
+template <class A>
+int launch_clusters(void (*kernel)(A), const A& a, int ctas, int threads, size_t smem, int cl,
+                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int tiles = ((a.M + T::BM - 1) / T::BM) * ((a.N + T::BN - 1) / T::BN);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * a.CL);
-  cfg.blockDim = dim3(T::THREADS);
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.CL;
+  attr[0].val.clusterDim.x = cl;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -414,6 +730,13 @@ int launch(const Args& a, cudaStream_t stream) {
   err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return err;
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class T, bool VA, bool VN, bool MASK, bool BIAS, bool ROUND>
+int launch(const Args& a, cudaStream_t stream) {
+  const int tiles = ((a.M + T::BM - 1) / T::BM) * ((a.N + T::BN - 1) / T::BN);
+  return launch_clusters<Args>(masked_matmul_kernel<T, VA, VN, MASK, BIAS, ROUND>, a, tiles * a.CL,
+                               T::THREADS, smem_floats<T, MASK>() * sizeof(float), a.CL, stream);
 }
 
 using Launcher = int (*)(const Args&, cudaStream_t);
@@ -462,4 +785,57 @@ extern "C" int masked_matmul_f32(const float* x, const float* w, const float* ma
     case 1: return dispatch<Narrow>(a, variant, stream, all);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The gathered variant's kept lists from the (n_pre_hcu, n_post_hcu) f32
+// HCU mask: kept (n_post_hcu, n_pre_hcu) int32, each row's first counts[h]
+// entries the kept input HCUs in ascending order, the rest left as they are.
+extern "C" int masked_matmul_kept_lists(const float* hcu_mask, int n_pre_hcu, int n_post_hcu,
+                                        int* kept, int* counts, cudaStream_t stream) {
+  if (n_pre_hcu <= 0 || n_post_hcu <= 0) return cudaErrorInvalidValue;
+  build_kept_lists<<<n_post_hcu, 256, 0, stream>>>(hcu_mask, n_pre_hcu, n_post_hcu, kept, counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+template <int I>
+int launch_gathered(const GatherArgs& a, int ctas, cudaStream_t stream) {
+  using T = Gathered;
+  return launch_clusters<GatherArgs>(
+      masked_matmul_kernel<T, (I & 4) != 0, (I & 1) != 0, (I & 2) != 0>, a, ctas * a.CL,
+      T::THREADS, smem_floats<T, false>() * sizeof(float), a.CL, stream);
+}
+
+bool aligned8(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 8 == 0; }
+
+}  // namespace
+
+// The gathered product: x (M, n_pre_hcu * pre_mcu) @ w (.., n_post_hcu *
+// post_mcu) through the HCU mask whose kept lists masked_matmul_kept_lists
+// made, + bias, into out; the kept list of each hidden HCU split over
+// clusters of cl CTAs.
+extern "C" int masked_matmul_gathered_f32(const float* x, const float* w, const int* kept,
+                                          const int* counts, const float* bias, float* out, int M,
+                                          int n_pre_hcu, int pre_mcu, int n_post_hcu,
+                                          int post_mcu, int cl, cudaStream_t stream) {
+  if (M <= 0 || n_pre_hcu <= 0 || pre_mcu <= 0 || n_post_hcu <= 0 || post_mcu <= 0 || cl < 1 ||
+      cl > 8)
+    return cudaErrorInvalidValue;
+  const long long K = static_cast<long long>(n_pre_hcu) * pre_mcu;
+  const long long N = static_cast<long long>(n_post_hcu) * post_mcu;
+  if (K > INT_MAX || N > INT_MAX) return cudaErrorInvalidValue;
+  const bool vn = N % 4 == 0 && aligned16(w) && aligned16(out);
+  const bool pair = pre_mcu == 2 && aligned8(x);
+  const int tiles_c = (post_mcu + (vn ? 3 : 0) + Gathered::BN - 1) / Gathered::BN;
+  const long long ctas = static_cast<long long>((M + Gathered::BM - 1) / Gathered::BM) *
+                         n_post_hcu * tiles_c;
+  if (ctas * cl > INT_MAX) return cudaErrorInvalidValue;
+  const GatherArgs a{x, w, kept, counts, bias, out, M, static_cast<int>(K), static_cast<int>(N),
+                     cl, n_pre_hcu, pre_mcu, n_post_hcu, post_mcu, tiles_c};
+  const int variant = (vn ? 4 : 0) | (pair ? 2 : 0) | (bias != nullptr ? 1 : 0);
+  static constexpr int (*table[])(const GatherArgs&, int, cudaStream_t) = {
+      launch_gathered<0>, launch_gathered<1>, launch_gathered<2>, launch_gathered<3>,
+      launch_gathered<4>, launch_gathered<5>, launch_gathered<6>, launch_gathered<7>};
+  return table[variant](a, static_cast<int>(ctas), stream);
 }

@@ -41,11 +41,13 @@ DATAPATH_MODES = ("masked_matmul", "hcu_softmax", "bcpnn_update")
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last :func:`reset_launches`
     (every mode), under ``"<kernel>.datapath"`` those of them in the
-    datapath mode, and under ``"bcpnn_update.means"`` the update's launches
-    in its reduced-means mode."""
+    datapath mode, under ``"bcpnn_update.means"`` the update's launches
+    in its reduced-means mode, and under ``"masked_matmul.gathered"``
+    ``masked_matmul``'s launches of its gathered variant."""
     counts = {name: mod.launches for name, mod in KERNELS.items()}
     counts.update({f"{name}.datapath": KERNELS[name].datapath_launches for name in DATAPATH_MODES})
     counts["bcpnn_update.means"] = _bk.means_launches
+    counts["masked_matmul.gathered"] = _mk.gathered_launches
     return counts
 
 
@@ -55,6 +57,7 @@ def reset_launches() -> None:
     for name in DATAPATH_MODES:
         KERNELS[name].datapath_launches = 0
     _bk.means_launches = 0
+    _mk.gathered_launches = 0
 
 
 def _state_spec(state_format) -> Tuple[Optional[int], Optional[torch.dtype]]:
@@ -86,14 +89,39 @@ def masked_matmul(
     round_mantissa: Optional[int] = None,
     gain: float = 1.0,
     use_kernels: Optional[bool] = None,
+    hcu_mask: Optional[torch.Tensor] = None,
+    pre_mcu: Optional[int] = None,
+    post_mcu: Optional[int] = None,
+    fan_in: Optional[int] = None,
 ) -> torch.Tensor:
     """``mask=None`` reaches the kernel as a null pointer: no ones matrix.
     ``round_mantissa``: the datapath's support stage, every operand, the
-    sum and then the sum times ``gain`` rounded inside the kernel."""
+    sum and then the sum times ``gain`` rounded inside the kernel.
+    ``hcu_mask`` (per hypercolumn pair, with the two layouts' minicolumns
+    ``pre_mcu`` / ``post_mcu``; ``fan_in`` guides the plan) in place of
+    ``mask``: the gathered variant, only where :func:`masked_matmul_gathers`
+    says so (elsewhere it raises, and the caller passes the expanded
+    ``mask=``)."""
     return _mk.masked_matmul(
         x, w, b, mask=mask, round_mantissa=round_mantissa, gain=gain,
-        plain=use_kernels is False,
+        plain=use_kernels is False, hcu_mask=hcu_mask, pre_mcu=pre_mcu, post_mcu=post_mcu,
+        fan_in=fan_in,
     )
+
+
+def masked_matmul_gathers(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor],
+    hcu_mask: torch.Tensor,
+    pre_mcu: int,
+    post_mcu: int,
+    fan_in: Optional[int] = None,
+    use_kernels: Optional[bool] = None,
+) -> bool:
+    """Whether :func:`masked_matmul` with these ``hcu_mask=`` arguments
+    launches the gathered variant (never on the CPU)."""
+    return _mk.gathers(x, w, b, hcu_mask, pre_mcu, post_mcu, fan_in, plain=use_kernels is False)
 
 
 def bf_round(

@@ -166,6 +166,25 @@ def masked_matmul(
     return s + b if b is not None else s
 
 
+def unit_mask(hcu_mask: torch.Tensor, pre_mcu: int, post_mcu: int) -> torch.Tensor:
+    """The (n_pre_hcu, n_post_hcu) mask per hypercolumn pair expanded to
+    the (F, H) unit mask: each entry repeated over the pre HCU's
+    ``pre_mcu`` rows and the post HCU's ``post_mcu`` columns."""
+    return hcu_mask.repeat_interleave(pre_mcu, dim=0).repeat_interleave(post_mcu, dim=1)
+
+
+def kept_lists(hcu_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kept lists of ``masked_matmul``'s gathered variant: ``kept``
+    (n_post_hcu, n_pre_hcu) int32, row h the input HCUs i with
+    ``hcu_mask[i, h] != 0`` in ascending order, then zeros (the kernel
+    leaves the tail unwritten), and ``counts`` (n_post_hcu,) int32."""
+    on = (hcu_mask != 0).T
+    counts = on.sum(dim=1, dtype=torch.int32)
+    order = torch.sort((~on).to(torch.int8), dim=1, stable=True).indices.to(torch.int32)
+    head = torch.arange(on.shape[1], device=on.device)[None, :] < counts[:, None]
+    return torch.where(head, order, torch.zeros_like(order)), counts
+
+
 def bf_round(x: torch.Tensor, mantissa_bits: int) -> torch.Tensor:
     """Round-to-nearest-even truncation of the f32 mantissa to
     ``mantissa_bits`` (sign and 8-bit exponent kept); 23 is the identity and

@@ -351,6 +351,223 @@ def test_hcu_softmax_shapes(card, shape):
         assert torch.equal(got, ops.hcu_softmax(t, n_hcu, n_mcu))
 
 
+# --- masked_matmul's gathered variant (hcu_mask=) ---
+
+# The gathered sums run over a hidden HCU's kept units (2,048 at the
+# STL-10 width) in another order than the plain version's product over the
+# expanded mask.  Two orders of an f32 sum of n terms whose partial sums are
+# of order 1 differ by at most about n * 2^-24: 1.2e-4 at n = 2,048.
+GATHER_TOL = dict(rtol=1e-4, atol=2048 * 2.0 ** -24)
+STL = (27648, 2, 20, 150, 1024)  # n_pre_hcu, pre_mcu, n_post_hcu, post_mcu, fan_in
+
+
+def _hcu_mask(n_pre, n_post, fan_in, device, seed=11, counts=None):
+    """A random (n_pre, n_post) 0/1 mask keeping ``fan_in`` input HCUs in
+    each hidden HCU's column, or ``counts[h]`` in column h."""
+    rng = np.random.default_rng(seed)
+    counts = [fan_in] * n_post if counts is None else counts
+    m = np.zeros((n_pre, n_post), dtype=np.float32)
+    for h, c in enumerate(counts):
+        m[rng.permutation(n_pre)[:c], h] = 1.0
+    return torch.as_tensor(m, device=device)
+
+
+def _gather_inputs(m, n_pre, pre_mcu, n_post, post_mcu, device, seed=3):
+    rng = np.random.default_rng(seed)
+    k, n = n_pre * pre_mcu, n_post * post_mcu
+    x = torch.as_tensor(rng.random((m, k), dtype=np.float32), device=device)
+    w = torch.as_tensor(rng.standard_normal((k, n), dtype=np.float32) * 0.1, device=device)
+    b = torch.as_tensor(rng.standard_normal(n, dtype=np.float32) * 0.1, device=device)
+    return x, w, b
+
+
+def _gathered(x, w, b, hm, pre_mcu, post_mcu, fan_in=None, cl=None):
+    """The gathered kernel's product, at the plan's CL or at ``cl``."""
+    assert mk.gathers(x, w, b, hm, pre_mcu, post_mcu, fan_in) or cl is not None
+    if cl is None:
+        return ops.masked_matmul(x, w, b, hcu_mask=hm, pre_mcu=pre_mcu, post_mcu=post_mcu,
+                                 fan_in=fan_in)
+    out = torch.empty((x.shape[0], w.shape[1]), device=x.device)
+    p = mk.Plan("gathered", cl, 0, 0, 0)
+    return mk.launch_gathered(x, w, b, hm, pre_mcu, post_mcu, out, p)
+
+
+def _want(x, w, b, hm, pre_mcu, post_mcu):
+    return ref.masked_matmul(x, w, b, ref.unit_mask(hm, pre_mcu, post_mcu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [128, 1024])
+def test_gathered_stl10_width(card, rows):
+    """The main path's shapes: 55,296 x 3,000, 1,024 of 27,648 input HCUs
+    kept a hidden HCU (the odd HCUs' columns 8-byte aligned only), one
+    gathered launch a product."""
+    n_pre, pre_mcu, n_post, post_mcu, fan_in = STL
+    x, w, b = _gather_inputs(rows, n_pre, pre_mcu, n_post, post_mcu, card)
+    hm = _hcu_mask(n_pre, n_post, fan_in, card)
+    ops.reset_launches()
+    got = _gathered(x, w, b, hm, pre_mcu, post_mcu, fan_in)
+    counts = ops.launch_counts()
+    assert counts["masked_matmul"] == counts["masked_matmul.gathered"] == 1
+    torch.testing.assert_close(got, _want(x, w, b, hm, pre_mcu, post_mcu), **GATHER_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cl", range(1, mk.MAX_CLUSTER + 1))
+@pytest.mark.parametrize("shape", [
+    (130, 300, 2, 8, 150, 40),   # ragged rows; odd HCUs start 8 bytes past 16
+    (65, 97, 2, 5, 200, 30),     # 200 minicolumns: two column tiles a HCU
+    (33, 50, 3, 3, 7, 20),       # three-unit input HCUs; N % 4 != 0
+    (17, 64, 1, 6, 161, 64),     # one-unit input HCUs, the full mask
+])
+def test_gathered_every_cluster_size(card, shape, cl):
+    m, n_pre, pre_mcu, n_post, post_mcu, fan_in = shape
+    x, w, b = _gather_inputs(m, n_pre, pre_mcu, n_post, post_mcu, card)
+    hm = _hcu_mask(n_pre, n_post, fan_in, card)
+    got = _gathered(x, w, b, hm, pre_mcu, post_mcu, cl=cl)
+    torch.testing.assert_close(got, _want(x, w, b, hm, pre_mcu, post_mcu), **GATHER_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_bias", [True, False])
+def test_gathered_unequal_and_empty_lists(card, use_bias):
+    """Unequal kept counts (a loaded checkpoint), a hidden HCU with none
+    kept (its columns are the bias alone), one with all kept."""
+    n_pre, n_post, post_mcu = 500, 6, 150
+    x, w, b = _gather_inputs(96, n_pre, 2, n_post, post_mcu, card)
+    b = b if use_bias else None
+    hm = _hcu_mask(n_pre, n_post, 0, card, counts=[10, 0, 250, n_pre, 1, 37])
+    for cl in (1, 3, 8):
+        got = _gathered(x, w, b, hm, 2, post_mcu, cl=cl)
+        torch.testing.assert_close(got, _want(x, w, b, hm, 2, post_mcu), **GATHER_TOL)
+        cols = slice(post_mcu, 2 * post_mcu)
+        want = torch.zeros_like(got[:, cols]) if b is None else b[cols].expand_as(got[:, cols])
+        assert torch.equal(got[:, cols], want)
+
+
+@pytest.mark.cuda
+def test_gathered_unaligned_bases(card):
+    """x 4 bytes past an 8-byte boundary (no 8-byte pieces), w and the
+    output not 16-byte aligned (4-byte copies)."""
+    x, w, b = _gather_inputs(40, 200, 2, 4, 150, card)
+    hm = _hcu_mask(200, 4, 60, card)
+    want = _want(x, w, b, hm, 2, 150)
+    for xt, wt in ((_unaligned(x), w), (x, _unaligned(w)), (_unaligned(x), _unaligned(w))):
+        got = _gathered(xt, wt, b, hm, 2, 150, cl=2)
+        torch.testing.assert_close(got, want, **GATHER_TOL)
+
+
+@pytest.mark.cuda
+def test_gathered_is_deterministic(card):
+    """Two calls agree bit for bit (the split's rank-order sum)."""
+    n_pre, pre_mcu, n_post, post_mcu, fan_in = STL
+    x, w, b = _gather_inputs(128, n_pre, pre_mcu, n_post, post_mcu, card)
+    hm = _hcu_mask(n_pre, n_post, fan_in, card)
+    assert mk.plan(*mk._gathered_key(x, w, hm, pre_mcu, post_mcu, fan_in)).cl > 1
+    first = _gathered(x, w, b, hm, pre_mcu, post_mcu, fan_in)
+    second = _gathered(x, w, b, hm, pre_mcu, post_mcu, fan_in)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_hcu_mask_entry_refuses_a_dense_plan(card):
+    """At the MNIST width (392 of 784 input HCUs kept) the plan is dense:
+    ``hcu_mask=`` raises, as it does with the plain versions asked for, and
+    launches nothing; the layer step passes the expanded mask there."""
+    x, w, b = _gather_inputs(128, 784, 2, 30, 100, card)
+    hm = _hcu_mask(784, 30, 392, card)
+    assert not mk.gathers(x, w, b, hm, 2, 100, 392)
+    ops.reset_launches()
+    for plain in (False, True):
+        with pytest.raises(ValueError, match="expanded mask"):
+            mk.masked_matmul(x, w, b, hcu_mask=hm, pre_mcu=2, post_mcu=100, fan_in=392,
+                             plain=plain)
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts", [None, [5, 0, 300, 1], [300] * 4, [0] * 4])
+def test_kept_lists_match_plain(card, counts):
+    hm = _hcu_mask(300, 4, 17, card, counts=counts)
+    kept, n = mk.kept_lists(hm)
+    want_kept, want_n = ref.kept_lists(hm)
+    assert torch.equal(n, want_n)
+    for h in range(4):
+        assert torch.equal(kept[h, :int(n[h])], want_kept[h, :int(n[h])])
+    assert mk.kept_lists(hm)[0] is kept, "cached by the mask's identity"
+    hm.mul_(1.0)  # changed in place: built again
+    assert mk.kept_lists(hm)[0] is not kept
+
+
+@pytest.mark.cuda
+def test_gathered_one_kernel_launch_in_a_trace(card):
+    """One device operation matching masked_matmul_kernel a product (the
+    benchmark's roofline finds kernels by that symbol); the list-building kernel,
+    launched on the mask's first use, matches no kernel's symbol."""
+    import re
+
+    n_pre, pre_mcu, n_post, post_mcu, fan_in = STL
+    x, w, b = _gather_inputs(128, n_pre, pre_mcu, n_post, post_mcu, card)
+    hm = _hcu_mask(n_pre, n_post, fan_in, card)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            _gathered(x, w, b, hm, pre_mcu, post_mcu, fan_in)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = [n for n in names if re.search(r"\bmasked_matmul_kernel\b", n)]
+    assert len(ours) == 2, names
+    builds = [n for n in names if "build_kept_lists" in n]
+    assert len(builds) == 1, names
+    assert not any(re.search(rf"\b{k}_kernel\b", n) for n in builds
+                   for k in ops.KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strict", [False, True])
+def test_gathered_fit_on_card_matches_cpu(card, strict):
+    """A Listing 1 fit at a width whose hidden product gathers (50 of 2,000
+    input HCUs kept a hidden HCU): every hidden product, and only those, is
+    one gathered launch, counted alike by ``ops.launch_counts()`` and the
+    tracer, with no unit mask expanded for a projection; the states and
+    scores hold to the CPU's plain fit; strict mode sees one plan a shape
+    (its fit alone: a predict on the test split is a new projection
+    signature, which strict mode refuses)."""
+    ds = mnist_like(n_train=256, n_test=64, n_features=2000, seed=0)
+    x, layout = complementary_code(ds.x_train)
+    xt, _ = complementary_code(ds.x_test)
+    hidden = UnitLayout(4, 150)
+    net = Network(seed=0)
+    net.add(StructuralPlasticityLayer(layout, hidden, fan_in=50, lam=0.05, gain=4.0,
+                                      mask_update_every=2))
+    net.add(DenseLayer(hidden, onehot_layout(10), lam=0.05))
+    gpu = net.compile(ExecutionConfig(strict=strict))
+    cpu = net.compile(ExecutionConfig(device="cpu"))
+    assert mk.plan(64, 4000, 600, mk.n_sm(card), 100, 150).config == "gathered"
+    ops.reset_launches()
+    with gpu.tracing() as tr:
+        gpu.fit((x, ds.y_train), epochs_hidden=1, epochs_readout=1, batch_size=64)
+        got = None if strict else gpu.predict(xt, batch_size=32)
+    counts = ops.launch_counts()
+    cpu.fit((x, ds.y_train), epochs_hidden=1, epochs_readout=1, batch_size=64)
+    hidden_steps = [s for s in tr.spans("layer.step") if s.attrs["layer"] == 0]
+    projects = tr.spans("store.project")
+    want = len(hidden_steps) + sum(p.attrs["chunks"] for p in projects)
+    assert counts["masked_matmul.gathered"] == tr.counters()["masked_matmul.gathered"] == want
+    assert counts["masked_matmul"] == want + len(tr.spans("predict.chunk"))  # + the head's
+    assert not [m for m in tr.spans("layer.unit_mask") if m.parent in {p.seq for p in projects}]
+    for sg, sc in zip(gpu.state.layers, cpu.state.layers):
+        torch.testing.assert_close(sg.w.cpu(), sc.w, rtol=1e-4, atol=1e-4)
+        if sc.plast is not None:
+            assert torch.equal(sg.plast.hcu_mask.cpu(), sc.plast.hcu_mask)
+    if not strict:
+        torch.testing.assert_close(got.cpu(), cpu.predict(xt, batch_size=32), rtol=1e-4,
+                                   atol=1e-5)
+    else:
+        sizes = gpu._sentinel.sizes()
+        assert any(k.endswith(">masked_matmul.plan") for k in sizes)
+        assert all(v == 1 for v in sizes.values()), sizes
+
+
 # --- the training pair: bcpnn_update at every launch plan, both kernels
 # deterministic at the main path's shapes ---
 

@@ -215,15 +215,15 @@ def test_gain_needs_the_rounding_mode():
 
 
 def test_launch_counts_name_the_modes():
-    """The counters: one per kernel (every mode), one per datapath mode
-    and one for the update's reduced-means mode; on the CPU nothing
-    launches."""
+    """The counters: one per kernel (every mode), one per datapath mode,
+    one for the update's reduced-means mode and one for the product's
+    gathered variant; on the CPU nothing launches."""
     ops.reset_launches()
     ops.masked_matmul(torch.ones(2, 3), torch.ones(3, 4), None, round_mantissa=7)
     counts = ops.launch_counts()
     assert set(counts) == set(ops.KERNELS) | {
         "masked_matmul.datapath", "hcu_softmax.datapath", "bcpnn_update.datapath",
-        "bcpnn_update.means"}
+        "bcpnn_update.means", "masked_matmul.gathered"}
     assert not any(counts.values())
 
 

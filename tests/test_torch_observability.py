@@ -11,6 +11,7 @@ and snapshot-consistency cases are those of the reference's
 instruments, so their snapshots and rendered text are also held equal to
 the reference's on the same inputs (the reference's bundle also carries the
 decode plan's histograms, which the port brings with that slice)."""
+import contextlib
 import dataclasses
 import json
 import os
@@ -38,6 +39,7 @@ from repro_torch.core import (
     onehot_layout,
 )
 from repro_torch.data import complementary_code, mnist_like
+from repro_torch.kernels import ops
 from repro_torch.runtime import (
     DriftWindow,
     EngineRestart,
@@ -60,6 +62,7 @@ from repro_torch.runtime import (
 )
 from repro_torch.runtime import trace
 from repro_torch.runtime.service import ServePlan
+from torch_plain_gathering import plain_gathering
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -727,17 +730,23 @@ class TestListing1Spans:
         )).add(DenseLayer(hidden, onehot_layout(10), lam=0.05))
         return net.compile(ExecutionConfig(device="cpu", trace=trace))
 
-    @pytest.fixture(scope="class")
-    def run(self, data):
+    @pytest.fixture(scope="class", params=["dense", "gathered"])
+    def run(self, request, data):
+        """The traced fit and evaluate, with the hidden product dense over
+        the unit mask (the CPU's path), or gathered over the HCU mask (the
+        card's path at a low fan-in, its launch stood in for on the CPU)."""
         ds, x, layout = data
         compiled = self._compiled(layout, TraceConfig())
         assert layout.n_hcu > 16 and compiled.activations is not None
-        res = compiled.fit((x, ds.y_train), **self.KW)
-        fit_projections = compiled.activations.stats["projections"]
-        compiled.evaluate((x[:40], ds.y_train[:40]), batch_size=16)
+        ops.reset_launches()
+        with plain_gathering() if request.param == "gathered" else contextlib.nullcontext():
+            res = compiled.fit((x, ds.y_train), **self.KW)
+            fit_projections = compiled.activations.stats["projections"]
+            compiled.evaluate((x[:40], ds.y_train[:40]), batch_size=16)
         by_seq = {s.seq: s for s in compiled.tracer.spans()}
         return dict(compiled=compiled, res=res, tr=compiled.tracer, by_seq=by_seq,
-                    fit_projections=fit_projections, batches=x.shape[0] // 64)
+                    fit_projections=fit_projections, batches=x.shape[0] // 64,
+                    gathered=request.param == "gathered", launches=ops.launch_counts())
 
     def parent(self, run, span):
         return run["by_seq"][span.parent].name if span.parent is not None else None
@@ -783,10 +792,23 @@ class TestListing1Spans:
         assert fit_proj.attrs["rows"] == 128 and fit_proj.attrs["chunks"] == 2
         assert eval_proj.attrs["rows"] == 40 and eval_proj.attrs["chunks"] == 3
         assert fit_proj.attrs["bytes"] == 128 * 32 * 4 and fit_proj.attrs["spilled"] is False
-        # each projection chunk expands the mask once, under the projection
+        # a projection chunk expands the mask once, under the projection,
+        # unless its product gathers over the HCU mask
         for p in projects:
             kids = [m for m in tr.spans("layer.unit_mask") if m.parent == p.seq]
-            assert len(kids) == p.attrs["chunks"]
+            assert len(kids) == (0 if run["gathered"] else p.attrs["chunks"])
+
+    def test_gathered_products_counted_at_the_forward(self, run):
+        """``masked_matmul.gathered`` on the tracer and among the launch
+        counts: every hidden product (training batches, the projections'
+        chunks) when the product gathers, none of the readout's; 0 on the
+        dense path."""
+        tr = run["tr"]
+        hidden = self.KW["epochs_hidden"] * run["batches"]
+        chunks = sum(p.attrs["chunks"] for p in tr.spans("store.project"))
+        want = hidden + chunks if run["gathered"] else 0
+        assert tr.counters().get("masked_matmul.gathered", 0) == want
+        assert run["launches"]["masked_matmul.gathered"] == want
 
     def test_parents_nest_as_documented(self, run):
         tr = run["tr"]

@@ -10,8 +10,9 @@ and with the program's tracer (off, on, on, off, ... for ``--rounds``), and
 prints one JSON line: each window's unit seconds, the last spans window's
 attribution (``bench.harness.spans.attribute``: device, host and idle
 seconds by span, the coverage, what no span launched), the program's
-counters over that window, and the five span metrics of
-``bench.harness.spans.METRICS`` for the cell's kind.  The whole record is
+counters over that window beside its kernel launches by
+``ops.launch_counts()`` (``masked_matmul.gathered`` in both), and the five
+span metrics of ``bench.harness.spans.METRICS`` for the cell's kind.  The whole record is
 also written to ``chiprun_out/spans/<cell>-<seed>.json``.  Without CUDA it
 exits 2 and prints nothing.
 """
@@ -32,6 +33,7 @@ def measure(spec, name: str, seed: int, device, rounds: int, files=None) -> dict
     import torch
 
     from bench.harness import cells, runner, spans
+    from repro_torch.kernels import ops
 
     c = runner.Cell(ROOT, spec, name, files)
     gen = cells.KINDS[c.traffic["kind"]](c.cfg, c.traffic, seed, device)
@@ -43,13 +45,16 @@ def measure(spec, name: str, seed: int, device, rounds: int, files=None) -> dict
     torch.set_num_threads(1)
     units = c.traffic["trace_iterations" if gen.kind == "train" else "trace_requests"]
     unit_s = {False: [], True: []}
-    last = None
+    last, launches = None, {}
     for r in range(rounds):
         for on in ((False, True) if r % 2 == 0 else (True, False)):
+            before = ops.launch_counts()
             window = spans.profiled_window(gen, units, device, spans=on)
             unit_s[on] += window["unit_s"]
             if on:
                 last = window
+                launches = {k: v - before[k] for k, v in ops.launch_counts().items()
+                            if v != before[k]}
     medians = {k: statistics.median(v) for k, v in unit_s.items()}
     metrics = {m: fn(dict(spans=last)) for m, (fn, kind) in spans.METRICS.items()
                if kind == gen.kind}
@@ -58,7 +63,7 @@ def measure(spec, name: str, seed: int, device, rounds: int, files=None) -> dict
                 unit_s_median=dict(traced=medians[False], spans=medians[True]),
                 tracing_cost=medians[True] / medians[False], unit_s=dict(
                     traced=unit_s[False], spans=unit_s[True]),
-                metrics=metrics, spans=last)
+                metrics=metrics, launches=launches, spans=last)
 
 
 def main(argv=None) -> int:
@@ -87,7 +92,7 @@ def main(argv=None) -> int:
         {k: out[k] for k in ("workload", "seed", "device", "setup_s", "units",
                              "unit_s_median", "tracing_cost", "metrics")},
         window_s=s["window_s"], busy_s=s["busy_s"], coverage=s["coverage"],
-        counters=s["counters"], by_span={k: v for k, v in top},
+        counters=s["counters"], launches=out["launches"], by_span={k: v for k, v in top},
         idle_by_span=sorted(s["idle_by_span"].items(), key=lambda kv: -kv[1])[:10],
         unattributed=sorted(s["unattributed"].items(), key=lambda kv: -kv[1])[:10])))
     return 0
