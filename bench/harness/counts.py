@@ -6,12 +6,16 @@ a product through the receptive-field mask counts only the pairs the mask
 keeps, as a sparse product counts what its inputs need.  The learning cycle
 counts every (i, j) pair, since structural plasticity reads all of C_ij.
 
-A launch is a tuple ``(kernel, shape)``; :func:`cost` gives its
-``(flops, bytes)`` and :func:`bound_s` its least time on a chip.
+A launch is a tuple ``(kernel, shape)``.  A shape counts itself: its
+``cost()`` gives its ``(flops, bytes)`` and its ``precision`` names the rate
+its operations run at (``"f32"`` or a key of :attr:`Peaks.rates`), so a kind of
+cell defines the shapes of its own launches in its own file.  :func:`bound_s`
+gives a launch's least time on a chip.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, NamedTuple, Tuple
+from types import MappingProxyType
+from typing import Dict, Iterable, Mapping, NamedTuple, Tuple
 
 F32 = 4  # bytes
 
@@ -26,6 +30,13 @@ class Forward(NamedTuple):
     units: int
     kept: int
     mask: int = 0
+    precision = "f32"
+
+    def cost(self) -> Tuple[float, float]:
+        r, f, u, k, m = self
+        flops = 2.0 * r * k * u + r * u  # kept multiply-adds, the bias
+        nbytes = F32 * (r * f + k * u + u + m + r * u)
+        return flops, nbytes
 
 
 class Softmax(NamedTuple):
@@ -33,6 +44,11 @@ class Softmax(NamedTuple):
 
     rows: int
     units: int
+    precision = "f32"
+
+    def cost(self) -> Tuple[float, float]:
+        r, u = self
+        return 4.0 * r * u, F32 * 2.0 * r * u  # max, exp, sum, divide
 
 
 class Update(NamedTuple):
@@ -44,20 +60,10 @@ class Update(NamedTuple):
     pre: int
     post: int
     mask: int = 0
+    precision = "f32"
 
-
-def cost(shape) -> Tuple[float, float]:
-    """(f32 operations, bytes) of one launch's work."""
-    if isinstance(shape, Forward):
-        r, f, u, k, m = shape
-        flops = 2.0 * r * k * u + r * u  # kept multiply-adds, the bias
-        nbytes = F32 * (r * f + k * u + u + m + r * u)
-        return flops, nbytes
-    if isinstance(shape, Softmax):
-        r, u = shape
-        return 4.0 * r * u, F32 * 2.0 * r * u  # max, exp, sum, divide
-    if isinstance(shape, Update):
-        r, i, j, m = shape
+    def cost(self) -> Tuple[float, float]:
+        r, i, j, m = self
         pairs = float(i) * j
         # The a_i^T a_j product's multiply-adds, the means of a_i and a_j,
         # and per pair one multiply-add of the EWMA and one subtraction of
@@ -66,18 +72,33 @@ def cost(shape) -> Tuple[float, float]:
         read = r * i + r * j + i + j + pairs + m
         written = i + j + pairs + pairs + j  # c_i, c_j, C_ij, w, b
         return flops, F32 * float(read + written)
-    raise TypeError(f"no cost for {shape!r}")
+
+
+def cost(shape) -> Tuple[float, float]:
+    """(operations, bytes) of one launch's work, as its shape counts them."""
+    return shape.cost()
 
 
 class Peaks(NamedTuple):
     flops: float  # f32 operations a second, outside the tensor cores
     bytes: float  # device memory bytes a second
+    rates: Mapping[str, float] = MappingProxyType({})  # operations a second, other precisions
+
+    def rate(self, precision: str) -> float:
+        """Operations a second at ``precision``: ``flops`` for f32."""
+        if precision == "f32":
+            return self.flops
+        if precision not in self.rates:
+            raise KeyError(f"no published rate for {precision!r} operations")
+        return self.rates[precision]
 
 
-# NVIDIA H100 SXM5 80GB data sheet, at its 700 W limit, dense rates: 67
-# TFLOP/s f32 outside the tensor cores (the port keeps TF32 off), 3.35 TB/s
-# of HBM3.
-H100 = Peaks(67e12, 3.35e12)
+# NVIDIA H100 SXM5 80GB data sheet, at its 700 W limit, dense rates (no
+# sparsity): 67 TFLOP/s f32 outside the tensor cores (the port keeps TF32
+# off), on the tensor cores 494.7 TF32, 989.4 bf16 and fp16 and 1,978.9 fp8;
+# 3.35 TB/s of HBM3.
+H100 = Peaks(67e12, 3.35e12, MappingProxyType(
+    {"tf32": 494.7e12, "bf16": 989.4e12, "fp16": 989.4e12, "fp8": 1978.9e12}))
 H100_NAME = "H100 80GB HBM3"  # in the name torch.cuda.get_device_name gives
 
 
@@ -91,10 +112,10 @@ def peaks_for(kind: str) -> Peaks:
 
 
 def bound_s(shape, peaks: Peaks) -> float:
-    """The least time the chip could take: operations over the f32 peak or
-    bytes over the bandwidth, whichever is larger."""
+    """The least time the chip could take: operations over the peak of the
+    launch's own precision or bytes over the bandwidth, whichever is larger."""
     flops, nbytes = cost(shape)
-    return max(flops / peaks.flops, nbytes / peaks.bytes)
+    return max(flops / peaks.rate(shape.precision), nbytes / peaks.bytes)
 
 
 def totals(launches: Iterable[Tuple[str, object]], peaks: Peaks) -> Dict[str, Dict[str, float]]:

@@ -1,6 +1,6 @@
 """Faults planted in the program under test, to show that the check catches
-them, and the control: the plain reference computed in the next lower
-precision (TF32 products) put in the program's place.
+them: those of the BCPNN kinds (``bench/kinds/train.py`` and ``score.py``
+name them in their ``faults``; a kind's control is its own ``control()``).
 
 Each fault is a context manager that patches the port's modules for the
 duration of a run:
@@ -14,12 +14,8 @@ duration of a run:
 from __future__ import annotations
 
 import contextlib
-from types import SimpleNamespace
-from typing import Dict
 
 import torch
-
-from bench.reference import bcpnn as ref
 
 
 @contextlib.contextmanager
@@ -74,51 +70,3 @@ def answer():
         yield
     finally:
         ops.hcu_softmax = inner
-
-
-FAULTS = {"half": half, "unchanged": unchanged, "answer": answer}
-
-
-def control(gen) -> SimpleNamespace:
-    """What the TF32 reference puts out in the program's place, stage by
-    stage from the same inputs as the program's stages (``gen`` after its
-    set-up): the stand-in ``observed`` that ``gen.numbers`` judges."""
-    dev = gen.device
-    if gen.kind == "score":
-        hidden, readout = gen.reference_readout(tf32=True)
-        served = []
-        with ref.matmul_precision(True):
-            for xb in gen.pool:
-                s = ref.scores(gen.net, readout, ref.hidden_codes(
-                    gen.net, hidden, xb, gen.traffic["predict_chunk"]))
-                served.append(s.argmax(-1).to(torch.uint8).cpu())
-        return SimpleNamespace(readout={k: v.cpu() for k, v in readout.items()}, served=served)
-    orders = gen.orders()
-    after: Dict[int, Dict] = {}
-    checked = []
-    chunk = gen.traffic["evaluate_chunk"]
-
-    def classes(snap):  # the test rows' classes from the program's state
-        h = {n: v.to(dev) for n, v in snap["hidden"].items()}
-        r = {n: v.to(dev) for n, v in snap["readout"].items()}
-        sc = ref.scores(gen.net, r, ref.hidden_codes(gen.net, h, gen.xt, chunk))
-        return sc.argmax(-1).to(torch.uint8).cpu()
-
-    with ref.matmul_precision(True):
-        for it in gen.checked:
-            for step in it["steps"]:
-                before = {n: v.to(dev) for n, v in gen.state_before(step).items()}
-                out = ref.hidden_step(gen.net, before, step, gen.rows_of(orders, step))
-                after[step] = {n: v.cpu() for n, v in out.items()}
-            h = {n: v.to(dev) for n, v in it["hidden"].items()}
-            codes = ref.hidden_codes(gen.net, h, gen.x, gen.batch)
-            r = ref.readout_epoch(
-                gen.net, {n: v.to(dev) for n, v in it["readout_before"].items()}, codes, gen.y,
-                orders[it["t"] * gen.epochs_per_iter + gen.traffic["epochs_hidden"]], gen.batch)
-            checked.append(dict(readout={n: v.cpu() for n, v in r.items()},
-                                classes=classes(it)))
-        end = dict(classes=classes(gen.end)) if gen.end is not None else None
-    return SimpleNamespace(after=after, checked=checked, end=end)
-
-
-__all__ = ["FAULTS", "control"]

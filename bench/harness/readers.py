@@ -14,9 +14,9 @@ from typing import Dict, Optional
 from bench.harness import counts
 
 
-def load(path: Path):
+def load(path: Path, prefix: str = "bench_metric_"):
     """The reader module in ``path`` (its file name is the metric's name)."""
-    name = "bench_metric_" + "".join(c if c.isalnum() else "_" for c in path.stem)
+    name = prefix + "".join(c if c.isalnum() else "_" for c in path.stem)
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
@@ -58,10 +58,12 @@ def idle_share(run: Dict) -> Optional[float]:
 
 
 def mfu(run: Dict) -> Optional[float]:
-    """The measured window's counted operations over its length times the
-    card's f32 peak, in percent."""
+    """The measured window's counted operations, each launch's over the
+    card's peak at its own precision, over the window's length, in percent."""
     w, peaks = run.get("window"), run.get("peaks")
     if not w or peaks is None or w["window_s"] <= 0:
         return None
-    flops = sum(counts.cost(shape)[0] for _, shape in w["launches"])
-    return 100.0 * flops / (w["window_s"] * peaks.flops)
+    flops: Dict[str, float] = {}  # by precision
+    for _, shape in w["launches"]:
+        flops[shape.precision] = flops.get(shape.precision, 0) + counts.cost(shape)[0]
+    return sum(100.0 * f / (w["window_s"] * peaks.rate(p)) for p, f in flops.items())

@@ -4,9 +4,10 @@
 Everything a cell is made of is found by name: its entry in
 ``BENCHMARK.json``, the configuration file it names, ``bench/traffic/
 <traffic>.json`` (read by the generator of its ``kind``,
-:mod:`bench.harness.cells`), ``bench/workloads/<cell>.json`` (the limits of
-its compared numbers) and ``bench/metrics/<metric>.py`` (one reader a
-metric).  Adding a cell or a per-layer metric adds files only.
+``bench/kinds/<kind>.py``, :mod:`bench.harness.kinds`), ``bench/workloads/
+<cell>.json`` (the limits of its compared numbers) and ``bench/metrics/
+<metric>.py`` (one reader a metric).  Adding a cell, a kind, a configuration
+or a per-layer metric adds files only.
 """
 from __future__ import annotations
 
@@ -20,9 +21,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from bench.harness import cells, counts, readers, schedule, trace
+from bench.harness import cells, counts, kinds, readers, schedule, trace
 
-KERNELS = ("masked_matmul", "hcu_softmax", "bcpnn_update", "bcpnn_phase", "bf_round")
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")  # top-level module names, whole
 
 
@@ -48,12 +48,17 @@ class Cell:
             bench / "traffic" / f"{self.entry['traffic']}.json")
         self.limits = files.get("limits") or load_json(
             bench / "workloads" / f"{name}.json")["limits"]
+        self.generator = kinds.load(bench / "kinds", self.traffic["kind"])
         self.metrics = {}  # name -> (spec entry, reader), the ones this cell reports
         for group in ("end_to_end", "per_layer"):
             for m in spec[group]:
                 if name in m.get("workloads", [name]):
                     self.metrics[m["name"]] = (group, m, readers.load(bench / "metrics" /
                                                                       f"{m['name']}.py"))
+
+    def build(self, seed: int, device):
+        """The cell's traffic generator at ``seed``, before its set-up."""
+        return self.generator(self.cfg, self.traffic, seed, device)
 
 
 def forbidden_modules() -> List[str]:
@@ -99,12 +104,13 @@ def traced_window(cell, units: int, device: torch.device) -> Dict:
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "trace.json")
         prof.export_chrome_trace(path)
-        summary = trace.summarize(path, KERNELS)
+        summary = trace.summarize(path, cell.kernels)
     launches = cell.launches(units)
     expected = schedule.counted(launches)
-    match = all(counted.get(k, 0) == expected.get(k, 0) for k in KERNELS)
+    match = all(counted.get(k, 0) == expected.get(k, 0) for k in cell.kernels)
     if not match:
-        print(f"launch counts {json.dumps({k: counted.get(k) for k in KERNELS})} differ from the "
+        seen = {k: counted.get(k) for k in cell.kernels}
+        print(f"launch counts {json.dumps(seen)} differ from the "
               f"schedule's {json.dumps(expected)}: no roofline read", file=sys.stderr)
     return dict(units=units, records=records, summary=summary, launches=launches,
                 expected=expected, counted=counted, launches_match=match,
@@ -119,7 +125,7 @@ def run(root: Path, spec: Dict, name: str, seed: int, seconds: float, trace_on: 
     set-up's host work (the initial state) takes every core, the windows'
     host path runs steadier from run to run on one thread."""
     c = Cell(root, spec, name, files)
-    gen = cells.KINDS[c.traffic["kind"]](c.cfg, c.traffic, seed, device)
+    gen = c.build(seed, device)
     on_card = device.type == "cuda"
     kind = torch.cuda.get_device_name(device) if on_card else "cpu"
     peaks = counts.peaks_for(kind) if on_card else None
@@ -142,8 +148,7 @@ def run(root: Path, spec: Dict, name: str, seed: int, seconds: float, trace_on: 
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
     record["peaks"] = peaks
     if trace_on:
-        key = "trace_iterations" if gen.kind == "train" else "trace_requests"
-        record["traced"] = traced_window(gen, c.traffic[key], device)
+        record["traced"] = traced_window(gen, c.traffic[gen.trace_key], device)
     attempted = record["window"]["units"]
     gen.after_window()
     gen.release()

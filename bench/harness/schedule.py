@@ -22,6 +22,10 @@ from bench.harness.counts import Forward, Softmax, Update
 
 Launch = Tuple[str, object]
 
+# The port's BCPNN kernels, as ``ops.launch_counts()`` keys them: what the
+# BCPNN kinds' traces summarise and their launches are held to.
+KERNELS = ("masked_matmul", "hcu_softmax", "bcpnn_update", "bcpnn_phase", "bf_round")
+
 
 class Shapes:
     """The layer shapes of a configuration's ``network`` object."""

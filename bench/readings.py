@@ -6,10 +6,11 @@ For each seed it runs the cell's set-up on the card (the program trains or
 fits exactly as in a benchmark run), ``--units`` units of the window (a
 training cell's iterations; a scoring cell serves one request of each batch
 of its pool) and what a run does once its window has closed, then prints one JSON line of the compared numbers of the program (``sound``) and
-of the control, the plain reference in TF32 put in the program's place, on
-the same inputs; then, for each fault named (``bench/harness/faults.py``:
-``half``, ``unchanged``, ``answer``), a line of the numbers of a run with
-that fault planted in the program.  The benchmark's own runs never run
+of the control (the kind's ``control()``: for the BCPNN kinds the plain
+reference in TF32 put in the program's place), on the same inputs; then, for
+each fault named (one of the kind's ``faults``: ``half``, ``unchanged``,
+``answer`` for the BCPNN kinds), a line of the numbers of a run with that
+fault planted in the program.  The benchmark's own runs never run
 this.
 """
 import argparse
@@ -39,7 +40,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
-    from bench.harness import cells, faults, runner
+    from bench.harness import runner
 
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     c = runner.Cell(ROOT, spec, args.workload)
@@ -47,11 +48,10 @@ def main(argv=None) -> int:
     for seed in args.seeds:
         for variant in ([] if args.no_sound else ["sound"]) + args.faults:
             t0 = time.perf_counter()
-            gen = cells.KINDS[c.traffic["kind"]](c.cfg, c.traffic, seed, device)
-            with faults.FAULTS[variant]() if variant != "sound" else contextlib.nullcontext():
+            gen = c.build(seed, device)
+            with gen.faults[variant]() if variant != "sound" else contextlib.nullcontext():
                 gen.setup()
-                units = c.traffic["pool"] if gen.kind == "score" else args.units
-                for _ in range(units):
+                for _ in range(gen.check_units(args.units)):
                     gen.unit()
                 gen.after_window()
             gen.release()
@@ -61,7 +61,7 @@ def main(argv=None) -> int:
             line = dict(workload=args.workload, seed=seed, variant=variant,
                         numbers=gen.numbers())
             if variant == "sound":
-                line["control"] = gen.numbers(faults.control(gen))
+                line["control"] = gen.numbers(gen.control())
             line["seconds"] = time.perf_counter() - t0
             print(json.dumps(line), flush=True)
             del gen

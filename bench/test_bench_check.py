@@ -11,9 +11,14 @@ import time
 import pytest
 import torch
 
-from bench.harness import cells, check, faults, runner
+from bench.harness import check, kinds, runner
 from bench.reference import bcpnn as ref
 from bench.test_bench_harness import ROOT, SPEC, tiny_files
+
+
+def kind(name: str) -> type:
+    """The generator class of traffic kind ``name``, as the runner loads it."""
+    return kinds.load(ROOT / "bench" / "kinds", name)
 
 
 def test_reference_step_matches_a_step_worked_by_hand():
@@ -86,14 +91,13 @@ def test_control_comes_out_not_correct(cell):
     the CPU (TF32 emulated by rounding the products' operands)."""
     files = tiny_files(cell)
     limits = json.loads((ROOT / "bench" / "workloads" / f"{cell}.json").read_text())["limits"]
-    gen = cells.KINDS[files["traffic"]["kind"]](files["cfg"], files["traffic"], 2**32 + 5, "cpu")
+    gen = kind(files["traffic"]["kind"])(files["cfg"], files["traffic"], 2**32 + 5, "cpu")
     gen.setup()
-    if gen.kind == "score":
-        for _ in range(4):
-            gen.unit()
+    for _ in range(gen.check_units(0)):  # the score cell's pool of 4; no training iteration
+        gen.unit()
     gen.release()
     sound = gen.numbers()
-    control = gen.numbers(faults.control(gen))
+    control = gen.numbers(gen.control())
     assert sound["init_gap"] == 0.0 and control["init_gap"] == 0.0
     assert all(v <= limits[k] for k, v in sound.items()), (sound, limits)
     assert any(v > limits[k] for k, v in control.items()), (control, limits)
@@ -111,7 +115,7 @@ def test_a_broken_timed_path_comes_out_not_correct(cell, fault, number):
     """A whole run (its look for a card skipped) with a fault planted in the
     program: the check reads the fault's number over its limit, and
     ``correct`` is false."""
-    with faults.FAULTS[fault]():
+    with runner.Cell(ROOT, SPEC, cell).generator.faults[fault]():
         result, lines = runner.run(ROOT, SPEC, cell, 2**31 + 99, 0.1, False,
                                    torch.device("cpu"), time.perf_counter(),
                                    files=tiny_files(cell))
@@ -141,13 +145,14 @@ def test_a_fault_only_after_set_up_comes_out_not_correct(fault, number, monkeypa
     """A training path that is wrong only once set-up is over (in steady
     state, as a CUDA graph captured after warm-up could be) is caught by the
     check of the state the window leaves and of the iteration after it."""
-    setup = cells.TrainCell.setup
+    train = kind("train")
+    setup = train.setup
     with contextlib.ExitStack() as stack:
         def setup_then_fault(self):
             setup(self)
-            stack.enter_context(faults.FAULTS[fault]())
+            stack.enter_context(train.faults[fault]())
 
-        monkeypatch.setattr(cells.TrainCell, "setup", setup_then_fault)
+        monkeypatch.setattr(train, "setup", setup_then_fault)
         result, _ = runner.run(ROOT, SPEC, "stl10-20x150.train", 2**31 + 77, 0.1, False,
                                torch.device("cpu"), time.perf_counter(),
                                files=tiny_files("stl10-20x150.train"))
@@ -158,7 +163,7 @@ def test_a_fault_only_after_set_up_comes_out_not_correct(fault, number, monkeypa
 
 def test_the_check_covers_the_window_and_the_iteration_after_it():
     files = tiny_files("stl10-20x150.train")
-    gen = cells.TrainCell(files["cfg"], files["traffic"], 2**31 + 5, "cpu")
+    gen = kind("train")(files["cfg"], files["traffic"], 2**31 + 5, "cpu")
     gen.setup()
     for _ in range(3):
         gen.unit()
