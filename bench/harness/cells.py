@@ -22,8 +22,9 @@ def sync(device: torch.device) -> None:
 
 class _Kinds:
     """The kinds of ``bench/kinds/`` by name, loaded when first asked for:
-    for callers outside ``bench/`` that index them (``tools/span_breakdown.py``);
-    the harness itself uses :func:`bench.harness.kinds.load`."""
+    for ``tools/span_breakdown.py`` alone, which goes once its ``measure``
+    calls :func:`bench.harness.spans.measure`; the harness itself uses
+    :func:`bench.harness.kinds.load`."""
 
     def __getitem__(self, kind: str) -> type:
         return kinds.load(Path(__file__).resolve().parent.parent / "kinds", kind)

@@ -13,6 +13,16 @@ import torch
 HIDDEN_KEYS = ("ci", "cj", "cij", "w", "b", "hcu_mask")
 READOUT_KEYS = ("ci", "cj", "cij", "w", "b")
 
+# The BCPNN kinds' cut of a configuration for the CPU tests (``tiny``)
+TINY_NET = dict(input_features=48, hidden_hcu=4, hidden_mcu=8, fan_in=12, mask_update_every=4)
+TINY_DATA = dict(features=48, train_rows=320, test_rows=200)
+
+
+def tiny_config(cfg: Dict) -> Dict:
+    """A copy of ``cfg`` with its network and data cut to ``TINY_NET`` and
+    ``TINY_DATA``."""
+    return dict(cfg, network=dict(cfg["network"], **TINY_NET), data=dict(cfg["data"], **TINY_DATA))
+
 
 def build(cfg: Dict, seed: int, device, cache_activations: bool):
     """``Network(seed)`` + one ``StructuralPlasticityLayer`` + one

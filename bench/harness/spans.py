@@ -50,7 +50,7 @@ def profiled_window(cell, units: int, device, spans: bool) -> Optional[Dict]:
     window.  None when ``spans`` and the program cannot attach a tracer."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    compiled = cell.compiled
+    compiled = getattr(cell, "compiled", None)
     if spans and not hasattr(compiled, "tracing"):
         return None
     activities = [ProfilerActivity.CPU]
@@ -76,6 +76,51 @@ def profiled_window(cell, units: int, device, spans: bool) -> Optional[Dict]:
         prof.export_chrome_trace(path)
         out = attribute(path)
     return dict(out, units=units, unit_s=unit_s, spans_on=spans, counters=counters)
+
+
+def measure(root: Path, spec: Dict, name: str, seed: int, device, rounds: int,
+            files: Optional[Dict] = None) -> Dict:
+    """Set-up of cell ``name`` at ``seed``, then ``rounds`` pairs of profiled
+    windows of its traced size (the traffic's ``trace_key`` units), without
+    and with the program's tracer, the order turning each round: their unit
+    times, the last spans window (None where the kind's program attaches no
+    tracer), the port's kernel launches in it, and the :data:`METRICS` of
+    the cell's kind read from it."""
+    import torch
+
+    from bench.harness import runner
+    from repro_torch.kernels import ops
+
+    c = runner.Cell(root, spec, name, files)
+    gen = c.build(seed, device)
+    torch.zeros(1, device=device)
+    t0 = time.perf_counter()
+    gen.setup()
+    cells.sync(device)
+    setup_s = time.perf_counter() - t0
+    torch.set_num_threads(1)
+    units = c.traffic[gen.trace_key]
+    unit_s: Dict[bool, List[float]] = {False: [], True: []}
+    last, launches = None, {}
+    for r in range(rounds):
+        for on in ((False, True) if r % 2 == 0 else (True, False)):
+            before = ops.launch_counts()
+            window = profiled_window(gen, units, device, spans=on)
+            if window is None:
+                continue
+            unit_s[on] += window["unit_s"]
+            if on:
+                last = window
+                launches = {k: v - before.get(k, 0) for k, v in ops.launch_counts().items()
+                            if v != before.get(k, 0)}
+    medians = {on: statistics.median(v) if v else None for on, v in unit_s.items()}
+    metrics = {m: fn(dict(spans=last)) for m, (fn, kind) in METRICS.items() if kind == gen.kind}
+    card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    cost = medians[True] / medians[False] if last is not None else None
+    return dict(workload=name, kind=gen.kind, seed=seed, device=card, setup_s=setup_s,
+                units=units, unit_s_median=dict(traced=medians[False], spans=medians[True]),
+                tracing_cost=cost, unit_s=dict(traced=unit_s[False], spans=unit_s[True]),
+                metrics=metrics, launches=launches, spans=last)
 
 
 def _innermost(starts: np.ndarray, ends: np.ndarray, lo: float, hi: float,

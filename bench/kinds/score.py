@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import time
 from types import SimpleNamespace
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -26,6 +26,8 @@ class ScoreCell:
     trace_key = "trace_requests"
     kernels = schedule.KERNELS
     faults = {"half": faults.half, "unchanged": faults.unchanged, "answer": faults.answer}
+    compared = ("init_gap", "readout_err", "answer_gap")
+    control_key, control_margin = "readout_err", 100.0
 
     def __init__(self, cfg: Dict, traffic: Dict, seed: int, device):
         self.cfg, self.traffic, self.seed = cfg, traffic, int(seed)
@@ -37,6 +39,27 @@ class ScoreCell:
         self.rows = traffic["request_rows"]
         self.served: List[torch.Tensor] = []  # every request's class ids, in order
         self.marks: List = []  # (name, time) at the end of each part of set-up
+
+    @staticmethod
+    def tiny(cfg: Dict, traffic: Dict) -> Tuple[Dict, Dict]:
+        """The network and data cut to ``program.TINY_NET`` and ``TINY_DATA``;
+        a pool of 4 requests of 100 rows in chunks of 32, 2 traced."""
+        return program.tiny_config(cfg), dict(traffic, request_rows=100, predict_chunk=32,
+                                              fit_batch_size=32, pool=4, trace_requests=2)
+
+    @staticmethod
+    def tiny_spans(cfg: Dict, traffic: Dict, units: int) -> Dict:
+        """A spans window's requests at the tiny size: one ``predict`` span a
+        request, one ``predict.chunk`` a chunk, and on the CPU, which has no
+        gathered product, the hidden unit mask (2 x input features x hidden
+        units, f32) expanded once a chunk: the only counter with the store
+        off."""
+        net = cfg["network"]
+        chunks = units * -(-traffic["request_rows"] // traffic["predict_chunk"])
+        mask_bytes = 2 * net["input_features"] * net["hidden_hcu"] * net["hidden_mcu"] * 4
+        return dict(spans={"predict": units, "predict.chunk": chunks},
+                    counters={"layer.unit_mask_bytes": chunks * mask_bytes},
+                    no_other_counters=True)
 
     def setup(self) -> None:
         draw = Draw(self.cfg["data"], self.seed, self.device)

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import time
 from types import SimpleNamespace
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +33,8 @@ class TrainCell:
     trace_key = "trace_iterations"
     kernels = schedule.KERNELS
     faults = {"half": faults.half, "unchanged": faults.unchanged, "answer": faults.answer}
+    compared = ("init_gap", "hidden_err", "mask_cols", "readout_err", "answer_gap")
+    control_key, control_margin = "hidden_err", 100.0
 
     def __init__(self, cfg: Dict, traffic: Dict, seed: int, device):
         self.cfg, self.traffic, self.seed = cfg, traffic, int(seed)
@@ -47,6 +49,27 @@ class TrainCell:
         self.epochs_per_iter = traffic["epochs_hidden"] + traffic["epochs_readout"]
         self.iterations = 0  # iterations trained since the network was compiled
         self.marks: List = []  # (name, time) at the end of each part of set-up
+
+    # ------------------------------------------------------- the CPU tests
+    @staticmethod
+    def tiny(cfg: Dict, traffic: Dict) -> Tuple[Dict, Dict]:
+        """The network and data cut to ``program.TINY_NET`` and ``TINY_DATA``;
+        10 batches an epoch, 2 hidden epochs, 2 checked iterations, 1 traced."""
+        return program.tiny_config(cfg), dict(traffic, batch_size=32, epochs_hidden=2,
+                                              check_steps=2, trace_iterations=1)
+
+    @staticmethod
+    def tiny_spans(cfg: Dict, traffic: Dict, units: int) -> Dict:
+        """A spans window's rewirings and projections at the tiny size: every
+        ``mask_update_every`` of an iteration's hidden batches rewires (the
+        tiny size makes it divide them), and the activation store projects
+        twice an iteration (the training rows at the readout, the test rows
+        at evaluate)."""
+        n_train = cfg["data"]["train_rows"]
+        hidden = traffic["epochs_hidden"] * (n_train // min(traffic["batch_size"], n_train))
+        rewires = units * (hidden // schedule.Shapes(cfg["network"]).every)
+        return dict(spans={"layer.rewire": rewires, "store.project": 2 * units},
+                    counters={"layer.rewires": rewires, "store.projections": 2 * units})
 
     # ------------------------------------------------------------- set-up
     def setup(self) -> None:

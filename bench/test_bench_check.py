@@ -1,10 +1,10 @@
 """The check that decides ``correct``: the reference against a BCPNN step
 worked by hand, and runs with the timed path broken underneath (the
-faults) or the TF32 control in the program's place, which have to come out
-not correct.  CPU, small sizes; the same readings at the cells' own sizes
-come from ``python3 bench/readings.py`` on the card."""
+faults) or the kind's control (for the BCPNN kinds the TF32 reference) in
+the program's place, which have to come out not correct.  CPU, small
+sizes; the same readings at the cells' own sizes come from ``python3
+bench/readings.py`` on the card."""
 import contextlib
-import json
 import math
 import time
 
@@ -84,25 +84,45 @@ def test_tf32_round_keeps_ten_mantissa_bits():
     assert ref.tf32_round(x).tolist() == [1.0 + 2**-10, 1.0 + 2**-10, 1.0, -3.0 - 2**-9]
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
-def test_control_comes_out_not_correct(cell):
-    """The TF32 reference in the program's place fails the cell's limits and
-    reads over a hundred times what the program reads, at a small size on
-    the CPU (TF32 emulated by rounding the products' operands)."""
+def _tiny_cell(cell: str, seed: int):
+    """Cell ``cell``'s generator at its kind's tiny size, set up, with the
+    units the readings run (the score cell's pool of 4; no training
+    iteration), released; and the cell's limits."""
     files = tiny_files(cell)
-    limits = json.loads((ROOT / "bench" / "workloads" / f"{cell}.json").read_text())["limits"]
-    gen = kind(files["traffic"]["kind"])(files["cfg"], files["traffic"], 2**32 + 5, "cpu")
+    c = runner.Cell(ROOT, SPEC, cell, files)
+    gen = c.build(seed, "cpu")
     gen.setup()
-    for _ in range(gen.check_units(0)):  # the score cell's pool of 4; no training iteration
+    for _ in range(gen.check_units(0)):
         gen.unit()
     gen.release()
+    return gen, c.limits
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
+def test_control_comes_out_not_correct(cell):
+    """The kind's control in the program's place (for the BCPNN kinds the
+    TF32 reference, TF32 emulated by rounding the products' operands) fails
+    the cell's limits and reads ``control_margin`` times what the program
+    reads on the kind's ``control_key``, at a small size on the CPU."""
+    gen, limits = _tiny_cell(cell, 2**32 + 5)
     sound = gen.numbers()
     control = gen.numbers(gen.control())
-    assert sound["init_gap"] == 0.0 and control["init_gap"] == 0.0
+    if "init_gap" in gen.compared:
+        assert sound["init_gap"] == 0.0 and control["init_gap"] == 0.0
     assert all(v <= limits[k] for k, v in sound.items()), (sound, limits)
     assert any(v > limits[k] for k, v in control.items()), (control, limits)
-    key = "hidden_err" if "hidden_err" in sound else "readout_err"
-    assert control[key] > 100 * max(sound[key], 1e-9), (sound, control)
+    key = gen.control_key
+    assert control[key] > gen.control_margin * max(sound[key], 1e-9), (sound, control)
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
+def test_numbers_are_what_the_kind_compares(cell):
+    """A cell's check compares exactly the numbers its kind declares, the
+    program's and the control's alike."""
+    gen, _ = _tiny_cell(cell, 2**31 + 21)
+    want = set(gen.compared)
+    assert len(want) == len(gen.compared)
+    assert set(gen.numbers()) == want and set(gen.numbers(gen.control())) == want
 
 
 @pytest.mark.parametrize("cell,fault,number", [
@@ -130,12 +150,10 @@ def test_a_broken_timed_path_comes_out_not_correct(cell, fault, number):
 
 def test_limits_name_every_compared_number():
     for w in SPEC["workloads"]:
-        limits = json.loads((ROOT / "bench" / "workloads" / f"{w['name']}.json").read_text())
-        kind = json.loads((ROOT / "bench" / "traffic" / f"{w['traffic']}.json").read_text())["kind"]
-        want = {"init_gap", "readout_err", "answer_gap"} | (
-            {"hidden_err", "mask_cols"} if kind == "train" else set())
-        assert set(limits["limits"]) == want
-        assert limits["limits"]["init_gap"] == 0.0
+        c = runner.Cell(ROOT, SPEC, w["name"])
+        assert set(c.limits) == set(c.generator.compared), w["name"]
+        if "init_gap" in c.generator.compared:
+            assert c.limits["init_gap"] == 0.0
 
 
 @pytest.mark.parametrize("fault,number", [

@@ -3,6 +3,7 @@ its operation and byte counts, its trace arithmetic, its result line, and
 what it imports.  Tests that need the card carry the ``cuda`` marker."""
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -17,23 +18,13 @@ from bench.harness.data import Draw
 
 ROOT = Path(__file__).resolve().parent.parent
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
-TINY_NET = dict(input_features=48, hidden_hcu=4, hidden_mcu=8, fan_in=12, mask_update_every=4)
-TINY_DATA = dict(features=48, train_rows=320, test_rows=200)
 
 
 def tiny_files(cell: str):
-    """A cell's own files, cut to a size the CPU runs in a second."""
-    entry = [w for w in SPEC["workloads"] if w["name"] == cell][0]
-    config = [c for c in SPEC["configs"] if c["name"] == entry["config"]][0]
-    cfg = json.loads((ROOT / config["file"]).read_text())
-    cfg["network"].update(TINY_NET)
-    cfg["data"].update(TINY_DATA)
-    traffic = json.loads((ROOT / "bench" / "traffic" / f"{entry['traffic']}.json").read_text())
-    if traffic["kind"] == "train":
-        traffic.update(batch_size=32, epochs_hidden=2, check_steps=2, trace_iterations=1)
-    else:
-        traffic.update(request_rows=100, predict_chunk=32, fit_batch_size=32, pool=4,
-                       trace_requests=2)
+    """A cell's own files, cut by its kind's ``tiny`` to a size the CPU runs
+    in about a second."""
+    c = runner.Cell(ROOT, SPEC, cell)
+    cfg, traffic = c.generator.tiny(c.cfg, c.traffic)
     return dict(cfg=cfg, traffic=traffic)
 
 
@@ -229,9 +220,12 @@ def card():
 @pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
 def test_a_small_cell_on_the_card(card, cell):
     """A traced run of each cell at a small size through the kernels: correct,
-    its launches as the schedule lists them, its rooflines read."""
+    its launches as the schedule lists them, and every kernel roofline that
+    ``BENCHMARK.json`` lists for the cell read."""
     result, _ = runner.run(ROOT, SPEC, cell, 2**31 + 3, 0.2, True, card, time.perf_counter(),
                            files=tiny_files(cell))
     assert result["correct"] is True and result["device"]["platform"] == "gpu"
     assert result["device"]["busy_s"] > 0
-    assert any(k.startswith("masked_matmul_roofline") for k in result["metrics"])
+    rooflines = {m["name"] for m in SPEC["per_layer"] if cell in m.get("workloads", [cell])
+                 and re.search(r"_roofline(\.|$)", m["name"])}
+    assert rooflines <= set(result["metrics"]), (rooflines, result["metrics"])

@@ -8,6 +8,7 @@ import os
 import shutil
 import subprocess
 import sys
+import xml.etree.ElementTree as ET
 from pathlib import Path
 from typing import NamedTuple
 
@@ -22,7 +23,11 @@ BF16_RATE = 989.4e12
 
 
 # --------------------------------------------- a new kind adds files only
-TOY_KIND = '''"""``toy``: a bf16 product of fresh rows with one weight matrix, a closed loop."""
+TOY_KIND = '''"""``toy``: a bf16 product of fresh rows with one weight matrix, a closed loop.
+
+Its control is the same product with the operands rounded to fp8 (e4m3),
+one precision below bf16; its program attaches no tracer.
+"""
 import time
 from types import SimpleNamespace
 from typing import NamedTuple
@@ -47,12 +52,22 @@ class ToyCell:
     trace_key = "trace_units"
     kernels = ("toy_matmul",)
     faults = {}
+    compared = ("rel_gap",)
+    control_key, control_margin = "rel_gap", 4.0
 
     def __init__(self, cfg, traffic, seed, device):
         self.cfg, self.traffic, self.seed = cfg, traffic, int(seed)
         self.device = torch.device(device)
         self.rows, self.width = cfg["rows"], cfg["width"]
         self.marks = []
+
+    @staticmethod
+    def tiny(cfg, traffic):
+        return dict(cfg), dict(traffic)
+
+    @staticmethod
+    def tiny_spans(cfg, traffic, units):
+        return {}
 
     def setup(self):
         g = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -85,7 +100,8 @@ class ToyCell:
         return units
 
     def control(self):
-        return SimpleNamespace(out=(self.x.half() @ self.w.half()).float())
+        fp8 = torch.float8_e4m3fn
+        return SimpleNamespace(out=self.x.to(fp8).float() @ self.w.to(fp8).float())
 
     def numbers(self, observed=None):
         want = self.x.double() @ self.w.double()
@@ -96,17 +112,27 @@ class ToyCell:
         return 0
 '''
 
+# rel_gap on ten seeds: the program 0.0026-0.0045, the fp8 control
+# 0.027-0.051 (6.9-14 times the program's)
+TOY_LIMIT = 0.012
 TOY_FILES = {
     "kinds/toy.py": TOY_KIND,
     "configs/toy-64.json": json.dumps(dict(name="toy-64", rows=64, width=96)),
     "traffic/toy_loop.json": json.dumps(dict(kind="toy", trace_units=3)),
-    "workloads/toy-64.loop.json": json.dumps(dict(limits=dict(rel_gap=0.05))),
+    "workloads/toy-64.loop.json": json.dumps(dict(limits=dict(rel_gap=TOY_LIMIT))),
     # the window's operations over the H100's rate at their precision, in
     # seconds (on the CPU a run has no peaks of its own)
     "metrics/toy.rated_s.py": "from bench.harness import counts, readers\n\n\ndef read(run):\n"
                               "    h100 = dict(run, peaks=counts.H100)\n"
                               "    return readers.mfu(h100) * run['window']['window_s'] / 100\n",
 }
+TOY_ENTRIES = dict(
+    configs=dict(name="toy-64", source="https://example.org/toy",
+                 file="bench/configs/toy-64.json", reduced=[], why="a toy"),
+    workloads=dict(name="toy-64.loop", config="toy-64", traffic="toy_loop", chips=1,
+                   why="a toy"),
+    per_layer=dict(name="toy.rated_s", unit="s", better="lower", source="host_clock",
+                   layer="whole step", moves="train_samples_per_s", workloads=["toy-64.loop"]))
 
 TOY_RUN = """
 import json, sys, time
@@ -128,43 +154,71 @@ def _hashes(root: Path):
             for p in sorted(root.rglob("*")) if p.is_file() and "__pycache__" not in p.parts}
 
 
-def test_a_new_kind_runs_with_new_files_only(tmp_path):
-    """A toy kind, its bf16 shape, configuration, traffic, limits and a
-    reader added as new files beside a copy of the harness: the copy's
-    runner runs it with and without the trace, and no file of the copy
-    changed."""
+def _toy_checkout(tmp_path: Path, copied=("bench",)):
+    """A copy of ``copied`` (paths from the repository's root) and
+    ``BENCHMARK.json``, with the toy kind, its configuration, traffic,
+    limits and reader added as new files, and its entries added to
+    ``BENCHMARK.json``, ``toy-64.loop`` among the workloads of
+    ``train_samples_per_s``.  Returns the copy's root and the hashes of
+    what was copied, taken before the toy went in."""
     root = tmp_path / "checkout"
-    shutil.copytree(ROOT / "bench", root / "bench",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    before = _hashes(root / "bench")
-    assert before == _hashes(ROOT / "bench")
+    for rel in copied + ("BENCHMARK.json",):
+        if (ROOT / rel).is_dir():
+            shutil.copytree(ROOT / rel, root / rel, ignore=shutil.ignore_patterns("__pycache__"))
+        else:
+            (root / rel).parent.mkdir(parents=True, exist_ok=True)
+            shutil.copyfile(ROOT / rel, root / rel)
+    before = _hashes(root)
+    assert before == {k: v for k, v in _hashes(ROOT).items() if k in before}
     for rel, text in TOY_FILES.items():
         path = root / "bench" / rel
         assert not path.exists(), rel
         path.write_text(text)
     spec = json.loads(json.dumps(SPEC))
-    spec["configs"].append(dict(name="toy-64", source="https://example.org/toy",
-                                file="bench/configs/toy-64.json", reduced=[], why="a toy"))
-    spec["workloads"].append(dict(name="toy-64.loop", config="toy-64", traffic="toy_loop",
-                                  chips=1, why="a toy"))
+    for group, entry in TOY_ENTRIES.items():
+        spec[group].append(entry)
     for m in spec["end_to_end"]:
         if m["name"] == "train_samples_per_s":
             m["workloads"].append("toy-64.loop")
-    spec["per_layer"].append(dict(name="toy.rated_s", unit="s", better="lower",
-                                  source="host_clock", layer="whole step",
-                                  moves="train_samples_per_s", workloads=["toy-64.loop"]))
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return root, before
 
+
+def _env(root: Path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = os.pathsep.join([str(root), str(ROOT / "src")])
-    out = subprocess.run([sys.executable, "-c", TOY_RUN], cwd=root, env=env,
+    return env
+
+
+def _only_new_files(root: Path, before):
+    """No file of the copy changed but ``BENCHMARK.json``, which gained the
+    toy's entries alone, and the new files are the toy's."""
+    after = _hashes(root)
+    assert {k for k in before if after.get(k) != before[k]} == {"BENCHMARK.json"}
+    assert set(after) - set(before) == {f"bench/{rel}" for rel in TOY_FILES}
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    for group, entry in TOY_ENTRIES.items():
+        spec[group].remove(entry)
+    for m in spec["end_to_end"]:
+        if m["name"] == "train_samples_per_s":
+            m["workloads"].remove("toy-64.loop")
+    assert spec == SPEC
+
+
+def test_a_new_kind_runs_with_new_files_only(tmp_path):
+    """A toy kind, its bf16 shape, configuration, traffic, limits and a
+    reader added as new files beside a copy of the harness: the copy's
+    runner runs it with and without the trace, and no file of the copy
+    changed."""
+    root, before = _toy_checkout(tmp_path)
+    out = subprocess.run([sys.executable, "-c", TOY_RUN], cwd=root, env=_env(root),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     plain, traced = (json.loads(line) for line in out.stdout.strip().splitlines()[-2:])
     for result in (plain, traced):
         assert result["correct"] is True and result["failed"] == 0 and result["attempted"] >= 1
         assert list(result)[-1] == "check" and set(result["check"]) == {"rel_gap"}
-        assert result["check"]["rel_gap"]["limit"] == 0.05
+        assert result["check"]["rel_gap"]["limit"] == TOY_LIMIT
         assert {"platform", "kind", "count", "memory_peak_bytes"} <= set(result["device"])
     assert set(plain["metrics"]) == {"train_samples_per_s", "setup_s"}
     assert plain["metrics"]["train_samples_per_s"]["value"] > 0
@@ -174,10 +228,58 @@ def test_a_new_kind_runs_with_new_files_only(tmp_path):
     flops = 2.0 * 64 * 96 * 96
     want = traced["attempted"] * flops / BF16_RATE
     assert traced["metrics"]["toy.rated_s"]["value"] == pytest.approx(want, rel=1e-9)
+    _only_new_files(root, before)
 
-    after = _hashes(root / "bench")
-    assert {k: after[k] for k in before} == before
-    assert set(after) - set(before) == set(TOY_FILES)
+
+# the tests that run once for each cell of BENCHMARK.json, and those that
+# loop over every cell
+PER_CELL = ("test_control_comes_out_not_correct", "test_numbers_are_what_the_kind_compares",
+            "test_spans_window_of_a_small_cell", "test_a_small_cell_on_the_card")
+ALL_CELLS = ("test_limits_name_every_compared_number", "test_every_metric_has_a_reader_and_a_cell")
+
+
+def test_a_new_kind_passes_every_per_cell_test(tmp_path):
+    """The toy cell added as new files only beside a copy of the harness and
+    its tests: ``pytest`` on the copy's ``bench/`` collects a case of every
+    per-cell test for it, and each such case and each test over every cell
+    passes (the card's skips on the CPU); no file of the copy changed."""
+    root, before = _toy_checkout(tmp_path, ("bench", "tools/span_breakdown.py", "pytest.ini"))
+    base = [sys.executable, "-m", "pytest", "-p", "no:cacheprovider", "-p", "no:randomly"]
+    out = subprocess.run(base + ["--collect-only", "-q", "bench"], cwd=root, env=_env(root),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    own = "test_a_new_kind_passes_every_per_cell_test"
+    chosen = [i for i in out.stdout.splitlines() if "::" in i and own not in i
+              and ("toy-64.loop" in i.partition("[")[2] or i.rpartition("::")[2] in ALL_CELLS)]
+    names = [i.rpartition("::")[2] for i in chosen]
+    for test in PER_CELL:
+        assert any(n.startswith(test + "[") for n in names), (test, names)
+    xml = tmp_path / "toy.xml"
+    out = subprocess.run(base + ["-q", f"--junitxml={xml}"] + chosen, cwd=root, env=_env(root),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-2000:]
+    outcome = {c.get("name"): [e.tag for e in c if e.tag in ("failure", "error", "skipped")]
+               for c in ET.parse(xml).getroot().iter("testcase")}
+    assert sorted(outcome) == sorted(names)
+    card = "test_a_small_cell_on_the_card[toy-64.loop]"  # skips without a card
+    assert all(tags in ([], ["skipped"]) if name == card else tags == []
+               for name, tags in outcome.items()), outcome
+    _only_new_files(root, before)
+
+
+def test_a_kind_names_what_it_lacks(tmp_path):
+    """A kind's class without an attribute the runner or the tests read
+    stops the loader, which names the file and what is missing; the BCPNN
+    kinds declare them all."""
+    body = TOY_KIND.replace('    compared = ("rel_gap",)\n', "").replace(
+        "    @staticmethod\n    def tiny_spans(cfg, traffic, units):\n        return {}\n", "")
+    assert "compared" not in body and "tiny_spans" not in body
+    (tmp_path / "toy.py").write_text(body)
+    with pytest.raises(SystemExit, match=r"toy\.py: class ToyCell lacks compared, tiny_spans "):
+        kinds.load(tmp_path, "toy")
+    for name in ("train", "score"):
+        cls = kinds.load(ROOT / "bench" / "kinds", name)
+        assert all(hasattr(cls, a) for a in kinds.RUNNER + kinds.TESTS), name
 
 
 def test_an_unknown_kind_names_the_file_it_looked_for():

@@ -8,7 +8,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from bench.harness import spans, trace
+from bench.harness import runner, spans, trace
 from bench.test_bench_harness import SPEC, tiny_files
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -138,30 +138,47 @@ def test_a_program_without_tracing_gives_no_spans_window():
 
 @pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
 def test_spans_window_of_a_small_cell(cell):
-    """On the CPU: both windows run, the counters agree with the code (the
-    tiny train cell rewires every 4 of its 20 hidden batches an iteration
-    and projects twice: the training rows at the readout, the test rows at
-    evaluate), and no metric that reads device time finds any."""
+    """On the CPU: both windows run (the spans window only where the kind's
+    program attaches a tracer), the spans and counters are those the kind's
+    ``tiny_spans`` expects (the tiny train cell rewires every 4 of its 20
+    hidden batches an iteration and projects twice: the training rows at
+    the readout, the test rows at evaluate), and no metric that reads
+    device time finds any."""
     files = tiny_files(cell)
-    out = span_breakdown.measure(SPEC, cell, 2**31 + 5, torch.device("cpu"), 1, files=files)
+    out = spans.measure(ROOT, SPEC, cell, 2**31 + 5, torch.device("cpu"), 1, files=files)
     units = out["units"]
-    assert len(out["unit_s"]["traced"]) == len(out["unit_s"]["spans"]) == units
-    assert out["device"] == "cpu" and out["tracing_cost"] > 0
+    gen = runner.Cell(ROOT, SPEC, cell, files).generator
+    want = gen.tiny_spans(files["cfg"], files["traffic"], units)
+    assert out["device"] == "cpu" and out["kind"] == gen.kind
+    assert len(out["unit_s"]["traced"]) == units
     s = out["spans"]
-    assert s["spans_on"] and s["busy_s"] == 0 and s["coverage"] is None
+    if s is None:  # the program attaches no tracer: the kind can expect nothing
+        assert want == {} and out["unit_s"]["spans"] == [] and out["tracing_cost"] is None
+    else:
+        assert len(out["unit_s"]["spans"]) == units and out["tracing_cost"] > 0
+        assert s["spans_on"] and s["busy_s"] == 0 and s["coverage"] is None
+        for name, count in want.get("spans", {}).items():
+            assert s["by_span"][name]["count"] == count, name
+        got = {k: s["counters"].get(k) for k in want.get("counters", {})}
+        assert got == want.get("counters", {}), s["counters"]
+        if want.get("no_other_counters"):
+            assert s["counters"] == want["counters"]
     host_only = {"predict.enqueue_ms.score"}  # a host length, read on any device
     assert all(v is None for k, v in out["metrics"].items() if k not in host_only)
-    net = files["cfg"]["network"]
-    mask_bytes = 2 * net["input_features"] * net["hidden_hcu"] * net["hidden_mcu"] * 4
-    if out["spans"]["by_span"].get("fit"):
-        assert s["counters"]["layer.rewires"] == 5 * units
-        assert s["counters"]["store.projections"] == 2 * units
-        assert s["by_span"]["layer.rewire"]["count"] == 5 * units
-        assert s["by_span"]["store.project"]["count"] == 2 * units
-        assert set(out["metrics"]) == {m for m, (_, k) in spans.METRICS.items() if k == "train"}
-    else:
-        chunks = -(-files["traffic"]["request_rows"] // files["traffic"]["predict_chunk"])
-        assert s["by_span"]["predict"]["count"] == units
-        assert s["by_span"]["predict.chunk"]["count"] == units * chunks
-        assert s["counters"] == {"layer.unit_mask_bytes": units * chunks * mask_bytes}
-        assert set(out["metrics"]) == {m for m, (_, k) in spans.METRICS.items() if k == "score"}
+    assert set(out["metrics"]) == {m for m, (_, k) in spans.METRICS.items() if k == gen.kind}
+
+
+@pytest.mark.parametrize("cell", ["stl10-20x150.train", "stl10-20x150.score"])
+def test_the_span_breakdown_tool_measures_as_the_harness(cell):
+    """``tools/span_breakdown.py`` still has its own copy of
+    :func:`bench.harness.spans.measure`: on the same cell and seed the two
+    count the same spans, counters and launches and read the same metrics."""
+    files = tiny_files(cell)
+    cpu = torch.device("cpu")
+    a = span_breakdown.measure(SPEC, cell, 2**31 + 5, cpu, 1, files=files)
+    b = spans.measure(ROOT, SPEC, cell, 2**31 + 5, cpu, 1, files=files)
+    assert a["units"] == b["units"] and a["launches"] == b["launches"]
+    assert a["spans"]["counters"] == b["spans"]["counters"]
+    assert ({k: v["count"] for k, v in a["spans"]["by_span"].items()}
+            == {k: v["count"] for k, v in b["spans"]["by_span"].items()})
+    assert set(a["metrics"]) == set(b["metrics"])
